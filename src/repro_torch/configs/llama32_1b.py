@@ -1,0 +1,25 @@
+"""llama3.2-1b — Meta Llama 3.2 1B.
+
+[hf:meta-llama/Llama-3.2-1B] — 16L, d_model=2048, 32 heads (GQA kv=8),
+d_ff=8192, vocab=128256, rope theta 500k.
+"""
+
+from .base import ModelConfig, register
+
+
+@register("llama3.2-1b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3.2-1b",
+        arch_type="dense",
+        citation="hf:meta-llama/Llama-3.2-1B",
+        n_layers=16,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=64,
+        d_ff=8192,
+        vocab=128256,
+        act="swiglu",
+        rope_theta=500_000.0,
+    )

@@ -1,0 +1,49 @@
+"""Load JAX-package state (as numpy) into the port.
+
+``params_from_jax`` turns the JAX parameter tree (a nested dict of numpy
+arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into the port's
+``{path: nn.Parameter}`` tree; ``state_from_jax`` does the same for a
+``repro.core.diana.ReferenceState`` (``h_worker``, ``h_server``, ``v``).
+Arrays are copied bit for bit; parameters take ``cfg.param_dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from repro_torch.core.diana import ReferenceState
+from repro_torch.core.tree import flatten_nested
+
+__all__ = ["params_from_jax", "state_from_jax", "tensor_from_numpy"]
+
+
+def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array (bf16 arrives as ``ml_dtypes.bfloat16``) -> tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_from_jax(np_tree: Mapping[str, Any], cfg, device) -> Dict[str, nn.Parameter]:
+    return {p: nn.Parameter(tensor_from_numpy(a, device, cfg.param_dtype))
+            for p, a in flatten_nested(np_tree).items()}
+
+
+def _tree(x, device):
+    if isinstance(x, Mapping):
+        return {p: tensor_from_numpy(a, device) for p, a in flatten_nested(x).items()}
+    return tensor_from_numpy(x, device)
+
+
+def state_from_jax(ref_state, device) -> ReferenceState:
+    """``ReferenceState`` (numpy leaves, bucketed or per-leaf) -> the port's."""
+    return ReferenceState(h_worker=_tree(ref_state.h_worker, device),
+                          h_server=_tree(ref_state.h_server, device),
+                          v=_tree(ref_state.v, device))

@@ -1,0 +1,135 @@
+"""Flat-buffer (bucketed) aggregation layout — one wire object per step.
+
+* :class:`BucketLayout` — the static layout of a parameter tree as ONE flat
+  f32 buffer: per-leaf offsets (in ``jax.tree_util`` leaf order), segments
+  padded to the operator's block alignment, zero pads.
+* :class:`BucketedCompressor` — the ordinary compressor interface over that
+  buffer, delegating to the operator's ``*_bucketed`` hooks, so a round is
+  one compress, one payload and one fused decode per worker set.
+
+Bitwise contract (as in ``repro.core.bucket``): the bucketed round equals the
+per-leaf round — same per-segment PRNG draws, same per-block scales, same
+f32 recurrences.  The chunked schedule, grouped layouts and wire checksums
+are later slices (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from . import tree as T
+from .compressors.base import Compressor, Payload
+
+__all__ = ["BucketLayout", "BucketedCompressor", "bucketed_compressor"]
+
+
+@dataclass(frozen=True)
+class BucketLayout:
+    """Static flat layout of a ``{path: tensor}`` tree (hashable).
+
+    paths:        leaf paths in flatten order
+    shapes/dtypes per-leaf shapes and dtypes
+    sizes:        per-leaf element counts (unpadded)
+    padded_sizes: ``sizes`` rounded up to ``align``
+    offsets:      start of each leaf's segment in the flat buffer
+    align:        segment alignment (the operator's ``bucket_align()``)
+    """
+
+    paths: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]
+    padded_sizes: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    align: int
+
+    @classmethod
+    def for_tree(cls, tree: Mapping[str, torch.Tensor], align: int = 1) -> "BucketLayout":
+        paths = tuple(T.paths(tree))
+        shapes = tuple(tuple(tree[p].shape) for p in paths)
+        dtypes = tuple(tree[p].dtype for p in paths)
+        sizes = tuple(math.prod(s) for s in shapes)
+        padded = tuple(-(-s // align) * align for s in sizes)
+        offsets = tuple(sum(padded[:i]) for i in range(len(padded)))
+        return cls(paths=paths, shapes=shapes, dtypes=dtypes, sizes=sizes,
+                   padded_sizes=padded, offsets=offsets, align=align)
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def size(self) -> int:
+        return sum(self.sizes)
+
+    @property
+    def padded_size(self) -> int:
+        return sum(self.padded_sizes)
+
+    def flatten(self, tree: Mapping[str, torch.Tensor],
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Tree -> ONE padded flat f32 buffer (segment pads are zeros),
+        written into ``out`` when given (the trainer reuses one buffer)."""
+        first = tree[self.paths[0]]
+        if out is None:
+            out = torch.empty(self.padded_size, dtype=torch.float32, device=first.device)
+        for p, off, size, ps in zip(self.paths, self.offsets, self.sizes, self.padded_sizes):
+            out[off:off + size].copy_(tree[p].reshape(-1))
+            if ps > size:
+                out[off + size:off + ps].zero_()
+        return out
+
+    def unflatten(self, flat: torch.Tensor, cast: bool = True) -> Dict[str, torch.Tensor]:
+        """Flat buffer -> tree (dropping pads); ``cast`` restores leaf dtypes."""
+        outs = {}
+        for p, off, size, shape, dt in zip(self.paths, self.offsets, self.sizes,
+                                           self.shapes, self.dtypes):
+            seg = flat[off:off + size].reshape(shape)
+            outs[p] = seg.to(dt) if cast else seg
+        return outs
+
+    def split_padded(self, flat: torch.Tensor):
+        """The per-leaf padded segment views of the flat buffer."""
+        return [flat[off:off + ps] for off, ps in zip(self.offsets, self.padded_sizes)]
+
+
+class BucketedCompressor(Compressor):
+    """A :class:`Compressor` over a :class:`BucketLayout`'s flat buffer."""
+
+    def __init__(self, base: Compressor, layout: BucketLayout):
+        self.base = base
+        self.layout = layout
+        self.name = f"bucketed:{base.name}"
+        self.carries_state = base.carries_state
+
+    def compress(self, delta: torch.Tensor, key: torch.Tensor) -> Payload:
+        return self.base.compress_bucketed(self.layout, delta, key)
+
+    def decode(self, payload: Payload, d: Optional[int] = None) -> torch.Tensor:
+        return self.base.decode_bucketed(self.layout, payload)
+
+    def decode_sum(self, gathered: Payload, n: int, d: Optional[int] = None) -> torch.Tensor:
+        return self.base.decode_sum_bucketed(self.layout, gathered, n)
+
+    def decode_sum_apply(self, gathered: Payload, n: int, d, h_server):
+        return self.base.decode_sum_apply_bucketed(self.layout, gathered, n, h_server)
+
+    def memory_alpha(self, d: Optional[int] = None) -> float:
+        return self.base.bucketed_alpha(self.layout)
+
+    def compress_input(self, g, h):
+        return self.base.compress_input(g, h)
+
+    def server_direction(self, h, dhat_mean):
+        return self.base.server_direction(h, dhat_mean)
+
+
+@functools.lru_cache(maxsize=None)
+def bucketed_compressor(cfg, layout: BucketLayout) -> BucketedCompressor:
+    """Cached ``(CompressionConfig, BucketLayout) -> BucketedCompressor``."""
+    return BucketedCompressor(cfg.make(), layout)

@@ -1,0 +1,65 @@
+"""Compressor registry: canonical names, legacy aliases, config -> instance.
+
+Ported so far: the ternary operator and its legacy aliases (the paper's
+Sec. 3 special cases):
+
+    diana    -> ternary with memory            (Algorithm 1)
+    qsgd     -> ternary p=2,   memory off      (Algorithm 2)
+    terngrad -> ternary p=inf, memory off      (Algorithm 2)
+    dqgd     -> ternary p=cfg, memory off      (Khirirat et al. 2018)
+
+The JAX package's other operators (natural, randk, topk_ef, identity and
+their aliases) raise ``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Tuple
+
+from .base import Compressor
+from .ternary import TernaryCompressor
+
+__all__ = ["make_compressor", "canonical_name", "available_methods"]
+
+_FACTORIES: Dict[str, Callable[..., Compressor]] = {}
+_ALIASES: Dict[str, Tuple[str, dict]] = {}
+# Registered in the JAX package, not ported yet (ROADMAP.md queue 1).
+_NOT_PORTED = ("natural", "randk", "topk_ef", "identity", "none", "rand-k", "top-k-ef")
+
+
+def canonical_name(method: str) -> str:
+    if method in _FACTORIES:
+        return method
+    if method in _ALIASES:
+        return _ALIASES[method][0]
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"compression method {method!r} is not ported yet (ROADMAP.md queue 1, "
+            f"'the other four operators')")
+    raise KeyError(f"unknown compression method {method!r}; choose from {available_methods()}")
+
+
+def available_methods() -> Tuple[str, ...]:
+    return tuple(sorted(set(_FACTORIES) | set(_ALIASES)))
+
+
+def make_compressor(cfg) -> Compressor:
+    """Build the compressor a :class:`~repro_torch.core.compression.CompressionConfig` names."""
+    name = canonical_name(cfg.method)
+    overrides = _ALIASES[cfg.method][1] if cfg.method in _ALIASES else {}
+    return _FACTORIES[name](cfg, **overrides)
+
+
+def _ternary(cfg, *, p=None, memory=True):
+    return TernaryCompressor(p=cfg.p if p is None else p, block_size=cfg.block_size,
+                             alpha=cfg.alpha, memory=memory)
+
+
+_FACTORIES["ternary"] = _ternary
+_ALIASES.update({
+    "diana": ("ternary", {"memory": True}),
+    "qsgd": ("ternary", {"p": 2.0, "memory": False}),
+    "terngrad": ("ternary", {"p": math.inf, "memory": False}),
+    "dqgd": ("ternary", {"memory": False}),
+})

@@ -1,0 +1,129 @@
+"""Ternary block p-quantization (paper Def. 1/2) — DIANA's native operator.
+
+Wire format: 2-bit sign codes (4/byte, :mod:`repro_torch.core.packing`) + one
+f32 ``||.||_p`` scale per block — ``2 + 32/B`` bits/dim.
+
+Encode and server decode go through :mod:`repro_torch.kernels.ops`, which
+launches the CUDA kernels (``quantize_pack``, ``unpack_reduce*``, and the
+threefry helper for the Bernoulli bits) on a CUDA tensor and runs their plain
+versions on a CPU tensor.  Given the same key, every payload, decoded sum and
+memory update equals the JAX package's jitted ``TernaryCompressor`` bit for
+bit (p = inf; p in {1, 2} up to the norm's summation order).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core.quantization import alpha_p, pad_to_blocks
+from repro_torch.kernels import ops
+
+from .base import Compressor, Payload
+
+__all__ = ["TernaryCompressor"]
+
+
+class TernaryCompressor(Compressor):
+    """Block p-quantization with optional DIANA memory.
+
+    memory=True  -> the paper's DIANA (compress gradient differences,
+                    alpha-memory with the Corollary-1 default alpha_p/2)
+    memory=False -> Algorithm 2: QSGD (p=2) / TernGrad (p=inf) / DQGD.
+    """
+
+    name = "ternary"
+
+    def __init__(self, *, p: float = math.inf, block_size: int = 2048,
+                 alpha: Optional[float] = None, memory: bool = True):
+        if block_size % 4:
+            raise ValueError("block_size must be a multiple of 4 for 2-bit packing")
+        self.p = p
+        self.block_size = block_size
+        self.alpha = alpha
+        self.carries_state = memory
+
+    # ---------------------------------------------------------------- wire
+
+    def compress(self, delta: torch.Tensor, key: torch.Tensor) -> Payload:
+        blocks = pad_to_blocks(delta.float(), self.block_size)
+        bits = ops.bits_op(key, blocks.shape, blocks.device)
+        packed, scales = ops.quantize_pack_op(blocks, bits, p=self.p)
+        return Payload(packed=packed, scales=scales[:, 0])
+
+    def decode(self, payload: Payload, d: int) -> torch.Tensor:
+        """One worker's ``signs * scale`` as the one-worker ``unpack_reduce``
+        (``0 + sign * scale``: the same bits, since a quantized scale is never
+        negative) — a kernel on the card instead of four int8/f32 temporaries
+        the size of the model."""
+        acc = ops.unpack_reduce_op(payload.packed[None], payload.scales[None, :, None])
+        return acc.reshape(-1)[:d]
+
+    def decode_sum(self, gathered: Payload, n: int, d: int) -> torch.Tensor:
+        """ONE ``unpack_reduce`` over the stacked workers (sum from zeros, in
+        worker order)."""
+        acc = ops.unpack_reduce_op(gathered.packed, gathered.scales[..., None])
+        return acc.reshape(-1)[:d]
+
+    def decode_sum_apply(self, gathered: Payload, n: int, d: int, h_server: torch.Tensor):
+        """ONE ``unpack_reduce_apply`` (or ``_mean`` for the memoryless
+        aliases) whose epilogue runs the server rule on the accumulator."""
+        packed, scales = gathered.packed, gathered.scales[..., None]
+        if self.carries_state:
+            return ops.unpack_reduce_apply_op(packed, scales, h_server,
+                                              alpha=self.memory_alpha(d))
+        ghat = ops.unpack_reduce_mean_op(packed, scales).reshape(-1)[:d]
+        return ghat, h_server
+
+    def bits_per_dim(self, d: Optional[int] = None) -> float:
+        return 2.0 + 32.0 / self.block_size
+
+    # ------------------------------------------------- bucketed (flat) path
+
+    def bucket_align(self) -> int:
+        """Segments align to the quantization block, so every block belongs
+        to one leaf and the scales equal the per-leaf path's."""
+        return self.block_size
+
+    def _batched_bits(self, keys: torch.Tensor, seg_rows: Sequence[int],
+                      device) -> torch.Tensor:
+        """The concatenated (sum m_i, B) bit matrix: segment ``i`` draws
+        ``bits(keys[i], (m_i, B))`` into its rows.  Threefry is counter mode,
+        so this equals the JAX package's vmapped batched draw."""
+        out = torch.empty((sum(seg_rows), self.block_size), dtype=torch.int32, device=device)
+        row = 0
+        for i, m in enumerate(seg_rows):
+            ops.bits_op(keys[i], (m, self.block_size), device, out=out[row:row + m])
+            row += m
+        return out
+
+    def compress_bucketed_keys(self, layout, delta: torch.Tensor, keys: torch.Tensor) -> Payload:
+        """ONE fused quantize+pack over the whole block matrix, segment ``i``
+        drawing its bits from ``keys[i]`` over its own padded rows."""
+        blocks = delta.float().reshape(-1, self.block_size)
+        seg_rows = [ps // self.block_size for ps in layout.padded_sizes]
+        bits = self._batched_bits(keys, seg_rows, blocks.device)
+        packed, scales = ops.quantize_pack_op(blocks, bits, p=self.p)
+        return Payload(packed=packed, scales=scales[:, 0])
+
+    def decode_bucketed(self, layout, payload: Payload) -> torch.Tensor:
+        return self.decode(payload, layout.padded_size)
+
+    def decode_sum_bucketed(self, layout, gathered: Payload, n: int) -> torch.Tensor:
+        return self.decode_sum(gathered, n, layout.padded_size)
+
+    def decode_sum_apply_bucketed(self, layout, gathered: Payload, n: int, h_server):
+        """The flat buffer is block-aligned, so the fused kernel applies
+        verbatim; alpha depends only on the block size."""
+        return self.decode_sum_apply(gathered, n, layout.padded_size, h_server)
+
+    # -------------------------------------------------------- memory rule
+
+    def memory_alpha(self, d: Optional[int] = None) -> float:
+        if not self.carries_state:
+            return 0.0
+        if self.alpha is not None:
+            return self.alpha
+        return alpha_p(self.p, self.block_size) / 2.0  # Corollary 1

@@ -1,0 +1,52 @@
+"""Fused multiply-add on float32 tensors, rounded once.
+
+The JAX package runs its DIANA round inside jitted graphs, where XLA
+contracts every ``h + alpha * x`` into one FMA (``repro.kernels.ref``'s
+``ref_apply_server`` note).  Eager torch rounds the product first, which is
+1 ulp off on a fraction of coordinates.  :func:`fma32` reproduces the FMA
+exactly with float64 arithmetic:
+
+* ``a * b`` of two float32 values is exact in float64 (48 significant bits);
+* ``t = p + c`` rounds to 53 bits; TwoSum recovers its exact error ``e``;
+* rounding to odd (where ``t`` is inexact and its last bit even, step one ulp
+  toward ``e``) then rounding to float32 gives the correctly rounded
+  ``fma(a, b, c)``, because 53 >= 24 + 2 bits.
+
+It works on any device and processes ``CHUNK`` elements at a time to bound
+the float64 temporaries (the trainer's flat buffers hold ~1e9 coordinates).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["fma32", "CHUNK"]
+
+CHUNK = 1 << 24
+
+
+def _fma_chunk(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    p = b.double() * a
+    c64 = c.double()
+    t = p + c64
+    bb = t - p
+    err = (p - (t - bb)) + (c64 - bb)
+    inexact_even = (err != 0) & ((t.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.full_like(t, float("inf")),
+                         torch.full_like(t, float("-inf")))
+    return torch.where(inexact_even, torch.nextafter(t, toward), t).float()
+
+
+def fma32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``round_f32(a * b + c)`` for float32 tensors ``b``, ``c`` of one shape
+    and a Python float ``a``, rounded to float32 first as JAX rounds its
+    weak-typed scalars."""
+    if b.shape != c.shape:
+        raise ValueError(f"fma32 shapes differ: {tuple(b.shape)} vs {tuple(c.shape)}")
+    a = float(np.float32(a))
+    bf, cf = b.float().reshape(-1), c.float().reshape(-1)
+    out = torch.empty_like(cf)
+    for s in range(0, cf.numel(), CHUNK):
+        out[s:s + CHUNK] = _fma_chunk(a, bf[s:s + CHUNK], cf[s:s + CHUNK])
+    return out.reshape(c.shape)

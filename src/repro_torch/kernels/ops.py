@@ -1,0 +1,74 @@
+"""Dispatch by tensor device: a CUDA tensor goes to the hand-written kernel
+(which raises if it cannot build or launch), a CPU tensor to the kernel's
+plain version in :mod:`repro_torch.kernels.ref`.  There is no fallback from
+the card to the plain versions.  The kernels are built, once for all
+sources, by :func:`repro_torch.kernels.build.library`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core import prng
+
+from . import ref
+from .quantize_pack import quantize_pack
+from .threefry import threefry_bits
+from .unpack_reduce import unpack_reduce, unpack_reduce_apply, unpack_reduce_mean
+
+__all__ = [
+    "bits_op",
+    "quantize_pack_op",
+    "unpack_reduce_op",
+    "unpack_reduce_mean_op",
+    "unpack_reduce_apply_op",
+]
+
+
+def _on_card(t_or_device) -> bool:
+    dev = t_or_device.device if isinstance(t_or_device, torch.Tensor) else torch.device(t_or_device)
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}: the port runs on cuda, or on cpu "
+                     "through the plain versions")
+
+
+def bits_op(key: torch.Tensor, shape: Sequence[int], device,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int32, drawn on ``device``."""
+    if _on_card(device):
+        return threefry_bits(key, shape, device, out=out)
+    b = prng.bits(key, shape)
+    if out is not None:
+        out.copy_(b.reshape(out.shape))
+        return out.reshape(tuple(shape))
+    return b
+
+
+def quantize_pack_op(delta2d: torch.Tensor, bits: torch.Tensor, *, p: float):
+    if _on_card(delta2d):
+        return quantize_pack(delta2d, bits, p=p)
+    return ref.ref_quantize_pack(delta2d, bits, p)
+
+
+def unpack_reduce_op(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    if _on_card(packed):
+        return unpack_reduce(packed, scales)
+    return ref.ref_unpack_reduce(packed, scales)
+
+
+def unpack_reduce_mean_op(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    if _on_card(packed):
+        return unpack_reduce_mean(packed, scales)
+    return ref.ref_unpack_reduce_mean(packed, scales)
+
+
+def unpack_reduce_apply_op(packed: torch.Tensor, scales: torch.Tensor, h: torch.Tensor,
+                           *, alpha: float):
+    if _on_card(packed):
+        return unpack_reduce_apply(packed, scales, h, alpha=alpha)
+    return ref.ref_unpack_reduce_apply(packed, scales, h, alpha, packed.shape[0])

@@ -1,0 +1,186 @@
+"""The one-card DIANA trainer (CLI + step builder).
+
+``--mesh NxM`` reads the JAX CLI's flag as N data-parallel DIANA workers
+(M, the model axis, must be 1).  Until the ``torch.distributed`` round lands,
+the N workers run one after another on one card.  Each step:
+
+1. the step key is ``fold_in(PRNGKey(0), step)``;
+2. worker ``w`` takes rows ``[w*b/n, (w+1)*b/n)`` of the batch (the JAX
+   trainer's ``P(workers)`` batch sharding), computes its loss and gradient,
+   and flattens the gradient into the f32 bucket;
+3. it encodes ``delta = g - h_worker[w]`` with bits from
+   ``split(fold_in(step_key, w), n_leaves)`` through ``quantize_pack``, and
+   updates ``h_worker[w]``;
+4. after the n workers, ONE ``unpack_reduce_apply`` over the stacked payloads
+   updates ``h_server`` and gives ``ghat``, rounded to the leaf dtypes (the
+   distributed path's ``unflatten(cast=True)``);
+5. momentum and the parameter write-back.
+
+Entry points run on ``cuda`` and raise without a GPU unless the caller asks
+for the CPU (``--device cpu``), where the kernels' plain versions run.
+
+    python -m repro_torch.launch.train --arch llama3.2-1b --compression diana \\
+        --mesh 4x1 --steps 3 --batch 8 --seq 4096
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ShapeConfig, get_config, get_shape, reduced
+from repro_torch.core import prng
+from repro_torch.core.bucket import bucketed_compressor
+from repro_torch.core.compression import CompressionConfig
+from repro_torch.core.compressors import Payload, available_methods
+from repro_torch.core.diana import bucket_layout, worker_key
+from repro_torch.data.pipeline import make_lm_batch
+from repro_torch.models.transformer import init_model, train_loss
+from repro_torch.optim.diana_optimizer import DianaOptimizer, DianaState
+from repro_torch.optim.optimizers import constant_schedule, momentum, sgd
+
+__all__ = ["resolve_device", "make_optimizer", "init_train_state", "build_train_step",
+           "parse_mesh", "main"]
+
+
+def resolve_device(device: Optional[str] = "cuda") -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless asked otherwise."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; the port runs on the card "
+                           "(pass device='cpu' / --device cpu for the plain versions)")
+    return dev
+
+
+def parse_mesh(mesh: Optional[str]) -> int:
+    """``NxM`` -> the number N of data-parallel workers (M must be 1)."""
+    if not mesh:
+        return 1
+    dims = [int(x) for x in mesh.split("x")]
+    if any(d < 1 for d in dims) or math.prod(dims[1:]) != 1:
+        raise NotImplementedError(
+            f"--mesh {mesh}: only data-parallel workers (NxM with M = 1) run on one "
+            "card; the model axis comes with the torch.distributed round "
+            "(ROADMAP.md queue 1)")
+    return dims[0]
+
+
+def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: float = 0.9,
+                   compression: Optional[CompressionConfig] = None) -> DianaOptimizer:
+    """The training optimizer from a model config's flat ``comp_*`` fields."""
+    if inner not in ("momentum", "sgd"):
+        raise NotImplementedError(f"inner optimizer {inner!r} is not ported yet")
+    comp = compression or CompressionConfig(
+        method=cfg.compression, p=cfg.comp_p, block_size=cfg.comp_block,
+        h_dtype=cfg.h_dtype, bucketed=cfg.comp_bucketed)
+    return DianaOptimizer(comp, momentum(beta) if inner == "momentum" else sgd(),
+                          schedule=constant_schedule(lr))
+
+
+def init_train_state(cfg, opt: DianaOptimizer, n_workers: int, device, seed: int = 0):
+    """Random parameters (``torch.Generator(seed)``) and the zero optimizer state."""
+    params = init_model(cfg, device, seed=seed)
+    return params, opt.init(params, n_workers)
+
+
+def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
+    """Returns ``step(params, opt_state, batch, key) -> (params, opt_state,
+    metrics)``.  ``params`` (``{path: nn.Parameter}``) and the optimizer
+    state are updated in place; ``batch`` holds int tensors on ``device``."""
+    device = torch.device(device)
+
+    def step(params, opt_state, batch, key):
+        b = batch["tokens"].shape[0]
+        if b % n_workers:
+            raise ValueError(f"global batch {b} does not split over {n_workers} workers")
+        rows = b // n_workers
+        layout = bucket_layout(opt.compression, params)
+        comp = bucketed_compressor(opt.compression, layout)
+        dp = layout.padded_size
+        hw, hs = opt_state.diana.h_worker, opt_state.diana.h_server
+        leaves = [params[p] for p in layout.paths]
+        g_flat = torch.empty(dp, dtype=torch.float32, device=device)
+        payloads, losses = [], []
+        for w in range(n_workers):
+            shard = {k: v[w * rows:(w + 1) * rows] for k, v in batch.items()}
+            loss = train_loss(params, shard, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            layout.flatten(dict(zip(layout.paths, grads)), out=g_flat)
+            del grads  # this worker's gradient is freed before the next backward
+            losses.append(loss.detach())
+            with torch.no_grad():
+                # delta = g - h_w, computed in place in the gradient buffer.
+                delta = g_flat.sub_(hw[w]) if comp.carries_state else g_flat
+                pay = comp.compress(delta, worker_key(key, w))
+                if comp.carries_state:
+                    # h_w <- h_w + alpha * dhat_w, written into the state row.
+                    hw[w].copy_(comp.next_memory(hw[w], comp.decode(pay, dp), delta))
+                payloads.append(pay)
+        del g_flat
+        with torch.no_grad():
+            ghat_flat, new_hs = comp.decode_sum_apply(Payload.stack(payloads), n_workers,
+                                                      dp, hs)
+            del payloads
+            if new_hs is not hs:
+                hs.copy_(new_hs)  # the server memory stays one buffer
+            del new_hs
+            ghat = layout.unflatten(ghat_flat, cast=True)
+            gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in ghat.values()))
+        new_opt = opt.apply_direction(params, ghat, opt_state, DianaState(hw, hs))
+        metrics = {"loss": torch.stack(losses).mean(), "ghat_norm": gnorm,
+                   "step": new_opt.step}
+        return params, new_opt, metrics
+
+    return step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="DIANA trainer (PyTorch/CUDA port, one card)")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--inner", default="momentum", choices=["momentum", "sgd"])
+    ap.add_argument("--compression", default=None, choices=[None, *available_methods()])
+    ap.add_argument("--mesh", default=None,
+                    help="NxM: N data-parallel workers, run in turn on one card (M = 1)")
+    ap.add_argument("--reduced", action="store_true", help="toy config for CPU runs")
+    ap.add_argument("--batch", type=int, default=None, help="override global batch")
+    ap.add_argument("--seq", type=int, default=None, help="override sequence length")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from dataclasses import replace
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.compression:
+        cfg = replace(cfg, compression=args.compression)
+    shape = get_shape(args.shape)
+    if args.batch or args.seq:
+        shape = ShapeConfig(shape.name, args.seq or shape.seq_len,
+                            args.batch or shape.global_batch, shape.kind)
+    n_workers = parse_mesh(args.mesh)
+
+    opt = make_optimizer(cfg, lr=args.lr, inner=args.inner)
+    params, opt_state = init_train_state(cfg, opt, n_workers, device)
+    step_fn = build_train_step(cfg, opt, n_workers, device)
+    key = prng.PRNGKey(0)
+    for step in range(args.steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in make_lm_batch(cfg, shape, step).items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch, prng.fold_in(key, step))
+        loss = float(metrics["loss"])
+        print(f"step {step:4d} loss {loss:8.4f} ghat {float(metrics['ghat_norm']):9.4f} "
+              f"({time.perf_counter() - t0:5.2f}s)")
+
+
+if __name__ == "__main__":
+    main()
