@@ -9,24 +9,34 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: compiles every kernel source of ``src/repro_torch/csrc`` (one nvcc
    each, in parallel) into ``build/torch_kernels/``;
 3. kernels: each kernel's wrapper on the card at the trainer's shapes (the
-   8-layer full-width llama3.2-1b bucket, B = 2048, n = 4 workers), held
-   against its plain PyTorch version on the same inputs: threefry bits,
-   ``unpack_reduce``, ``_mean`` and ``_apply`` bitwise, ``quantize_pack``
-   bitwise for p = inf and, for p in {1, 2}, scales within 4 ulp and codes
-   equal on >= 99.99% of coordinates.  Median time (CUDA events) of kernel
-   and plain version, and the bound (bytes over HBM bandwidth, or operations
-   over the peak rate);
+   8-layer full-width llama3.2-1b bucket, n = 4 workers), held against its
+   plain PyTorch version on the same inputs.  Ternary (B = 2048): threefry
+   bits, ``unpack_reduce``, ``_mean`` and ``_apply`` bitwise,
+   ``quantize_pack`` bitwise for p = inf and, for p in {1, 2}, scales within
+   4 ulp and codes equal on >= 99.99% of coordinates.  Natural (alignment 1,
+   Dp = the parameter count): ``nat_pack``, ``nat_decode_sum`` (n = 1 and
+   4), ``_mean`` and ``_apply`` bitwise, on inputs spliced with zeros,
+   +-2^k, the float below 2^k, subnormals, FLT_MAX and codes that decode to
+   -0.0, subnormals and infinity.  Median time (CUDA events) of kernel and
+   plain version, and the bound (bytes over HBM bandwidth, or operations over
+   the peak rate);
 4. reference: two training steps of ``reduced(llama3.2-1b)`` (f32) on the
    card through the kernels, against the same steps with every kernel
    swapped for its plain version (bitwise: losses, parameters, memories),
-   and the step-0 loss against its float64 evaluation (rel 1e-5);
+   for ``diana`` and for ``natural``, and the step-0 loss against its
+   float64 evaluation (rel 1e-5);
 5. the main path: the trainer's ``build_train_step`` on llama3.2-1b at full width
    (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256, bf16, remat full),
    cut to 8 of 16 layers and a global batch of 8 at seq 4096, 4 workers,
    ``diana``, 3 steps; launch counters reset just before and read just
    after: 4 quantize_pack, 4 unpack_reduce (each worker's own decode) and 1
    unpack_reduce_apply per step;
-6. the memoryless path (``terngrad``, 2 layers, 1 step): ``unpack_reduce_mean``.
+6. the memoryless path (``terngrad``, 2 layers, 1 step): ``unpack_reduce_mean``;
+7. the natural main path: the same trainer and model with ``natural``,
+   3 steps: 4 nat_pack, 4 nat_decode_sum (each worker's own decode) and 1
+   nat_decode_sum_apply per step;
+8. the memoryless natural round (``NaturalCompressor(memory=False)`` over
+   the 8-layer bucket, 4 workers): one ``nat_decode_sum_mean``.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -88,8 +98,11 @@ def main() -> None:
     try:
         from repro_torch.configs import ShapeConfig, get_config, reduced
         from repro_torch.core import prng
+        from repro_torch.core.bucket import BucketedCompressor
+        from repro_torch.core.compression import CompressionConfig
+        from repro_torch.core.compressors.natural import NaturalCompressor
         from repro_torch.core.compressors.ternary import TernaryCompressor
-        from repro_torch.core.diana import bucket_layout
+        from repro_torch.core.diana import bucket_layout, worker_key
         from repro_torch.data.pipeline import make_lm_batch
         from repro_torch.kernels import build, ops, ref
         from repro_torch.launch.train import build_train_step, init_train_state, make_optimizer
@@ -232,6 +245,82 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------- natural kernels
+    nlayout = bucket_layout(CompressionConfig(method="natural", bucketed=True), meta)
+    nd = nlayout.padded_size
+    print(f"kernels: natural bucket {nlayout.n_leaves} leaves, alignment 1, Dp {nd}; "
+          f"n {WORKERS}")
+
+    def same_bits(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    pows = torch.ldexp(torch.ones(254, device=dev), torch.arange(-126, 128, device=dev))
+    special = torch.cat([pows, torch.nextafter(pows, torch.zeros_like(pows)),
+                         torch.tensor([0.0, -0.0, 1e-45, 3e-39, 1.1754942e-38,
+                                       3.4028235e38], device=dev)])
+    special = torch.cat([special, -special]).repeat(64)
+    x = torch.randn(nd, generator=gen, device=dev) * 1e-3
+    x[torch.randperm(nd, generator=gen, device=dev)[:special.numel()]] = special
+    nbits = torch.empty(nd, dtype=torch.int32, device=dev)
+    nkeys = prng.split(prng.fold_in(prng.PRNGKey(0), 2), nlayout.n_leaves)
+    for k, off, sz in zip(nkeys, nlayout.offsets, nlayout.padded_sizes):
+        ops.bits_op(k, (sz,), dev, out=nbits[off:off + sz])
+    kc = ops.nat_pack_op(x, nbits)
+    if not torch.equal(kc, ref.ref_nat_pack(x, nbits)):
+        fail("nat_pack differs from the plain version")
+    record("nat_pack", "src/repro_torch/csrc/nat_pack.cu",
+           "src/repro/kernels/nat_pack.py:107 (pallas_call :119)", 0.0,
+           time_ms(lambda: ops.nat_pack_op(x, nbits, out=kc), 10),
+           time_ms(lambda: ref.ref_nat_pack(x, nbits), 3),
+           nd * (4 + 4 + 2), 12.0 * nd, f"bitwise, {special.numel()} special values spliced")
+    # n = 4 payloads in the trainer's gathered buffer (rows 16-byte aligned)
+    ncomp = NaturalCompressor()
+    gathered = ncomp.gathered_bucketed(nlayout, WORKERS, dev)
+    for w in range(WORKERS):
+        ops.nat_pack_op(x * (w + 1), nbits, out=gathered.packed[w])
+    del x, nbits, kc
+    codes = gathered.packed
+    small = torch.randint(-10, 0, (WORKERS, 4096), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int16)       # every worker: -0.0
+    cols = torch.randperm(nd, generator=gen, device=dev)[:4096 * 3]
+    codes[:, cols[:4096]] = small
+    codes[:, cols[4096:8192]] = torch.randint(1, 37, (WORKERS, 4096), generator=gen,
+                                              device=dev, dtype=torch.int32).to(torch.int16)
+    codes[2, cols[8192:]] = torch.tensor([288, -288, 0, 287], device=dev,
+                                         dtype=torch.int16).repeat(1024)
+    hn = torch.randn(nd, generator=gen, device=dev) * 1e-3
+    nalpha = ncomp.memory_alpha()
+    one = codes[:1]
+    if not same_bits(ops.nat_decode_sum_op(one), ref.ref_nat_decode_sum(one)):
+        fail("nat_decode_sum (n=1) differs from the plain version")
+    if not same_bits(ops.nat_decode_sum_op(codes), ref.ref_nat_decode_sum(codes)):
+        fail("nat_decode_sum (n=4) differs from the plain version")
+    record("nat_decode_sum", "src/repro_torch/csrc/nat_decode.cu",
+           "src/repro/kernels/nat_pack.py:218 (pallas_call :228)", 0.0,
+           time_ms(lambda: ops.nat_decode_sum_op(one), 10),
+           time_ms(lambda: ref.ref_nat_decode_sum(one), 3),
+           nd * (2 + 4), 8.0 * nd, "n=1 (a worker's own decode), bitwise; n=4 bitwise")
+    if not same_bits(ops.nat_decode_sum_mean_op(codes), ref.ref_nat_decode_sum_mean(codes)):
+        fail("nat_decode_sum_mean differs from the plain version")
+    record("nat_decode_sum_mean", "src/repro_torch/csrc/nat_decode.cu",
+           "src/repro/kernels/nat_pack.py:240 (pallas_call :250)", 0.0,
+           time_ms(lambda: ops.nat_decode_sum_mean_op(codes), 10),
+           time_ms(lambda: ref.ref_nat_decode_sum_mean(codes), 3),
+           nd * (2 * WORKERS + 4), (9.0 * WORKERS + 1) * nd, "n=4, bitwise")
+    got = ops.nat_decode_sum_apply_op(codes, hn, alpha=nalpha)
+    want = ref.ref_nat_decode_sum_apply(codes, hn, nalpha)
+    if not all(same_bits(a, b) for a, b in zip(got, want)):
+        fail("nat_decode_sum_apply differs from the plain version")
+    del got, want
+    record("nat_decode_sum_apply", "src/repro_torch/csrc/nat_decode.cu",
+           "src/repro/kernels/nat_pack.py:262 (pallas_call :283)", 0.0,
+           time_ms(lambda: ops.nat_decode_sum_apply_op(codes, hn, alpha=nalpha), 10),
+           time_ms(lambda: ref.ref_nat_decode_sum_apply(codes, hn, nalpha), 3),
+           nd * (2 * WORKERS + 12), (9.0 * WORKERS + 4) * nd, "n=4, bitwise")
+    del gathered, codes, one, hn, small, cols
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- reference on a small input
     rcfg = reduced(get_config("llama3.2-1b"))
     rshape = ShapeConfig("smoke", 64, 4, "train")
@@ -239,9 +328,9 @@ def main() -> None:
     rbatches = [{k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(rcfg, rshape, s).items()}
                 for s in range(2)]
 
-    def train_small():
+    def train_small(method):
         params = {k: torch.nn.Parameter(v.detach().to(dev, copy=True)) for k, v in init.items()}
-        opt = make_optimizer(rcfg)
+        opt = make_optimizer(replace(rcfg, compression=method))
         st = opt.init(params, 2)
         fn = build_train_step(rcfg, opt, 2, dev)
         losses = []
@@ -250,27 +339,30 @@ def main() -> None:
             losses.append(float(met["loss"]))
         return losses, params, st.diana
 
-    k_loss, k_params, k_diana = train_small()
-    on_card = ops._on_card
-    ops._on_card = lambda t: False      # the same steps, every kernel -> its plain version
-    try:
-        p_loss, p_params, p_diana = train_small()
-    finally:
-        ops._on_card = on_card
-    same = (k_loss == p_loss and all(torch.equal(k_params[k], p_params[k]) for k in k_params)
-            and torch.equal(k_diana.h_worker, p_diana.h_worker)
-            and torch.equal(k_diana.h_server, p_diana.h_server))
     f64 = replace(rcfg, param_dtype=torch.float64, compute_dtype=torch.float64)
     with torch.no_grad():
         loss64 = float(train_loss({k: v.to(dev, torch.float64) for k, v in init.items()},
                                   rbatches[0], f64))
-    print(f"reference: reduced llama3.2-1b, 2 workers, 2 steps on the card: losses {k_loss} "
-          f"with the kernels, {p_loss} with the plain versions (states bitwise equal: {same}); "
-          f"step-0 loss in float64 {loss64}")
-    if not same:
-        fail("the training steps through the kernels differ from the plain versions")
-    if not math.isclose(k_loss[0], loss64, rel_tol=1e-5):
-        fail("the float32 training loss disagrees with its float64 evaluation")
+    for method in ("diana", "natural"):
+        k_loss, k_params, k_diana = train_small(method)
+        on_card = ops._on_card
+        ops._on_card = lambda t: False      # the same steps, every kernel -> its plain version
+        try:
+            p_loss, p_params, p_diana = train_small(method)
+        finally:
+            ops._on_card = on_card
+        same = (k_loss == p_loss
+                and all(torch.equal(k_params[k], p_params[k]) for k in k_params)
+                and torch.equal(k_diana.h_worker, p_diana.h_worker)
+                and torch.equal(k_diana.h_server, p_diana.h_server))
+        print(f"reference: reduced llama3.2-1b, {method}, 2 workers, 2 steps on the card: "
+              f"losses {k_loss} with the kernels, {p_loss} with the plain versions (states "
+              f"bitwise equal: {same}); step-0 loss in float64 {loss64}")
+        if not same:
+            fail(f"the {method} training steps through the kernels differ from the plain "
+                 "versions")
+        if not math.isclose(k_loss[0], loss64, rel_tol=1e-5):
+            fail("the float32 training loss disagrees with its float64 evaluation")
     del k_params, p_params, k_diana, p_diana, rbatches
     build.reset_launches()
 
@@ -335,6 +427,43 @@ def main() -> None:
         if r["name"] == "unpack_reduce_mean":
             r["launches"] = mcounts["unpack_reduce_mean"]
             r["path"] = "memoryless (terngrad, 2 layers, 1 step)"
+    ncounts = run_path(replace(cfg, compression="natural"), STEPS, "natural")
+    want = {"nat_pack": WORKERS * STEPS, "nat_decode_sum": WORKERS * STEPS,
+            "nat_decode_sum_apply": STEPS,
+            "threefry_bits": WORKERS * STEPS * nlayout.n_leaves}
+    for name, n in want.items():
+        if ncounts.get(name, 0) != n:
+            fail(f"natural: {name} launched {ncounts.get(name, 0)} times, expected {n}")
+    for r in rows:
+        if r["name"].startswith("nat_"):
+            r["launches"] = ncounts.get(r["name"], 0)
+            r["path"] = "natural (8 layers, 3 steps)"
+
+    # The memoryless natural round over the same bucket: 4 workers encode
+    # into the gathered buffer, ONE nat_decode_sum_mean gives ghat.
+    mcomp = BucketedCompressor(NaturalCompressor(memory=False), nlayout)
+    delta = torch.randn(nd, generator=gen, device=dev) * 1e-3
+    hs = torch.zeros(nd, device=dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    mg = mcomp.gathered(WORKERS, dev)
+    for w in range(WORKERS):
+        mcomp.compress(delta * (w + 1), worker_key(prng.PRNGKey(5), w), out=mg.select(w))
+    ghat, hs_out = mcomp.decode_sum_apply(mg, WORKERS, nd, hs)
+    torch.cuda.synchronize()
+    mncounts = dict(build.LAUNCHES)
+    print(f"memoryless natural: launches {mncounts}")
+    if (mncounts.get("nat_decode_sum_mean", 0) != 1 or mncounts.get("nat_pack", 0) != WORKERS
+            or mncounts.get("nat_decode_sum", 0) or mncounts.get("nat_decode_sum_apply", 0)):
+        fail(f"memoryless natural: launches {mncounts}, expected 1 nat_decode_sum_mean")
+    if hs_out is not hs or not same_bits(ghat, ref.ref_nat_decode_sum_mean(mg.packed)):
+        fail("memoryless natural: ghat is not the plain mean of the decodes")
+    for r in rows:
+        if r["name"] == "nat_decode_sum_mean":
+            r["launches"] = mncounts["nat_decode_sum_mean"]
+            r["path"] = "memoryless natural round (8-layer bucket, 4 workers)"
+    del mcomp, delta, hs, mg, ghat, hs_out
+
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         fail(f"kernels never launched on their path: {missing}")

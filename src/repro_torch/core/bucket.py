@@ -107,8 +107,16 @@ class BucketedCompressor(Compressor):
         self.name = f"bucketed:{base.name}"
         self.carries_state = base.carries_state
 
-    def compress(self, delta: torch.Tensor, key: torch.Tensor) -> Payload:
-        return self.base.compress_bucketed(self.layout, delta, key)
+    def compress(self, delta: torch.Tensor, key: torch.Tensor, *,
+                 out: Optional[Payload] = None) -> Payload:
+        """ONE encode of the flat buffer, into ``out`` (a row of
+        :meth:`gathered`) when given."""
+        return self.base.compress_bucketed(self.layout, delta, key, out=out)
+
+    def gathered(self, n: int, device) -> Payload:
+        """An uninitialised stacked payload of ``n`` workers (the all-gather's
+        output shape); worker ``w`` encodes into ``gathered(...).select(w)``."""
+        return self.base.gathered_bucketed(self.layout, n, device)
 
     def decode(self, payload: Payload, d: Optional[int] = None) -> torch.Tensor:
         return self.base.decode_bucketed(self.layout, payload)
@@ -118,6 +126,11 @@ class BucketedCompressor(Compressor):
 
     def decode_sum_apply(self, gathered: Payload, n: int, d, h_server):
         return self.base.decode_sum_apply_bucketed(self.layout, gathered, n, h_server)
+
+    def bits_per_dim(self, d: Optional[int] = None) -> float:
+        """Size-weighted mean of the per-leaf costs."""
+        lay = self.layout
+        return sum(self.base.bits_per_dim(s) * s for s in lay.sizes) / max(lay.size, 1)
 
     def memory_alpha(self, d: Optional[int] = None) -> float:
         return self.base.bucketed_alpha(self.layout)

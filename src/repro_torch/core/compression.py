@@ -23,10 +23,12 @@ __all__ = ["CompressionConfig", "payload_bits_per_dim"]
 
 @dataclass(frozen=True)
 class CompressionConfig:
-    """method:     ``diana`` / ``qsgd`` / ``terngrad`` / ``dqgd`` / ``ternary``
+    """method:     ``diana`` / ``qsgd`` / ``terngrad`` / ``dqgd`` / ``ternary`` /
+                ``natural``
     p:          quantization norm power (``math.inf``, 2.0, 1.0, or > 2)
-    block_size: quantization block d_l (Def. 2)
-    alpha:      memory learning rate override (None: alpha_p/2, Cor. 1)
+    block_size: quantization block d_l (Def. 2; ternary only)
+    alpha:      memory learning rate override (None: alpha_p/2, Cor. 1, for
+                ternary; 8/9 for natural)
     h_dtype:    dtype of the DIANA memories
     bucketed:   aggregate the whole model as ONE flat buffer (bitwise the
                 per-leaf layout; the flag selects the execution layout)"""

@@ -1,8 +1,10 @@
-"""Compression operators behind DIANA's aggregation loop (ternary family)."""
+"""Compression operators behind DIANA's aggregation loop (ternary family,
+natural compression)."""
 
 from .base import Compressor, Payload
+from .natural import NaturalCompressor
 from .registry import available_methods, canonical_name, make_compressor
 from .ternary import TernaryCompressor
 
-__all__ = ["Compressor", "Payload", "TernaryCompressor", "available_methods",
-           "canonical_name", "make_compressor"]
+__all__ = ["Compressor", "NaturalCompressor", "Payload", "TernaryCompressor",
+           "available_methods", "canonical_name", "make_compressor"]

@@ -1,9 +1,9 @@
 """Compressor interface + the ``Payload`` wire format.
 
 The port's copy of ``repro.core.compressors.base`` for the hooks the ternary
-path runs.  Memory rules follow the JAX package's jitted arithmetic: XLA
-contracts ``h + alpha * x`` into one FMA, so the port writes those updates
-with :func:`repro_torch.core.numerics.fma32`.
+and natural paths run.  Memory rules follow the JAX package's jitted
+arithmetic: XLA contracts ``h + alpha * x`` into one FMA, so the port writes
+those updates with :func:`repro_torch.core.numerics.fma32`.
 """
 
 from __future__ import annotations
@@ -13,25 +13,37 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.numerics import fma32
+from repro_torch.core.numerics import div_n, fma32
 
 __all__ = ["Payload", "Compressor"]
 
 
 class Payload(NamedTuple):
-    """The wire format of the ternary family: 2-bit codes (``packed``, (m, B/4)
-    uint8) and one f32 scale per block (``scales``, (m,)).  A stacked
-    (gathered) payload carries a leading worker axis on both fields.  The
-    sparse and dense operators' ``indices``/``values`` fields come with those
-    operators (ROADMAP.md queue 1)."""
+    """The one wire format (``repro/core/compressors/base.py:52``): each
+    operator fills the fields its encoding needs and leaves the rest ``None``.
 
-    packed: torch.Tensor
-    scales: torch.Tensor
+    packed:   2-bit ternary codes ((m, B/4) uint8) or natural compression's
+              sign+exponent codes ((d,) int16)
+    scales:   per-block norm scales of the ternary family ((m,) f32)
+    indices:  coordinate indices of a sparse payload (rand-k / top-k)
+    values:   dense values (identity) or sparse coefficients
+
+    A stacked (gathered) payload carries a leading worker axis on every field
+    that is set."""
+
+    packed: Optional[torch.Tensor] = None
+    scales: Optional[torch.Tensor] = None
+    indices: Optional[torch.Tensor] = None
+    values: Optional[torch.Tensor] = None
 
     @staticmethod
     def stack(payloads) -> "Payload":
-        return Payload(torch.stack([p.packed for p in payloads]),
-                       torch.stack([p.scales for p in payloads]))
+        return Payload(*(None if f is None else torch.stack([p[i] for p in payloads])
+                         for i, f in enumerate(payloads[0])))
+
+    def select(self, i) -> "Payload":
+        """The ``i``-th worker's payload from a stacked/gathered payload."""
+        return Payload(*(None if f is None else f[i] for f in self))
 
 
 class Compressor:
@@ -57,14 +69,21 @@ class Compressor:
         raise NotImplementedError
 
     def decode_sum(self, gathered: Payload, n: int, d: int) -> torch.Tensor:
-        """``sum_i decode(payload_i)`` over a stacked payload, accumulated in
-        f32 from zeros in worker order."""
-        raise NotImplementedError
+        """``sum_i decode(payload_i)`` over a stacked payload: the sequential
+        f32 recurrence from worker 0's decode (``base.py:163``).  Operators
+        with a fused decode kernel override it with the same recurrence."""
+        acc = self.decode(gathered.select(0), d)
+        for i in range(1, n):
+            acc = acc + self.decode(gathered.select(i), d)
+        return acc
 
     def decode_sum_apply(self, gathered: Payload, n: int, d: int, h_server: torch.Tensor):
-        """The fused server tail ``(ghat, new_h)``: ``dm = decode_sum / n``,
-        ``ghat = server_direction(h, dm)``, ``new_h = next_server_memory(h, dm)``."""
-        raise NotImplementedError
+        """The server tail ``(ghat, new_h)``: ``dm = decode_sum / n``,
+        ``ghat = server_direction(h, dm)``, ``new_h = next_server_memory(h, dm)``
+        — the literal composition (``base.py:177``); kernel-backed operators
+        fuse it into the decode."""
+        dm = div_n(self.decode_sum(gathered, n, d), n)
+        return self.server_direction(h_server, dm), self.next_server_memory(h_server, dm)
 
     def bits_per_dim(self, d: Optional[int] = None) -> float:
         raise NotImplementedError
@@ -101,12 +120,22 @@ class Compressor:
         """Segment alignment of the flat layout (blocked operators: the block)."""
         return 1
 
-    def compress_bucketed(self, layout, delta: torch.Tensor, key: torch.Tensor) -> Payload:
+    def compress_bucketed(self, layout, delta: torch.Tensor, key: torch.Tensor, *,
+                          out: Optional[Payload] = None) -> Payload:
         """Encode the whole padded flat buffer with the per-leaf key schedule
-        ``split(key, n_leaves)`` (segment ``i`` draws from ``keys[i]``)."""
-        return self.compress_bucketed_keys(layout, delta, prng.split(key, layout.n_leaves))
+        ``split(key, n_leaves)`` (segment ``i`` draws from ``keys[i]``), into
+        ``out`` (a worker's row of :meth:`gathered_bucketed`, returned) when
+        given."""
+        return self.compress_bucketed_keys(layout, delta, prng.split(key, layout.n_leaves),
+                                           out=out)
 
-    def compress_bucketed_keys(self, layout, delta: torch.Tensor, keys: torch.Tensor) -> Payload:
+    def compress_bucketed_keys(self, layout, delta: torch.Tensor, keys: torch.Tensor, *,
+                               out: Optional[Payload] = None) -> Payload:
+        raise NotImplementedError
+
+    def gathered_bucketed(self, layout, n: int, device) -> Payload:
+        """An uninitialised stacked payload of ``n`` workers over the flat
+        buffer: the shape of the all-gather's output."""
         raise NotImplementedError
 
     def decode_bucketed(self, layout, payload: Payload) -> torch.Tensor:
@@ -125,5 +154,5 @@ class Compressor:
         if len(alphas) > 1:
             raise NotImplementedError(
                 "per-segment memory rates (rand-k) come with that operator "
-                "(ROADMAP.md queue 1, 'the other four operators')")
+                "(ROADMAP.md queue 1, 'the randk/topk_ef and identity operators')")
         return alphas.pop() if alphas else 0.0

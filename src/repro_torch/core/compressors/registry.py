@@ -1,15 +1,17 @@
 """Compressor registry: canonical names, legacy aliases, config -> instance.
 
-Ported so far: the ternary operator and its legacy aliases (the paper's
-Sec. 3 special cases):
+Ported so far: the ternary operator with its legacy aliases (the paper's
+Sec. 3 special cases), and natural compression (no alias, as in the JAX
+registry):
 
     diana    -> ternary with memory            (Algorithm 1)
     qsgd     -> ternary p=2,   memory off      (Algorithm 2)
     terngrad -> ternary p=inf, memory off      (Algorithm 2)
     dqgd     -> ternary p=cfg, memory off      (Khirirat et al. 2018)
+    natural  -> natural compression with memory (alpha 8/9)
 
-The JAX package's other operators (natural, randk, topk_ef, identity and
-their aliases) raise ``NotImplementedError`` naming the ROADMAP item.
+The JAX package's other operators (randk, topk_ef, identity and their
+aliases) raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import math
 from typing import Callable, Dict, Tuple
 
 from .base import Compressor
+from .natural import NaturalCompressor
 from .ternary import TernaryCompressor
 
 __all__ = ["make_compressor", "canonical_name", "available_methods"]
@@ -25,7 +28,7 @@ __all__ = ["make_compressor", "canonical_name", "available_methods"]
 _FACTORIES: Dict[str, Callable[..., Compressor]] = {}
 _ALIASES: Dict[str, Tuple[str, dict]] = {}
 # Registered in the JAX package, not ported yet (ROADMAP.md queue 1).
-_NOT_PORTED = ("natural", "randk", "topk_ef", "identity", "none", "rand-k", "top-k-ef")
+_NOT_PORTED = ("randk", "topk_ef", "identity", "none", "rand-k", "top-k-ef")
 
 
 def canonical_name(method: str) -> str:
@@ -36,7 +39,7 @@ def canonical_name(method: str) -> str:
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"compression method {method!r} is not ported yet (ROADMAP.md queue 1, "
-            f"'the other four operators')")
+            f"'the randk/topk_ef and identity operators')")
     raise KeyError(f"unknown compression method {method!r}; choose from {available_methods()}")
 
 
@@ -56,7 +59,12 @@ def _ternary(cfg, *, p=None, memory=True):
                              alpha=cfg.alpha, memory=memory)
 
 
+def _natural(cfg, *, memory=True):
+    return NaturalCompressor(alpha=cfg.alpha, memory=memory)
+
+
 _FACTORIES["ternary"] = _ternary
+_FACTORIES["natural"] = _natural
 _ALIASES.update({
     "diana": ("ternary", {"memory": True}),
     "qsgd": ("ternary", {"p": 2.0, "memory": False}),

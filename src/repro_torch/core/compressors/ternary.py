@@ -99,14 +99,25 @@ class TernaryCompressor(Compressor):
             row += m
         return out
 
-    def compress_bucketed_keys(self, layout, delta: torch.Tensor, keys: torch.Tensor) -> Payload:
+    def compress_bucketed_keys(self, layout, delta: torch.Tensor, keys: torch.Tensor, *,
+                               out: Optional[Payload] = None) -> Payload:
         """ONE fused quantize+pack over the whole block matrix, segment ``i``
         drawing its bits from ``keys[i]`` over its own padded rows."""
         blocks = delta.float().reshape(-1, self.block_size)
         seg_rows = [ps // self.block_size for ps in layout.padded_sizes]
         bits = self._batched_bits(keys, seg_rows, blocks.device)
         packed, scales = ops.quantize_pack_op(blocks, bits, p=self.p)
-        return Payload(packed=packed, scales=scales[:, 0])
+        if out is None:
+            return Payload(packed=packed, scales=scales[:, 0])
+        out.packed.copy_(packed)
+        out.scales.copy_(scales[:, 0])
+        return out
+
+    def gathered_bucketed(self, layout, n: int, device) -> Payload:
+        m = layout.padded_size // self.block_size
+        return Payload(
+            packed=torch.empty((n, m, self.block_size // 4), dtype=torch.uint8, device=device),
+            scales=torch.empty((n, m), dtype=torch.float32, device=device))
 
     def decode_bucketed(self, layout, payload: Payload) -> torch.Tensor:
         return self.decode(payload, layout.padded_size)

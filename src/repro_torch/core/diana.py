@@ -7,8 +7,11 @@ the bucketed (``_reference_agg_bucketed``) and per-leaf
 ``_reference_finish``.  Worker ``w`` draws from ``fold_in(key, w)``, each leaf
 (or bucket segment) ``i`` from ``split(worker_key, n_leaves)[i]``, and the
 server decodes the stacked payloads with ONE fused ``decode_sum_apply`` — so
-for p = inf ``ghat``, ``h_worker`` and ``h_server`` equal the jitted JAX
-``reference_step`` bit for bit, in both layouts.
+for ternary p = inf ``ghat``, ``h_worker`` and ``h_server`` equal the jitted
+JAX ``reference_step`` bit for bit, in both layouts.  For ``natural`` the
+codes do; the decoded powers of two are exact here, where the JAX package's
+CPU ``exp2`` is off by up to 4.05e-6 (``tests/test_torch_natural.py``).  The
+round has no operator branches: each operator's hooks carry its format.
 
 Trees are ``{path: tensor}`` dicts (:mod:`repro_torch.core.tree`); stacked
 per-worker grads carry a leading worker axis on every leaf.  VR, the

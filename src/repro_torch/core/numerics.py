@@ -1,4 +1,5 @@
-"""Fused multiply-add on float32 tensors, rounded once.
+"""Float32 arithmetic the way the JAX package's jitted round rounds it:
+a fused multiply-add rounded once, and a true division by the worker count.
 
 The JAX package runs its DIANA round inside jitted graphs, where XLA
 contracts every ``h + alpha * x`` into one FMA (``repro.kernels.ref``'s
@@ -21,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fma32", "CHUNK"]
+__all__ = ["fma32", "div_n", "CHUNK"]
 
 CHUNK = 1 << 24
 
@@ -50,3 +51,12 @@ def fma32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     for s in range(0, cf.numel(), CHUNK):
         out[s:s + CHUNK] = _fma_chunk(a, bf[s:s + CHUNK], cf[s:s + CHUNK])
     return out.reshape(c.shape)
+
+
+def div_n(s: torch.Tensor, n: int) -> torch.Tensor:
+    """``s / n`` as one IEEE division per element, on every device: torch's
+    CUDA division by a Python scalar multiplies by the rounded reciprocal
+    instead (not the same bits unless n is a power of two); a 0-dim tensor
+    divisor on ``s``'s device takes the true division, as the CUDA kernels'
+    epilogues and the JAX package do."""
+    return s / torch.tensor(float(n), dtype=s.dtype, device=s.device)

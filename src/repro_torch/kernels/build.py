@@ -10,8 +10,9 @@ checkout.  A library is named by a hash of its source and flags, so an
 unchanged source is not rebuilt within a checkout.
 
 Flags: ``-O3 -gencode=arch=compute_90a,code=sm_90a -fmad=false``.  No fast
-math: ``|x| / scale`` and ``sqrtf`` stay IEEE, and the one FMA the reference
-has is written as ``fmaf``.
+math: ``|x| / scale``, ``sqrtf`` and the means' ``/ n`` stay IEEE, subnormals
+are not flushed (the natural decode builds them), and the one FMA the
+reference has is written as ``fmaf``.
 
 Each C entry point returns ``cudaGetLastError()`` right after its launch;
 :func:`check` raises on anything but 0.  A failed build raises too: there is
@@ -39,7 +40,7 @@ __all__ = ["LAUNCHES", "reset_launches", "library", "check", "stream_ptr", "BUIL
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent.parent / "build" / "torch_kernels"
-SOURCES = ("threefry", "quantize_pack", "unpack_reduce")
+SOURCES = ("threefry", "quantize_pack", "unpack_reduce", "nat_pack", "nat_decode")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,6 +56,9 @@ _SIGNATURES = {
                       _c_int, _c_float, _c_float, _c_void_p),
     "unpack_reduce": (_c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                       _c_int, _c_ll, _c_int, _c_float, _c_void_p),
+    "nat_pack": (_c_void_p, _c_void_p, _c_void_p, _c_ll, _c_void_p),
+    "nat_decode": (_c_int, _c_void_p, _c_ll, _c_int, _c_ll, _c_void_p, _c_void_p, _c_void_p,
+                   _c_float, _c_void_p),
 }
 
 

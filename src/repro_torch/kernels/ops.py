@@ -14,6 +14,8 @@ import torch
 from repro_torch.core import prng
 
 from . import ref
+from .nat_decode import nat_decode_sum, nat_decode_sum_apply, nat_decode_sum_mean
+from .nat_pack import nat_pack
 from .quantize_pack import quantize_pack
 from .threefry import threefry_bits
 from .unpack_reduce import unpack_reduce, unpack_reduce_apply, unpack_reduce_mean
@@ -24,6 +26,10 @@ __all__ = [
     "unpack_reduce_op",
     "unpack_reduce_mean_op",
     "unpack_reduce_apply_op",
+    "nat_pack_op",
+    "nat_decode_sum_op",
+    "nat_decode_sum_mean_op",
+    "nat_decode_sum_apply_op",
 ]
 
 
@@ -72,3 +78,29 @@ def unpack_reduce_apply_op(packed: torch.Tensor, scales: torch.Tensor, h: torch.
     if _on_card(packed):
         return unpack_reduce_apply(packed, scales, h, alpha=alpha)
     return ref.ref_unpack_reduce_apply(packed, scales, h, alpha, packed.shape[0])
+
+
+def nat_pack_op(x: torch.Tensor, bits: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if _on_card(x):
+        return nat_pack(x, bits, out=out)
+    codes = ref.ref_nat_pack(x, bits)
+    return codes if out is None else out.copy_(codes)
+
+
+def nat_decode_sum_op(codes: torch.Tensor) -> torch.Tensor:
+    if _on_card(codes):
+        return nat_decode_sum(codes)
+    return ref.ref_nat_decode_sum(codes)
+
+
+def nat_decode_sum_mean_op(codes: torch.Tensor) -> torch.Tensor:
+    if _on_card(codes):
+        return nat_decode_sum_mean(codes)
+    return ref.ref_nat_decode_sum_mean(codes)
+
+
+def nat_decode_sum_apply_op(codes: torch.Tensor, h: torch.Tensor, *, alpha: float):
+    if _on_card(codes):
+        return nat_decode_sum_apply(codes, h, alpha=alpha)
+    return ref.ref_nat_decode_sum_apply(codes, h, alpha)

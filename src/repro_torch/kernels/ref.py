@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the CUDA kernels (the ternary family).
+"""Plain PyTorch versions of the CUDA kernels (the ternary and natural
+families).
 
-The port's copy of ``repro.kernels.ref`` (``:44-91``).  These run on the CPU
+The port's copy of ``repro.kernels.ref`` (``:44-122``).  These run on the CPU
 wherever a kernel would run on the card (``repro_torch.kernels.ops`` picks
 them by tensor device), and ``chip_smoke.py`` holds each kernel against them
 on the card.  The JAX package jits its round, and XLA contracts
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.numerics import fma32
+from repro_torch.core.numerics import div_n, fma32
 from repro_torch.core.packing import pack2bit, unpack2bit
 from repro_torch.core.quantization import lp_norm, uniform_from_bits
 
@@ -24,7 +25,16 @@ __all__ = [
     "ref_unpack_reduce_mean",
     "ref_apply_server",
     "ref_unpack_reduce_apply",
+    "NAT_BIAS",
+    "ref_nat_pack",
+    "ref_nat_decode",
+    "ref_nat_decode_sum",
+    "ref_nat_decode_sum_mean",
+    "ref_nat_decode_sum_apply",
 ]
+
+NAT_BIAS = 160  # int16 code bias: repro/core/compressors/natural.py ``_BIAS``
+_FLT_MIN = 2.0 ** -126
 
 
 def ref_quantize_pack(delta: torch.Tensor, bits: torch.Tensor, p: float):
@@ -50,12 +60,12 @@ def ref_unpack_reduce(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tenso
 
 def ref_unpack_reduce_mean(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """The worker sum, then one true division by n."""
-    return ref_unpack_reduce(packed, scales) / packed.shape[0]
+    return div_n(ref_unpack_reduce(packed, scales), packed.shape[0])
 
 
 def ref_apply_server(s: torch.Tensor, n: int, h: torch.Tensor, alpha: float):
     """``dm = s / n``; ``(ghat, new_h) = (h + dm, fma(alpha, dm, h))``."""
-    dm = s / n
+    dm = div_n(s, n)
     return h + dm, fma32(alpha, dm, h)
 
 
@@ -63,3 +73,55 @@ def ref_unpack_reduce_apply(packed, scales, h, alpha: float, n: int):
     """Fused decode_sum + server update: flat ``(ghat, new_h)``, both (d,)."""
     s = ref_unpack_reduce(packed, scales).reshape(-1)[: h.shape[0]]
     return ref_apply_server(s, n, h, alpha)
+
+
+def ref_nat_pack(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Natural-compression encode, the literal frexp formulation
+    (``repro/kernels/ref.py:94``): x (d,) f32, bits (d,) uint32 as int32 ->
+    (d,) int16 ``sign * (chosen + 160)``, where ``|x|`` in ``[2^(e-1), 2^e)``
+    rounds up to ``2^e`` when ``u < 2|mant| - 1``.
+
+    Zeros code to 0, and so do subnormals: the JAX package's CPU build treats
+    a subnormal input as zero (``x == 0.0`` holds for it), so that is the
+    reference's code for them.  torch's ``frexp`` is exact on subnormals; the
+    mask makes the choice explicit."""
+    x = x.float()
+    u = uniform_from_bits(bits)
+    mant, expo = torch.frexp(x)
+    p_up = 2.0 * torch.abs(mant) - 1.0             # exact (Sterbenz)
+    chosen = expo - 1 + (u < p_up).to(expo.dtype)
+    code = torch.sign(x).to(torch.int32) * (chosen + NAT_BIAS)
+    return torch.where(torch.abs(x) < _FLT_MIN, 0, code).to(torch.int16)
+
+
+def ref_nat_decode(codes: torch.Tensor) -> torch.Tensor:
+    """int16 codes -> f32 ``sign * 2^(|code| - 160)``, the power of two built
+    from its bits: exact for every code (normal, subnormal, 0 below 2^-149,
+    inf at 2^128), with the code's sign on a zero (a negative code below
+    2^-149 decodes to -0.0; code 0 to +0.0)."""
+    c = codes.to(torch.int32)
+    k = torch.abs(c) - NAT_BIAS
+    word = torch.where(k >= -126, (torch.clamp(k, max=128) + 127) << 23,
+                       torch.where(k >= -149, 1 << torch.clamp(k + 149, min=0, max=22), 0))
+    word = word | torch.where(c < 0, torch.iinfo(torch.int32).min, 0)
+    return word.to(torch.int32).view(torch.float32)
+
+
+def ref_nat_decode_sum(codes: torch.Tensor) -> torch.Tensor:
+    """codes (n, d) int16 -> (d,) f32: the sequential worker recurrence from
+    worker 0's decode (``repro/kernels/ref.py:116``), so a -0.0 survives."""
+    acc = ref_nat_decode(codes[0])
+    for i in range(1, codes.shape[0]):
+        acc = acc + ref_nat_decode(codes[i])
+    return acc
+
+
+def ref_nat_decode_sum_mean(codes: torch.Tensor) -> torch.Tensor:
+    """The worker sum, then one true division by n."""
+    return div_n(ref_nat_decode_sum(codes), codes.shape[0])
+
+
+def ref_nat_decode_sum_apply(codes: torch.Tensor, h: torch.Tensor, alpha: float):
+    """Fused decode_sum + server update: ``(h + dm, fma(alpha, dm, h))`` with
+    ``dm = sum / n``, both (d,)."""
+    return ref_apply_server(ref_nat_decode_sum(codes), codes.shape[0], h, alpha)

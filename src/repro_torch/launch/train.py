@@ -9,17 +9,19 @@ the N workers run one after another on one card.  Each step:
    trainer's ``P(workers)`` batch sharding), computes its loss and gradient,
    and flattens the gradient into the f32 bucket;
 3. it encodes ``delta = g - h_worker[w]`` with bits from
-   ``split(fold_in(step_key, w), n_leaves)`` through ``quantize_pack``, and
-   updates ``h_worker[w]``;
-4. after the n workers, ONE ``unpack_reduce_apply`` over the stacked payloads
-   updates ``h_server`` and gives ``ghat``, rounded to the leaf dtypes (the
-   distributed path's ``unflatten(cast=True)``);
+   ``split(fold_in(step_key, w), n_leaves)`` (``quantize_pack`` for the
+   ternary family, ``nat_pack`` for ``natural``) into its row of the stacked
+   payload buffer, and updates ``h_worker[w]``;
+4. after the n workers, ONE fused decode over the stacked payloads
+   (``unpack_reduce_apply`` / ``nat_decode_sum_apply``) updates ``h_server``
+   and gives ``ghat``, rounded to the leaf dtypes (the distributed path's
+   ``unflatten(cast=True)``);
 5. momentum and the parameter write-back.
 
 Entry points run on ``cuda`` and raise without a GPU unless the caller asks
 for the CPU (``--device cpu``), where the kernels' plain versions run.
 
-    python -m repro_torch.launch.train --arch llama3.2-1b --compression diana \\
+    python -m repro_torch.launch.train --arch llama3.2-1b --compression natural \\
         --mesh 4x1 --steps 3 --batch 8 --seq 4096
 """
 
@@ -36,7 +38,7 @@ from repro_torch.configs import ShapeConfig, get_config, get_shape, reduced
 from repro_torch.core import prng
 from repro_torch.core.bucket import bucketed_compressor
 from repro_torch.core.compression import CompressionConfig
-from repro_torch.core.compressors import Payload, available_methods
+from repro_torch.core.compressors import available_methods
 from repro_torch.core.diana import bucket_layout, worker_key
 from repro_torch.data.pipeline import make_lm_batch
 from repro_torch.models.transformer import init_model, train_loss
@@ -104,7 +106,12 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
         hw, hs = opt_state.diana.h_worker, opt_state.diana.h_server
         leaves = [params[p] for p in layout.paths]
         g_flat = torch.empty(dp, dtype=torch.float32, device=device)
-        payloads, losses = [], []
+        # The workers' payloads go straight into their rows of one stacked
+        # buffer (the all-gather's output shape): no per-worker payloads to
+        # stack.  The random bits live only inside each encode, not across
+        # the next worker's backward.
+        gathered = comp.gathered(n_workers, device)
+        losses = []
         for w in range(n_workers):
             shard = {k: v[w * rows:(w + 1) * rows] for k, v in batch.items()}
             loss = train_loss(params, shard, cfg)
@@ -115,16 +122,14 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
             with torch.no_grad():
                 # delta = g - h_w, computed in place in the gradient buffer.
                 delta = g_flat.sub_(hw[w]) if comp.carries_state else g_flat
-                pay = comp.compress(delta, worker_key(key, w))
+                pay = comp.compress(delta, worker_key(key, w), out=gathered.select(w))
                 if comp.carries_state:
                     # h_w <- h_w + alpha * dhat_w, written into the state row.
                     hw[w].copy_(comp.next_memory(hw[w], comp.decode(pay, dp), delta))
-                payloads.append(pay)
         del g_flat
         with torch.no_grad():
-            ghat_flat, new_hs = comp.decode_sum_apply(Payload.stack(payloads), n_workers,
-                                                      dp, hs)
-            del payloads
+            ghat_flat, new_hs = comp.decode_sum_apply(gathered, n_workers, dp, hs)
+            del gathered
             if new_hs is not hs:
                 hs.copy_(new_hs)  # the server memory stays one buffer
             del new_hs

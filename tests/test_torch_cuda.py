@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card, at edge shapes
-(rows not a multiple of 8, one worker, a short ``h``).  Needs an NVIDIA GPU:
-each test skips without one.  On the card:
+(rows not a multiple of 8, one worker, a short ``h``; for the natural
+kernels odd lengths, 1-3 workers and rows that are not 8-byte aligned).
+Needs an NVIDIA GPU: each test skips without one.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -25,7 +26,7 @@ def dev():
 
 def test_threefry_bits_bitwise(dev):
     key = prng.fold_in(prng.PRNGKey(0), 3)
-    for shape in [(1,), (13, 128), (1000, 2048)]:
+    for shape in [(1,), (3,), (4097,), (13, 128), (1000, 2048)]:
         before = build.LAUNCHES["threefry_bits"]
         got = ops.bits_op(key, shape, dev)
         assert build.LAUNCHES["threefry_bits"] == before + 1
@@ -50,7 +51,7 @@ def test_quantize_pack(dev, p, m, b):
         assert same >= 0.9999 * m * b
 
 
-@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("n", [1, 3, 4])
 @pytest.mark.parametrize("m", [13, 300])
 @pytest.mark.parametrize("d_short", [0, 100])
 def test_unpack_reduce_family(dev, n, m, d_short):
@@ -74,3 +75,83 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         ops.unpack_reduce_op(torch.zeros((2, 3, 8), dtype=torch.uint8, device=dev),
                              torch.zeros((2, 4, 1), device=dev))
+
+
+def _special(dev):
+    """Zeros, +-2^k, the float just below each 2^k, subnormals, FLT_MAX."""
+    pows = torch.ldexp(torch.ones(254, device=dev), torch.arange(-126, 128, device=dev))
+    below = torch.nextafter(pows, torch.zeros_like(pows))
+    tiny = torch.tensor([1e-45, 3e-39, 1.1754942e-38, 0.0, -0.0, 3.4028235e38], device=dev)
+    v = torch.cat([pows, below, tiny])
+    return torch.cat([v, -v])
+
+
+def _nat_inputs(dev, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(d, generator=g, device=dev) * 10.0 ** (
+        torch.rand(d, generator=g, device=dev) * 60 - 30)
+    sp = _special(dev)
+    k = min(d, sp.numel())
+    x[torch.randperm(d, generator=g, device=dev)[:k]] = sp[:k]
+    bits = torch.randint(-2**31, 2**31, (d,), generator=g, device=dev, dtype=torch.int32)
+    return x, bits
+
+
+@pytest.mark.parametrize("d", [1, 3, 1001, 4097])
+def test_nat_pack(dev, d):
+    x, bits = _nat_inputs(dev, d, seed=d)
+    want = ref.ref_nat_pack(x, bits)
+    before = build.LAUNCHES["nat_pack"]
+    assert torch.equal(ops.nat_pack_op(x, bits), want)
+    # into the rows of a gathered buffer whose rows are only 2-byte aligned
+    buf = torch.zeros((3, d + 1), dtype=torch.int16, device=dev)
+    for w in range(3):
+        assert ops.nat_pack_op(x, bits, out=buf[w, :d]) is not None
+        assert torch.equal(buf[w, :d], want) and int(buf[w, d]) == 0
+    # x and bits one element off their 16-byte alignment, and off each other's
+    xb = torch.empty(d + 2, device=dev)
+    bb = torch.empty(d + 2, dtype=torch.int32, device=dev)
+    xb[1:d + 1], bb[2:] = x, bits
+    assert torch.equal(ops.nat_pack_op(xb[1:d + 1], bits), want)
+    assert torch.equal(ops.nat_pack_op(xb[1:d + 1], bb[2:]), want)
+    assert build.LAUNCHES["nat_pack"] == before + 6
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4])
+@pytest.mark.parametrize("d", [1, 3, 1001, 4097])
+@pytest.mark.parametrize("ld_pad", [0, 1, 8])
+def test_nat_decode_family(dev, n, d, ld_pad):
+    """Rows ``d + ld_pad`` codes apart: contiguous (0), only 2-byte aligned
+    for odd d (1), and 16-byte aligned where d is a multiple of 8 (8)."""
+    g = torch.Generator(device=dev).manual_seed(n * 7 + d)
+    buf = torch.randint(-288, 289, (n, d + ld_pad), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int16)
+    buf[:, ::5] = torch.randint(-10, 0, buf[:, ::5].shape, generator=g, device=dev,
+                                dtype=torch.int32).to(torch.int16)   # -0.0 decodes
+    codes = buf[:, :d]
+    plain = codes.contiguous()
+    assert _same_bits(ops.nat_decode_sum_op(codes), ref.ref_nat_decode_sum(plain))
+    assert _same_bits(ops.nat_decode_sum_mean_op(codes), ref.ref_nat_decode_sum_mean(plain))
+    hb = torch.randn(d + 1, generator=g, device=dev)
+    for h in (hb[:d], hb[1:]):                  # 16-byte aligned, and 4-byte aligned
+        got = ops.nat_decode_sum_apply_op(codes, h, alpha=8.0 / 9.0)
+        want = ref.ref_nat_decode_sum_apply(plain, h, 8.0 / 9.0)
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+def test_nat_wrappers_reject_bad_inputs(dev):
+    x = torch.zeros(10, device=dev)
+    with pytest.raises(ValueError):
+        ops.nat_pack_op(x, torch.zeros(10, device=dev))              # bits not int32
+    with pytest.raises(ValueError):
+        ops.nat_pack_op(x, torch.zeros(10, dtype=torch.int32, device=dev),
+                        out=torch.zeros(9, dtype=torch.int16, device=dev))
+    with pytest.raises(ValueError):
+        ops.nat_decode_sum_op(torch.zeros((2, 10), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        ops.nat_decode_sum_apply_op(torch.zeros((2, 10), dtype=torch.int16, device=dev),
+                                    torch.zeros(9, device=dev), alpha=0.5)
