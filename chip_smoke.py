@@ -17,14 +17,19 @@ Phases (each prints its lines; any failure exits non-zero):
    Dp = the parameter count): ``nat_pack``, ``nat_decode_sum`` (n = 1 and
    4), ``_mean`` and ``_apply`` bitwise, on inputs spliced with zeros,
    +-2^k, the float below 2^k, subnormals, FLT_MAX and codes that decode to
-   -0.0, subnormals and infinity.  Median time (CUDA events) of kernel and
-   plain version, and the bound (bytes over HBM bandwidth, or operations over
-   the peak rate);
+   -0.0, subnormals and infinity.  Sparse (rand-k with k = 2^20 per leaf,
+   K = 9,472,000 kept entries per worker): ``sparse_gather``,
+   ``sparse_decode_sum`` (n = 1 and 4) and ``_mean`` (n = 4) bitwise, on
+   payloads from a real rand-k bucketed compress with -0.0, +-inf,
+   subnormals, products that underflow to -0.0 and indices 0 and Dp - 1
+   spliced in.  Median time (CUDA events) of kernel and plain version, the
+   bound (bytes over HBM bandwidth, or operations over the peak rate) and,
+   for the gather, ``torch.index_select``'s time;
 4. reference: two training steps of ``reduced(llama3.2-1b)`` (f32) on the
    card through the kernels, against the same steps with every kernel
    swapped for its plain version (bitwise: losses, parameters, memories),
-   for ``diana`` and for ``natural``, and the step-0 loss against its
-   float64 evaluation (rel 1e-5);
+   for ``diana``, ``natural``, ``randk`` and ``topk_ef``, and the step-0
+   loss against its float64 evaluation (rel 1e-5);
 5. the main path: the trainer's ``build_train_step`` on llama3.2-1b at full width
    (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256, bf16, remat full),
    cut to 8 of 16 layers and a global batch of 8 at seq 4096, 4 workers,
@@ -36,7 +41,14 @@ Phases (each prints its lines; any failure exits non-zero):
    3 steps: 4 nat_pack, 4 nat_decode_sum (each worker's own decode) and 1
    nat_decode_sum_apply per step;
 8. the memoryless natural round (``NaturalCompressor(memory=False)`` over
-   the 8-layer bucket, 4 workers): one ``nat_decode_sum_mean``.
+   the 8-layer bucket, 4 workers): one ``nat_decode_sum_mean``;
+9. the rand-k main path: the same trainer and model with ``randk``,
+   ``comp_k`` 2^20, 3 steps: per step 48 threefry draws (12 segments x 4
+   workers), 4 sparse_gather, 4 sparse_decode_sum (each worker's own
+   decode) and 1 sparse_decode_sum (the server sum); the selection
+   (threefry + top-k of one worker's 12 segments) timed on its own;
+10. the top-k EF main path: the same with ``topk_ef``: per step 4
+   sparse_gather, 4 sparse_decode_sum and 1 sparse_decode_sum_mean.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -59,6 +71,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM non-tensor f32 peak; taken for 32-bit int ops too
 LAYERS, BATCH, SEQ, WORKERS, STEPS = 8, 8, 4096, 4, 3
+COMP_K = 1 << 20               # rand-k / top-k: coordinates kept per leaf
 
 
 def fail(msg: str) -> None:
@@ -101,7 +114,9 @@ def main() -> None:
         from repro_torch.core.bucket import BucketedCompressor
         from repro_torch.core.compression import CompressionConfig
         from repro_torch.core.compressors.natural import NaturalCompressor
+        from repro_torch.core.compressors.randk import RandKCompressor, uniform_subset
         from repro_torch.core.compressors.ternary import TernaryCompressor
+        from repro_torch.core.compressors.topk_ef import TopKEFCompressor
         from repro_torch.core.diana import bucket_layout, worker_key
         from repro_torch.data.pipeline import make_lm_batch
         from repro_torch.kernels import build, ops, ref
@@ -142,13 +157,15 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_count, note=""):
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_count, note="",
+               library_ms=None):
         b_ms, b_by = bound(nbytes, ops_count)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
+        lib_note = "" if library_ms is None else f" library_ms {library_ms:.4f}"
         print(f"kernel {name}: max_abs_err {err} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {b_ms:.4f} ({b_by}) {note}")
+              f"bound_ms {b_ms:.4f} ({b_by}){lib_note} {note}")
 
     # threefry bits, at the largest segment the path draws (embed / lm_head)
     key = prng.split(prng.fold_in(prng.PRNGKey(0), 1), layout.n_leaves)[0]
@@ -321,6 +338,97 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # -------------------------------------------------- sparse kernels
+    # Payloads of a real rand-k bucketed compress (threefry tags, top-k per
+    # segment, sparse_gather) of four workers into the trainer's gathered
+    # buffer, with special values and both end indices spliced in.
+    slayout = bucket_layout(CompressionConfig(method="randk", k=COMP_K, bucketed=True), meta)
+    sd = slayout.padded_size
+    rcomp = RandKCompressor(COMP_K)
+    kk = rcomp.payload_length(slayout)
+    print(f"kernels: sparse bucket {slayout.n_leaves} leaves, Dp {sd}, k {COMP_K} per leaf, "
+          f"K {kk} per worker; n {WORKERS}")
+    x = torch.randn(sd, generator=gen, device=dev) * 1e-3
+    sgath = rcomp.gathered_bucketed(slayout, WORKERS, dev)
+    for w in range(WORKERS):
+        rcomp.compress_bucketed(slayout, x * (w + 1), worker_key(prng.PRNGKey(6), w),
+                                out=sgath.select(w))
+        if not same_bits(sgath.values[w], ref.ref_sparse_gather(x * (w + 1), sgath.indices[w])):
+            fail("sparse_gather (inside the rand-k compress) differs from the plain version")
+    sidx, svals = sgath.indices, sgath.values
+    row0 = sidx[0].to(torch.int64)
+    for pos, end in ((0, 0), (1, sd - 1)):          # both ends of the buffer in worker 0
+        if not bool((row0 == end).any()):
+            row0[pos] = end
+    sidx[0].copy_(row0)
+    del row0
+    specials = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"), 1e-40, -1e-40,
+                             -1e-45, 3.4028235e38, -1e-20, -1e-20], device=dev)
+    sscale = rcomp._bucket_scales(slayout, dev)
+    n_sp = min(4096, kk // (2 * specials.numel()))
+    for w in range(WORKERS):
+        pos = torch.randperm(kk, generator=gen, device=dev)[:n_sp * specials.numel()]
+        svals[w, pos] = specials.repeat_interleave(n_sp)   # the -1e-20 entries last
+        if w == 0:
+            sscale[pos[-2 * n_sp:]] = 1e-30         # -1e-20 * 1e-30 underflows to -0.0
+    xi = sidx[0]
+    kv = ops.sparse_gather_op(x, xi)
+    if not same_bits(kv, ref.ref_sparse_gather(x, xi)):
+        fail("sparse_gather differs from the plain version")
+    xi64 = xi.to(torch.int64)
+    lib_gather = torch.empty_like(kv)
+    record("sparse_gather", "src/repro_torch/csrc/sparse.cu",
+           "src/repro/kernels/sparse.py:60 (pallas_call :65)", 0.0,
+           time_ms(lambda: ops.sparse_gather_op(x, xi, out=kv), 10),
+           time_ms(lambda: ref.ref_sparse_gather(x, xi), 3),
+           kk * (4 + 4 + 4), 0.0, f"bitwise, K {kk}",
+           time_ms(lambda: torch.index_select(x, 0, xi64, out=lib_gather), 10))
+    del kv, xi64, lib_gather
+    one = (sidx[:1], svals[:1])
+    sgot = ops.sparse_decode_sum_op(*one, sscale, sd)
+    if not same_bits(sgot, ref.ref_sparse_decode_sum(*one, sscale, sd)):
+        fail("sparse_decode_sum (n=1) differs from the plain version")
+    if bool(((sgot == 0) & torch.signbit(sgot)).any()):
+        fail("sparse_decode_sum (n=1) holds a -0.0")
+    del sgot
+    sgot = ops.sparse_decode_sum_op(sidx, svals, sscale, sd)
+    if not same_bits(sgot, ref.ref_sparse_decode_sum(sidx, svals, sscale, sd)):
+        fail("sparse_decode_sum (n=4) differs from the plain version")
+    del sgot
+    idx64 = sidx.to(torch.int64)
+    lib_out = torch.empty(sd, device=dev)
+
+    def index_add_sum(nw):
+        lib_out.zero_()
+        for i in range(nw):
+            lib_out.index_add_(0, idx64[i], svals[i] * sscale)
+
+    n4_ms = time_ms(lambda: ops.sparse_decode_sum_op(sidx, svals, sscale, sd), 10)
+    n4_note = (f"n=4: ms {n4_ms:.4f} plain_ms "
+               f"{time_ms(lambda: ref.ref_sparse_decode_sum(sidx, svals, sscale, sd), 3):.4f} "
+               f"bound_ms {bound(4.0 * sd + 8.0 * WORKERS * kk + 4.0 * kk, 0.0)[0]:.4f} "
+               f"zero_+index_add_ ms {time_ms(lambda: index_add_sum(WORKERS), 3):.4f}")
+    record("sparse_decode_sum", "src/repro_torch/csrc/sparse.cu",
+           "src/repro/kernels/sparse.py:120 (pallas_call :131)", 0.0,
+           time_ms(lambda: ops.sparse_decode_sum_op(*one, sscale, sd), 10),
+           time_ms(lambda: ref.ref_sparse_decode_sum(*one, sscale, sd), 3),
+           4.0 * sd + 12.0 * kk, 2.0 * kk,
+           f"n=1 (a worker's own decode), bitwise; zero_+index_add_ ms "
+           f"{time_ms(lambda: index_add_sum(1), 3):.4f}; {n4_note}, bitwise")
+    sgot = ops.sparse_decode_sum_mean_op(sidx, svals, sscale, sd)
+    if not same_bits(sgot, ref.ref_sparse_decode_sum_mean(sidx, svals, sscale, sd)):
+        fail("sparse_decode_sum_mean (n=4) differs from the plain version")
+    del sgot
+    record("sparse_decode_sum_mean", "src/repro_torch/csrc/sparse.cu",
+           "src/repro/kernels/sparse.py:142 (pallas_call :157)", 0.0,
+           time_ms(lambda: ops.sparse_decode_sum_mean_op(sidx, svals, sscale, sd), 10),
+           time_ms(lambda: ref.ref_sparse_decode_sum_mean(sidx, svals, sscale, sd), 3),
+           4.0 * sd + 8.0 * WORKERS * kk + 4.0 * kk, 2.0 * WORKERS * kk + sd,
+           "n=4, bitwise")
+    del x, sgath, sidx, svals, sscale, one, idx64, lib_out, xi, pos, specials
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- reference on a small input
     rcfg = reduced(get_config("llama3.2-1b"))
     rshape = ShapeConfig("smoke", 64, 4, "train")
@@ -330,7 +438,7 @@ def main() -> None:
 
     def train_small(method):
         params = {k: torch.nn.Parameter(v.detach().to(dev, copy=True)) for k, v in init.items()}
-        opt = make_optimizer(replace(rcfg, compression=method))
+        opt = make_optimizer(replace(rcfg, compression=method, comp_k=4096))
         st = opt.init(params, 2)
         fn = build_train_step(rcfg, opt, 2, dev)
         losses = []
@@ -343,7 +451,7 @@ def main() -> None:
     with torch.no_grad():
         loss64 = float(train_loss({k: v.to(dev, torch.float64) for k, v in init.items()},
                                   rbatches[0], f64))
-    for method in ("diana", "natural"):
+    for method in ("diana", "natural", "randk", "topk_ef"):
         k_loss, k_params, k_diana = train_small(method)
         on_card = ops._on_card
         ops._on_card = lambda t: False      # the same steps, every kernel -> its plain version
@@ -376,6 +484,7 @@ def main() -> None:
                     for k, v in make_lm_batch(pcfg, shape, s).items()} for s in range(steps)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         build.reset_launches()
         times, losses = [], []
         for s in range(steps):
@@ -405,7 +514,8 @@ def main() -> None:
             del grads
         print(f"{label}: {pcfg.n_layers} layers, batch {BATCH} x seq {SEQ}, {WORKERS} workers, "
               f"{pcfg.compression}: step times {times} s; one worker's forward+backward "
-              f"{fb[-1]} s; peak memory {peak} B; launches {counts}")
+              f"{fb[-1]} s; peak memory {peak} B (held before the path: params, state, "
+              f"batches {held} B); launches {counts}")
         del params, opt_state, step_fn, batches
         torch.cuda.empty_cache()
         return counts
@@ -463,6 +573,52 @@ def main() -> None:
             r["launches"] = mncounts["nat_decode_sum_mean"]
             r["path"] = "memoryless natural round (8-layer bucket, 4 workers)"
     del mcomp, delta, hs, mg, ghat, hs_out
+    torch.cuda.empty_cache()
+
+    # The sparse main paths: rand-k and top-k EF at k = 2^20 per leaf.
+    scfg = replace(cfg, comp_k=COMP_K)
+    sel_ms = {}
+
+    def time_selection(comp):
+        """One worker's selection over the 12 segments (threefry tags or
+        |x| bits, composite keys, torch.topk), without the gather: its time
+        and its transient memory above what was allocated before."""
+        g = torch.randn(sd, generator=gen, device=dev) * 1e-3
+        keys = prng.split(worker_key(prng.PRNGKey(7), 0), slayout.n_leaves)
+
+        def select():
+            for key, off, d in zip(keys, slayout.offsets, slayout.sizes):
+                comp._select(g[off:off + d], comp._k(d), key)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        select()
+        torch.cuda.synchronize()
+        return time_ms(select, 3), torch.cuda.max_memory_allocated() - base
+
+    rcounts = run_path(replace(scfg, compression="randk"), STEPS, "randk")
+    sel_ms["randk"] = time_selection(RandKCompressor(COMP_K))
+    want = {"threefry_bits": WORKERS * STEPS * slayout.n_leaves, "sparse_gather": WORKERS * STEPS,
+            "sparse_decode_sum": (WORKERS + 1) * STEPS}
+    if rcounts != want:
+        fail(f"randk: launches {rcounts}, expected {want}")
+    tcounts = run_path(replace(scfg, compression="topk_ef"), STEPS, "topk_ef")
+    sel_ms["topk_ef"] = time_selection(TopKEFCompressor(COMP_K))
+    want = {"sparse_gather": WORKERS * STEPS, "sparse_decode_sum": WORKERS * STEPS,
+            "sparse_decode_sum_mean": STEPS}
+    if tcounts != want:
+        fail(f"topk_ef: launches {tcounts}, expected {want}")
+    print(f"selection: one worker's 12 segments, k {COMP_K} per leaf: randk "
+          f"{sel_ms['randk'][0]:.3f} ms (threefry tags + top-k), {sel_ms['randk'][1]} B "
+          f"transient; topk_ef {sel_ms['topk_ef'][0]:.3f} ms (|x| bits + top-k), "
+          f"{sel_ms['topk_ef'][1]} B transient")
+    for r in rows:
+        if r["name"] in ("sparse_gather", "sparse_decode_sum"):
+            r["launches"] = rcounts[r["name"]]
+            r["path"] = "randk (8 layers, 3 steps)"
+        elif r["name"] == "sparse_decode_sum_mean":
+            r["launches"] = tcounts[r["name"]]
+            r["path"] = "topk_ef (8 layers, 3 steps)"
 
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:

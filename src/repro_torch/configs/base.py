@@ -49,6 +49,7 @@ class ModelConfig:
     compression: str = "diana"
     comp_p: float = math.inf
     comp_block: int = 2048
+    comp_k: int = 64               # kept coordinates per leaf for rand-k / top-k
     comp_bucketed: bool = True     # whole-model flat-buffer aggregation
     h_dtype: torch.dtype = torch.float32
 

@@ -132,11 +132,22 @@ class BucketedCompressor(Compressor):
         lay = self.layout
         return sum(self.base.bits_per_dim(s) * s for s in lay.sizes) / max(lay.size, 1)
 
+    # -------------------------------------------------------- memory rule
+
     def memory_alpha(self, d: Optional[int] = None) -> float:
-        return self.base.bucketed_alpha(self.layout)
+        return self.base.memory_alpha(d)
 
     def compress_input(self, g, h):
         return self.base.compress_input(g, h)
+
+    def compress_input_(self, g, h):
+        return self.base.compress_input_(g, h)
+
+    def next_memory(self, h, dhat, delta):
+        return self.base.next_memory_bucketed(self.layout, h, dhat, delta)
+
+    def next_server_memory(self, h, dhat_mean):
+        return self.base.next_server_memory_bucketed(self.layout, h, dhat_mean)
 
     def server_direction(self, h, dhat_mean):
         return self.base.server_direction(h, dhat_mean)

@@ -24,11 +24,12 @@ __all__ = ["CompressionConfig", "payload_bits_per_dim"]
 @dataclass(frozen=True)
 class CompressionConfig:
     """method:     ``diana`` / ``qsgd`` / ``terngrad`` / ``dqgd`` / ``ternary`` /
-                ``natural``
+                ``natural`` / ``randk`` (``rand-k``) / ``topk_ef`` (``top-k-ef``)
     p:          quantization norm power (``math.inf``, 2.0, 1.0, or > 2)
     block_size: quantization block d_l (Def. 2; ternary only)
     alpha:      memory learning rate override (None: alpha_p/2, Cor. 1, for
-                ternary; 8/9 for natural)
+                ternary; 8/9 for natural; k/d per leaf for rand-k)
+    k:          kept coordinates per leaf for rand-k / top-k
     h_dtype:    dtype of the DIANA memories
     bucketed:   aggregate the whole model as ONE flat buffer (bitwise the
                 per-leaf layout; the flag selects the execution layout)"""
@@ -37,6 +38,7 @@ class CompressionConfig:
     p: float = math.inf
     block_size: int = 2048
     alpha: Optional[float] = None
+    k: int = 64
     h_dtype: torch.dtype = torch.float32
     bucketed: bool = False
 

@@ -1,10 +1,13 @@
 """Compression operators behind DIANA's aggregation loop (ternary family,
-natural compression)."""
+natural compression, rand-k, top-k with error feedback)."""
 
 from .base import Compressor, Payload
 from .natural import NaturalCompressor
+from .randk import RandKCompressor
 from .registry import available_methods, canonical_name, make_compressor
 from .ternary import TernaryCompressor
+from .topk_ef import TopKEFCompressor
 
-__all__ = ["Compressor", "NaturalCompressor", "Payload", "TernaryCompressor",
-           "available_methods", "canonical_name", "make_compressor"]
+__all__ = ["Compressor", "NaturalCompressor", "Payload", "RandKCompressor",
+           "TernaryCompressor", "TopKEFCompressor", "available_methods", "canonical_name",
+           "make_compressor"]

@@ -1,21 +1,39 @@
 """Compressor interface + the ``Payload`` wire format.
 
-The port's copy of ``repro.core.compressors.base`` for the hooks the ternary
-and natural paths run.  Memory rules follow the JAX package's jitted
-arithmetic: XLA contracts ``h + alpha * x`` into one FMA, so the port writes
-those updates with :func:`repro_torch.core.numerics.fma32`.
+The port's copy of ``repro.core.compressors.base`` for the hooks the ternary,
+natural and sparse (rand-k, top-k + EF) paths run.  Memory rules follow the
+JAX package's jitted arithmetic: XLA contracts ``h + alpha * x`` into one FMA,
+so the port writes those updates with
+:func:`repro_torch.core.numerics.fma32`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.numerics import div_n, fma32
+from repro_torch.core.numerics import SegmentRates, div_n, fma32
 
-__all__ = ["Payload", "Compressor"]
+__all__ = ["Payload", "Compressor", "index_dtype", "index_nbits"]
+
+
+def index_dtype(d: int) -> torch.dtype:
+    """Narrowest unsigned integer dtype that addresses ``d`` coordinates: the
+    wire width of a sparse payload's indices (``base.py:33``).  torch has no
+    arithmetic on ``uint16``/``uint32``; indices are converted to int64 where
+    torch indexes, and the kernels read the raw words."""
+    if d <= (1 << 8):
+        return torch.uint8
+    if d <= (1 << 16):
+        return torch.uint16
+    return torch.uint32
+
+
+def index_nbits(d: int) -> int:
+    """Wire bits of one coordinate index of a length-``d`` vector."""
+    return index_dtype(d).itemsize * 8
 
 
 class Payload(NamedTuple):
@@ -98,6 +116,11 @@ class Compressor:
         """What the worker encodes: ``g - h`` when the memory is live."""
         return g - h if self.carries_state else g
 
+    def compress_input_(self, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """:meth:`compress_input` computed in place in ``g`` (the trainer's
+        gradient buffer): the same bits, no model-sized temporary."""
+        return g.sub_(h) if self.carries_state else g
+
     def next_memory(self, h: torch.Tensor, dhat: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
         """Worker memory update ``h_i + alpha * dhat_i`` (one rounding, as jitted)."""
         if not self.carries_state:
@@ -142,17 +165,44 @@ class Compressor:
         raise NotImplementedError
 
     def decode_sum_bucketed(self, layout, gathered: Payload, n: int) -> torch.Tensor:
-        raise NotImplementedError
+        """``sum_i decode_bucketed(payload_i)``: the sequential f32 recurrence
+        from worker 0 (``base.py:318``)."""
+        acc = self.decode_bucketed(layout, gathered.select(0))
+        for i in range(1, n):
+            acc = acc + self.decode_bucketed(layout, gathered.select(i))
+        return acc
 
     def decode_sum_apply_bucketed(self, layout, gathered: Payload, n: int, h_server):
-        raise NotImplementedError
+        """The server tail over the flat buffer (``base.py:327``), composed
+        from the bucketed hooks: an operator that overrides
+        :meth:`next_server_memory` (error feedback) keeps its own rule, else
+        the alpha rule runs with :meth:`bucketed_alpha` (one rate, or one per
+        segment)."""
+        dm = div_n(self.decode_sum_bucketed(layout, gathered, n), n)
+        return (self.server_direction(h_server, dm),
+                self.next_server_memory_bucketed(layout, h_server, dm))
 
-    def bucketed_alpha(self, layout) -> float:
-        """The memory rate over the flat buffer: one scalar, since every
-        ported operator's alpha is independent of the leaf length."""
-        alphas = {self.memory_alpha(s) for s in layout.sizes}
-        if len(alphas) > 1:
-            raise NotImplementedError(
-                "per-segment memory rates (rand-k) come with that operator "
-                "(ROADMAP.md queue 1, 'the randk/topk_ef and identity operators')")
-        return alphas.pop() if alphas else 0.0
+    def next_memory_bucketed(self, layout, h, dhat, delta):
+        """:meth:`next_memory` over the flat buffer (``repro/core/bucket.py
+        :458``): an operator's own rule (top-k EF), else the alpha rule with
+        :meth:`bucketed_alpha`."""
+        if type(self).next_memory is not Compressor.next_memory:
+            return self.next_memory(h, dhat, delta)
+        return fma32(self.bucketed_alpha(layout), dhat, h) if self.carries_state else h
+
+    def next_server_memory_bucketed(self, layout, h, dhat_mean):
+        """:meth:`next_server_memory` over the flat buffer, dispatched the
+        same way."""
+        if type(self).next_server_memory is not Compressor.next_server_memory:
+            return self.next_server_memory(h, dhat_mean)
+        return fma32(self.bucketed_alpha(layout), dhat_mean, h) if self.carries_state else h
+
+    def bucketed_alpha(self, layout) -> Union[float, SegmentRates]:
+        """The memory rate over the flat buffer (``base.py:345``): a scalar
+        when the operator's alpha is the same for every leaf, else each
+        segment's ``memory_alpha(d_leaf)`` over its padded stretch (rand-k's
+        ``k/d``)."""
+        alphas = [self.memory_alpha(s) for s in layout.sizes]
+        if len(set(alphas)) <= 1:
+            return alphas[0] if alphas else 0.0
+        return SegmentRates(tuple(alphas), tuple(layout.offsets), tuple(layout.padded_sizes))

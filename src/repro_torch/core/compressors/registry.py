@@ -1,17 +1,18 @@
 """Compressor registry: canonical names, legacy aliases, config -> instance.
 
 Ported so far: the ternary operator with its legacy aliases (the paper's
-Sec. 3 special cases), and natural compression (no alias, as in the JAX
-registry):
+Sec. 3 special cases), natural compression, and the sparse operators:
 
     diana    -> ternary with memory            (Algorithm 1)
     qsgd     -> ternary p=2,   memory off      (Algorithm 2)
     terngrad -> ternary p=inf, memory off      (Algorithm 2)
     dqgd     -> ternary p=cfg, memory off      (Khirirat et al. 2018)
     natural  -> natural compression with memory (alpha 8/9)
+    randk    -> rand-k with memory (alpha k/d per leaf); alias rand-k
+    topk_ef  -> top-k with error feedback;          alias top-k-ef
 
-The JAX package's other operators (randk, topk_ef, identity and their
-aliases) raise ``NotImplementedError`` naming the ROADMAP item.
+The JAX package's identity operator (and its ``none`` alias) raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,14 +22,16 @@ from typing import Callable, Dict, Tuple
 
 from .base import Compressor
 from .natural import NaturalCompressor
+from .randk import RandKCompressor
 from .ternary import TernaryCompressor
+from .topk_ef import TopKEFCompressor
 
 __all__ = ["make_compressor", "canonical_name", "available_methods"]
 
 _FACTORIES: Dict[str, Callable[..., Compressor]] = {}
 _ALIASES: Dict[str, Tuple[str, dict]] = {}
 # Registered in the JAX package, not ported yet (ROADMAP.md queue 1).
-_NOT_PORTED = ("randk", "topk_ef", "identity", "none", "rand-k", "top-k-ef")
+_NOT_PORTED = ("identity", "none")
 
 
 def canonical_name(method: str) -> str:
@@ -39,7 +42,7 @@ def canonical_name(method: str) -> str:
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"compression method {method!r} is not ported yet (ROADMAP.md queue 1, "
-            f"'the randk/topk_ef and identity operators')")
+            f"item 'identity')")
     raise KeyError(f"unknown compression method {method!r}; choose from {available_methods()}")
 
 
@@ -63,11 +66,23 @@ def _natural(cfg, *, memory=True):
     return NaturalCompressor(alpha=cfg.alpha, memory=memory)
 
 
+def _randk(cfg, *, memory=True):
+    return RandKCompressor(cfg.k, alpha=cfg.alpha, memory=memory)
+
+
+def _topk_ef(cfg):
+    return TopKEFCompressor(cfg.k)
+
+
 _FACTORIES["ternary"] = _ternary
 _FACTORIES["natural"] = _natural
+_FACTORIES["randk"] = _randk
+_FACTORIES["topk_ef"] = _topk_ef
 _ALIASES.update({
     "diana": ("ternary", {"memory": True}),
     "qsgd": ("ternary", {"p": 2.0, "memory": False}),
     "terngrad": ("ternary", {"p": math.inf, "memory": False}),
     "dqgd": ("ternary", {"memory": False}),
+    "rand-k": ("randk", {}),
+    "top-k-ef": ("topk_ef", {}),
 })

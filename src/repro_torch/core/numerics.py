@@ -15,14 +15,21 @@ exactly with float64 arithmetic:
 
 It works on any device and processes ``CHUNK`` elements at a time to bound
 the float64 temporaries (the trainer's flat buffers hold ~1e9 coordinates).
+The rate is one scalar, or one scalar per segment of a flat buffer
+(:class:`SegmentRates`: rand-k's ``k/d`` per leaf), applied on each
+segment's view so no ``(Dp,)`` rate vector is ever built; under ``jax.jit``
+XLA contracts the JAX package's ``h + alpha_vec * x`` with a constant rate
+vector into one FMA as well.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple, Union
+
 import numpy as np
 import torch
 
-__all__ = ["fma32", "div_n", "CHUNK"]
+__all__ = ["fma32", "div_n", "CHUNK", "SegmentRates"]
 
 CHUNK = 1 << 24
 
@@ -39,17 +46,36 @@ def _fma_chunk(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(inexact_even, torch.nextafter(t, toward), t).float()
 
 
-def fma32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+class SegmentRates(NamedTuple):
+    """One rate per segment of a flat buffer: ``rates[i]`` applies to
+    ``[offsets[i], offsets[i] + sizes[i])``; the segments tile the buffer."""
+
+    rates: Tuple[float, ...]
+    offsets: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+
+
+def fma32(a: Union[float, SegmentRates], b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``round_f32(a * b + c)`` for float32 tensors ``b``, ``c`` of one shape
     and a Python float ``a``, rounded to float32 first as JAX rounds its
-    weak-typed scalars."""
+    weak-typed scalars (and its f32 rate vectors).  With :class:`SegmentRates`
+    the flat buffer (1-D ``b``, ``c``) takes each segment's rate."""
     if b.shape != c.shape:
         raise ValueError(f"fma32 shapes differ: {tuple(b.shape)} vs {tuple(c.shape)}")
-    a = float(np.float32(a))
+    if isinstance(a, SegmentRates):
+        if c.dim() != 1 or sum(a.sizes) != c.numel():
+            raise ValueError(f"segment rates cover {sum(a.sizes)} coordinates, not the "
+                             f"flat buffer of shape {tuple(c.shape)}")
+        segments = zip(a.rates, a.offsets, a.sizes)
+    else:
+        segments = [(a, 0, c.numel())]
     bf, cf = b.float().reshape(-1), c.float().reshape(-1)
     out = torch.empty_like(cf)
-    for s in range(0, cf.numel(), CHUNK):
-        out[s:s + CHUNK] = _fma_chunk(a, bf[s:s + CHUNK], cf[s:s + CHUNK])
+    for rate, off, size in segments:
+        rate = float(np.float32(rate))
+        for s in range(off, off + size, CHUNK):
+            e = min(s + CHUNK, off + size)
+            out[s:e] = _fma_chunk(rate, bf[s:e], cf[s:e])
     return out.reshape(c.shape)
 
 
@@ -58,5 +84,7 @@ def div_n(s: torch.Tensor, n: int) -> torch.Tensor:
     CUDA division by a Python scalar multiplies by the rounded reciprocal
     instead (not the same bits unless n is a power of two); a 0-dim tensor
     divisor on ``s``'s device takes the true division, as the CUDA kernels'
-    epilogues and the JAX package do."""
+    epilogues do.  (The JAX package's jitted graphs divide by a constant n
+    as ``s * f32(1/n)``, XLA's rewrite: the same bits for n a power of two,
+    within 1 ulp otherwise; ROADMAP.md queue 3.)"""
     return s / torch.tensor(float(n), dtype=s.dtype, device=s.device)

@@ -40,7 +40,7 @@ __all__ = ["LAUNCHES", "reset_launches", "library", "check", "stream_ptr", "BUIL
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent.parent / "build" / "torch_kernels"
-SOURCES = ("threefry", "quantize_pack", "unpack_reduce", "nat_pack", "nat_decode")
+SOURCES = ("threefry", "quantize_pack", "unpack_reduce", "nat_pack", "nat_decode", "sparse")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "nat_pack": (_c_void_p, _c_void_p, _c_void_p, _c_ll, _c_void_p),
     "nat_decode": (_c_int, _c_void_p, _c_ll, _c_int, _c_ll, _c_void_p, _c_void_p, _c_void_p,
                    _c_float, _c_void_p),
+    "sparse_gather": (_c_void_p, _c_ll, _c_void_p, _c_int, _c_ll, _c_void_p, _c_void_p),
+    "sparse_decode": (_c_int, _c_int, _c_void_p, _c_ll, _c_int, _c_void_p, _c_ll, _c_void_p,
+                      _c_ll, _c_ll, _c_void_p, _c_void_p),
 }
 
 

@@ -17,6 +17,7 @@ from . import ref
 from .nat_decode import nat_decode_sum, nat_decode_sum_apply, nat_decode_sum_mean
 from .nat_pack import nat_pack
 from .quantize_pack import quantize_pack
+from .sparse import sparse_decode_sum, sparse_decode_sum_mean, sparse_gather
 from .threefry import threefry_bits
 from .unpack_reduce import unpack_reduce, unpack_reduce_apply, unpack_reduce_mean
 
@@ -30,6 +31,9 @@ __all__ = [
     "nat_decode_sum_op",
     "nat_decode_sum_mean_op",
     "nat_decode_sum_apply_op",
+    "sparse_gather_op",
+    "sparse_decode_sum_op",
+    "sparse_decode_sum_mean_op",
 ]
 
 
@@ -104,3 +108,25 @@ def nat_decode_sum_apply_op(codes: torch.Tensor, h: torch.Tensor, *, alpha: floa
     if _on_card(codes):
         return nat_decode_sum_apply(codes, h, alpha=alpha)
     return ref.ref_nat_decode_sum_apply(codes, h, alpha)
+
+
+def sparse_gather_op(x: torch.Tensor, idx: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if _on_card(x):
+        return sparse_gather(x, idx, out=out)
+    vals = ref.ref_sparse_gather(x, idx)
+    return vals if out is None else out.copy_(vals)
+
+
+def sparse_decode_sum_op(idx: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
+                         d: int) -> torch.Tensor:
+    if _on_card(values):
+        return sparse_decode_sum(idx, values, scale, d)
+    return ref.ref_sparse_decode_sum(idx, values, scale, d)
+
+
+def sparse_decode_sum_mean_op(idx: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
+                              d: int) -> torch.Tensor:
+    if _on_card(values):
+        return sparse_decode_sum_mean(idx, values, scale, d)
+    return ref.ref_sparse_decode_sum_mean(idx, values, scale, d)

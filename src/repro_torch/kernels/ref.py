@@ -1,7 +1,7 @@
-"""Plain PyTorch versions of the CUDA kernels (the ternary and natural
-families).
+"""Plain PyTorch versions of the CUDA kernels (the ternary, natural and
+sparse families).
 
-The port's copy of ``repro.kernels.ref`` (``:44-122``).  These run on the CPU
+The port's copy of ``repro.kernels.ref`` (``:44-140``).  These run on the CPU
 wherever a kernel would run on the card (``repro_torch.kernels.ops`` picks
 them by tensor device), and ``chip_smoke.py`` holds each kernel against them
 on the card.  The JAX package jits its round, and XLA contracts
@@ -31,6 +31,9 @@ __all__ = [
     "ref_nat_decode_sum",
     "ref_nat_decode_sum_mean",
     "ref_nat_decode_sum_apply",
+    "ref_sparse_gather",
+    "ref_sparse_decode_sum",
+    "ref_sparse_decode_sum_mean",
 ]
 
 NAT_BIAS = 160  # int16 code bias: repro/core/compressors/natural.py ``_BIAS``
@@ -125,3 +128,35 @@ def ref_nat_decode_sum_apply(codes: torch.Tensor, h: torch.Tensor, alpha: float)
     """Fused decode_sum + server update: ``(h + dm, fma(alpha, dm, h))`` with
     ``dm = sum / n``, both (d,)."""
     return ref_apply_server(ref_nat_decode_sum(codes), codes.shape[0], h, alpha)
+
+
+def ref_sparse_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Compress-side value gather (``repro/kernels/ref.py:124``): x (d,) f32,
+    idx (k,) unsigned integer -> (k,) f32 ``x[idx]``."""
+    return x.float()[idx.to(torch.int64)]
+
+
+def _sparse_row(idx: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
+                d: int) -> torch.Tensor:
+    """One worker's dense decode ``zeros(d).at[idx].add(values * scale)``:
+    each kept coordinate holds ``0.0 + v * s``, so a ``-0.0`` product reads
+    ``+0.0``."""
+    row = torch.zeros(d, dtype=torch.float32, device=values.device)
+    return row.index_put_((idx.to(torch.int64),), values.float() * scale, accumulate=True)
+
+
+def ref_sparse_decode_sum(idx: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
+                          d: int) -> torch.Tensor:
+    """Sparse server decode (``repro/kernels/ref.py:129``): idx / values
+    (n, k) (indices unique within a worker), scale (k,) f32 -> (d,) f32,
+    the rows summed from worker 0's in worker order."""
+    acc = _sparse_row(idx[0], values[0], scale, d)
+    for i in range(1, idx.shape[0]):
+        acc = acc + _sparse_row(idx[i], values[i], scale, d)
+    return acc
+
+
+def ref_sparse_decode_sum_mean(idx: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
+                               d: int) -> torch.Tensor:
+    """The worker sum, then one true division by n."""
+    return div_n(ref_sparse_decode_sum(idx, values, scale, d), idx.shape[0])

@@ -8,13 +8,19 @@ the N workers run one after another on one card.  Each step:
 2. worker ``w`` takes rows ``[w*b/n, (w+1)*b/n)`` of the batch (the JAX
    trainer's ``P(workers)`` batch sharding), computes its loss and gradient,
    and flattens the gradient into the f32 bucket;
-3. it encodes ``delta = g - h_worker[w]`` with bits from
+3. it encodes its input, in place in the gradient buffer
+   (``compress_input_``: ``delta = g - h_worker[w]`` for the alpha-memory
+   rule, ``g + h_worker[w]`` for top-k's error feedback), with keys
    ``split(fold_in(step_key, w), n_leaves)`` (``quantize_pack`` for the
-   ternary family, ``nat_pack`` for ``natural``) into its row of the stacked
-   payload buffer, and updates ``h_worker[w]``;
+   ternary family, ``nat_pack`` for ``natural``, a per-segment selection
+   and ``sparse_gather`` for ``randk`` / ``topk_ef``) into its row of the
+   stacked payload buffer, decodes its own payload and updates
+   ``h_worker[w]`` with the operator's rule (``next_memory``);
 4. after the n workers, ONE fused decode over the stacked payloads
-   (``unpack_reduce_apply`` / ``nat_decode_sum_apply``) updates ``h_server``
-   and gives ``ghat``, rounded to the leaf dtypes (the distributed path's
+   (``unpack_reduce_apply`` / ``nat_decode_sum_apply``; ``randk``'s
+   ``sparse_decode_sum`` and its per-segment server rule; ``topk_ef``'s
+   ``sparse_decode_sum_mean``) updates ``h_server`` and gives ``ghat``,
+   rounded to the leaf dtypes (the distributed path's
    ``unflatten(cast=True)``);
 5. momentum and the parameter write-back.
 
@@ -23,6 +29,8 @@ for the CPU (``--device cpu``), where the kernels' plain versions run.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --compression natural \\
         --mesh 4x1 --steps 3 --batch 8 --seq 4096
+    python -m repro_torch.launch.train --arch llama3.2-1b --compression randk \\
+        --comp-k 1048576 --mesh 4x1 --steps 3 --batch 8 --seq 4096
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: floa
     if inner not in ("momentum", "sgd"):
         raise NotImplementedError(f"inner optimizer {inner!r} is not ported yet")
     comp = compression or CompressionConfig(
-        method=cfg.compression, p=cfg.comp_p, block_size=cfg.comp_block,
+        method=cfg.compression, p=cfg.comp_p, block_size=cfg.comp_block, k=cfg.comp_k,
         h_dtype=cfg.h_dtype, bucketed=cfg.comp_bucketed)
     return DianaOptimizer(comp, momentum(beta) if inner == "momentum" else sgd(),
                           schedule=constant_schedule(lr))
@@ -120,11 +128,13 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
             del grads  # this worker's gradient is freed before the next backward
             losses.append(loss.detach())
             with torch.no_grad():
-                # delta = g - h_w, computed in place in the gradient buffer.
-                delta = g_flat.sub_(hw[w]) if comp.carries_state else g_flat
+                # The worker's input (g - h_w, or g + h_w for error feedback),
+                # computed in place in the gradient buffer.
+                delta = comp.compress_input_(g_flat, hw[w])
                 pay = comp.compress(delta, worker_key(key, w), out=gathered.select(w))
                 if comp.carries_state:
-                    # h_w <- h_w + alpha * dhat_w, written into the state row.
+                    # h_w <- h_w + alpha * dhat_w (or delta - dhat_w), written
+                    # into the state row.
                     hw[w].copy_(comp.next_memory(hw[w], comp.decode(pay, dp), delta))
         del g_flat
         with torch.no_grad():
@@ -151,6 +161,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--inner", default="momentum", choices=["momentum", "sgd"])
     ap.add_argument("--compression", default=None, choices=[None, *available_methods()])
+    ap.add_argument("--comp-k", type=int, default=None,
+                    help="coordinates kept per leaf by rand-k / top-k (default: the "
+                         "config's comp_k, 64)")
     ap.add_argument("--mesh", default=None,
                     help="NxM: N data-parallel workers, run in turn on one card (M = 1)")
     ap.add_argument("--reduced", action="store_true", help="toy config for CPU runs")
@@ -167,6 +180,8 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.compression:
         cfg = replace(cfg, compression=args.compression)
+    if args.comp_k:
+        cfg = replace(cfg, comp_k=args.comp_k)
     shape = get_shape(args.shape)
     if args.batch or args.seq:
         shape = ShapeConfig(shape.name, args.seq or shape.seq_len,

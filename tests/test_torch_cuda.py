@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain versions on the card, at edge shapes
 (rows not a multiple of 8, one worker, a short ``h``; for the natural
-kernels odd lengths, 1-3 workers and rows that are not 8-byte aligned).
+kernels odd lengths, 1-3 workers and rows that are not 8-byte aligned; for
+the sparse kernels k = 1 and k = d, odd k, the three index widths, indices
+at both ends, -0.0, +-inf and products that underflow to -0.0, rows of a
+wider gathered buffer).
 Needs an NVIDIA GPU: each test skips without one.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -8,10 +11,12 @@ Needs an NVIDIA GPU: each test skips without one.  On the card:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.compressors.base import index_dtype
 from repro_torch.kernels import build, ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -155,3 +160,74 @@ def test_nat_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         ops.nat_decode_sum_apply_op(torch.zeros((2, 10), dtype=torch.int16, device=dev),
                                     torch.zeros(9, device=dev), alpha=0.5)
+
+
+def _sparse_case(dev, n, d, k, seed):
+    """idx (n, k) unique per worker, 0 and d - 1 in worker 0's row, in
+    ``index_dtype(d)``; values (n, k) with -0.0, +-inf and entries whose
+    product with a 1e-30 scale underflows to -0.0; scale (k,)."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(d)[:k] for _ in range(n)])
+    if k >= 2 and d >= 2:
+        row = [j for j in range(d) if j not in (0, d - 1)]
+        idx[0] = rng.permutation(np.concatenate([[0, d - 1],
+                                                 rng.choice(row, k - 2, replace=False)]))
+    values = (rng.standard_normal((n, k))
+              * 10.0 ** rng.uniform(-20, 20, (n, k))).astype(np.float32)
+    scale = np.full(k, np.float32(d / k), np.float32)
+    values[:, 0] = -0.0
+    if k >= 4:
+        values[0, 1], values[n - 1, 2] = np.inf, -np.inf
+        scale[3] = 1e-30
+        values[:, 3] = -1e-20
+    return (torch.from_numpy(idx).to(index_dtype(d)).to(dev),
+            torch.from_numpy(values).to(dev), torch.from_numpy(scale).to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4])
+@pytest.mark.parametrize("d,k", [(1, 1), (5, 5), (200, 1), (200, 200), (3001, 1001),
+                                 (70001, 4099)])
+def test_sparse_family(dev, n, d, k):
+    idx, values, scale = _sparse_case(dev, n, d, k, seed=n * 31 + d + k)
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(d, generator=g, device=dev)
+    before = dict(build.LAUNCHES)
+    # the gather into the rows of a wider gathered buffer (rows k + 3 apart)
+    buf = torch.full((n, k + 3), 7.0, device=dev)
+    for w in range(n):
+        assert ops.sparse_gather_op(x, idx[w], out=buf[w, :k]) is not None
+        assert _same_bits(buf[w, :k], ref.ref_sparse_gather(x, idx[w]))
+        assert bool((buf[w, k:] == 7.0).all())
+    assert _same_bits(ops.sparse_gather_op(x, idx[0]), ref.ref_sparse_gather(x, idx[0]))
+    # the decode reads values from rows k + 3 apart and indices from a view too
+    vbuf = torch.empty((n, k + 3), device=dev)
+    vbuf[:, :k] = values
+    ibuf = torch.zeros((n, k + 5), dtype=torch.int64, device=dev)
+    ibuf[:, :k] = idx.to(torch.int64)
+    iv = ibuf.to(idx.dtype)[:, :k]
+    for vals, ids in ((values, idx), (vbuf[:, :k], iv)):
+        s = ops.sparse_decode_sum_op(ids, vals, scale, d)
+        assert _same_bits(s, ref.ref_sparse_decode_sum(idx, values, scale, d))
+        assert not bool(((s == 0) & torch.signbit(s)).any())       # no -0.0
+        assert _same_bits(ops.sparse_decode_sum_mean_op(ids, vals, scale, d),
+                          ref.ref_sparse_decode_sum_mean(idx, values, scale, d))
+    assert build.LAUNCHES["sparse_gather"] == before.get("sparse_gather", 0) + n + 1
+    assert build.LAUNCHES["sparse_decode_sum"] == before.get("sparse_decode_sum", 0) + 2
+    assert build.LAUNCHES["sparse_decode_sum_mean"] == \
+        before.get("sparse_decode_sum_mean", 0) + 2
+
+
+def test_sparse_wrappers_reject_bad_inputs(dev):
+    x = torch.zeros(10, device=dev)
+    with pytest.raises(ValueError):
+        ops.sparse_gather_op(x, torch.zeros(3, dtype=torch.int64, device=dev))  # not a wire width
+    with pytest.raises(ValueError):
+        ops.sparse_gather_op(x, torch.zeros(3, dtype=torch.uint8, device=dev),
+                             out=torch.zeros(4, device=dev))
+    idx = torch.zeros((2, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        ops.sparse_decode_sum_op(idx, torch.zeros((2, 3), device=dev),
+                                 torch.zeros(4, device=dev), 10)
+    with pytest.raises(ValueError):
+        ops.sparse_decode_sum_mean_op(idx, torch.zeros((2, 4), device=dev),
+                                      torch.zeros(3, device=dev), 10)

@@ -231,7 +231,7 @@ def test_registry_config_and_layout_match_jax():
     assert (tl.sizes, tl.offsets) == (jl.sizes, jl.offsets)
     assert bucketed_compressor(TCfg(method="natural", bucketed=True), tl).bits_per_dim() == \
         JBucketed(JNatural(use_kernel=False), jl).bits_per_dim() == 9.0
-    for method in ("randk", "topk_ef", "identity", "none", "rand-k", "top-k-ef"):
+    for method in ("identity", "none"):   # the sparse operators are ported
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TCfg(method=method)
 
@@ -386,7 +386,8 @@ def test_state_from_jax_continues_bitwise():
 
 
 def test_trainer_cli_runs_natural_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # One torch thread: the test suite runs several workers on the CPU.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
          "--reduced", "--device", "cpu", "--mesh", "2x1", "--steps", "2",

@@ -13,16 +13,24 @@ moves that worker's decode by one block scale ``s``, ``ghat`` by ``s / n``,
 and the parameter by at most ``LR * (1 + beta + beta^2) * s / n`` per step.
 So at most 1e-5 of the coordinates may miss the tolerance, and none by more
 than that bound.
+
+The sparse operators run the same comparison (``--compression randk`` /
+``topk_ef``, ``--comp-k``, 2 steps): rand-k selects from the same tags on
+both sides; top-k selects by magnitude, so a 1e-7-level gradient difference
+can swap the k-th and (k+1)-th coordinate of a leaf, which moves ghat and the
+parameters at those coordinates by at most the same bound.
 """
 
 import os
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as j_get_config, reduced as j_reduced
@@ -44,8 +52,19 @@ N_WORKERS, STEPS, LR = 4, 3, 3e-4
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _jax_composition(jcfg, jparams, batches):
-    ccfg = JCfg(method="diana", p=jcfg.comp_p, block_size=jcfg.comp_block, bucketed=True,
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs several pytest
+    workers on one CPU, and torch's own thread pool in each of them
+    oversubscribes the cores (these model tests then take 10x their time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_composition(jcfg, jparams, batches, method="diana", k=64):
+    ccfg = JCfg(method=method, p=jcfg.comp_p, block_size=jcfg.comp_block, k=k, bucketed=True,
                 use_kernel=False)
     state = reference_init(jparams, ccfg, N_WORKERS)
     inner = j_momentum(0.9)
@@ -77,8 +96,20 @@ def test_train_steps_match_jax_composition():
     for s, b in enumerate(batches):  # the port's data pipeline is the JAX one
         jb = j_make_lm_batch(jcfg, jshape, s)
         assert all(np.array_equal(b[k], jb[k]) for k in jb)
+    _check_against_jax(jcfg, tcfg, batches)
+
+
+@pytest.mark.parametrize("method", ["randk", "topk_ef"])
+def test_train_steps_match_jax_composition_sparse(method):
+    jcfg = j_reduced(j_get_config("llama3.2-1b"))
+    tcfg = replace(reduced(get_config("llama3.2-1b")), compression=method, comp_k=4096)
+    batches = [make_lm_batch(tcfg, ShapeConfig("t", 32, 8, "train"), s) for s in range(2)]
+    _check_against_jax(jcfg, tcfg, batches, method=method, k=4096)
+
+
+def _check_against_jax(jcfg, tcfg, batches, method="diana", k=64):
     jparams = j_init_model(jcfg, jax.random.PRNGKey(0))
-    j_losses, j_final, s_max = _jax_composition(jcfg, jparams, batches)
+    j_losses, j_final, s_max = _jax_composition(jcfg, jparams, batches, method, k)
 
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tcfg, "cpu")
     opt = make_optimizer(tcfg, lr=LR)
@@ -91,10 +122,10 @@ def test_train_steps_match_jax_composition():
             prng.fold_in(prng.PRNGKey(0), s))
         t_losses.append(float(metrics["loss"]))
         assert np.isfinite(t_losses[-1])
-    assert opt_state.step == STEPS
+    assert opt_state.step == len(batches)
 
     np.testing.assert_allclose(t_losses, j_losses, rtol=RTOL, atol=ATOL)
-    flip_bound = STEPS * LR * (1 + 0.9 + 0.81) * s_max / N_WORKERS + ATOL
+    flip_bound = len(batches) * LR * (1 + 0.9 + 0.81) * s_max / N_WORKERS + ATOL
     n_miss = n_all = 0
     for p, a in flatten_nested(jax.tree_util.tree_map(np.asarray, j_final)).items():
         diff = np.abs(params[p].detach().numpy() - a)
@@ -105,7 +136,8 @@ def test_train_steps_match_jax_composition():
 
 
 def test_trainer_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # One torch thread: the test suite runs several workers on the CPU.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
          "--reduced", "--device", "cpu", "--mesh", "2x1", "--steps", "2",
