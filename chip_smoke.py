@@ -13,43 +13,63 @@ Phases (each prints its lines; any failure exits non-zero):
    plain PyTorch version on the same inputs.  Ternary (B = 2048): threefry
    bits, ``unpack_reduce``, ``_mean`` and ``_apply`` bitwise,
    ``quantize_pack`` bitwise for p = inf and, for p in {1, 2}, scales within
-   4 ulp and codes equal on >= 99.99% of coordinates.  Natural (alignment 1,
-   Dp = the parameter count): ``nat_pack``, ``nat_decode_sum`` (n = 1 and
-   4), ``_mean`` and ``_apply`` bitwise, on inputs spliced with zeros,
-   +-2^k, the float below 2^k, subnormals, FLT_MAX and codes that decode to
-   -0.0, subnormals and infinity.  Sparse (rand-k with k = 2^20 per leaf,
-   K = 9,472,000 kept entries per worker): ``sparse_gather``,
-   ``sparse_decode_sum`` (n = 1 and 4) and ``_mean`` (n = 4) bitwise, on
-   payloads from a real rand-k bucketed compress with -0.0, +-inf,
-   subnormals, products that underflow to -0.0 and indices 0 and Dp - 1
-   spliced in.  Median time (CUDA events) of kernel and plain version, the
-   bound (bytes over HBM bandwidth, or operations over the peak rate) and,
-   for the gather, ``torch.index_select``'s time;
+   4 ulp and codes equal on >= 99.99% of coordinates; ``quantize_pack_prng``
+   (bits drawn in the kernel from the 12 segments' keys) bitwise its plain
+   version at p = inf and bitwise ``quantize_pack`` fed ``threefry_bits``
+   at p in {inf, 2, 1}.  Natural (alignment 1, Dp = the parameter count):
+   ``nat_pack``, ``nat_pack_prng`` (also bitwise ``nat_pack`` fed
+   ``threefry_bits``), ``nat_decode_sum`` (n = 1 and 4), ``_mean`` and
+   ``_apply`` bitwise, on inputs spliced with zeros, +-2^k, the float below
+   2^k, subnormals, FLT_MAX and codes that decode to -0.0, subnormals and
+   infinity.  Sparse (rand-k with k = 2^20 per leaf, K = 9,472,000 kept
+   entries per worker): ``sparse_gather``, ``sparse_decode_sum`` (n = 1 and
+   4) and ``_mean`` (n = 4) bitwise, on payloads from a real rand-k bucketed
+   compress with -0.0, +-inf, subnormals, products that underflow to -0.0
+   and indices 0 and Dp - 1 spliced in.  Dense (identity, alignment 1):
+   ``dense_copy`` into the rows of the gathered (4, Dp) buffer,
+   ``dense_decode_sum`` (n = 1 and 4) and ``_mean`` (n = 4) bitwise, with
+   -0.0 (in every worker), +-inf, subnormals and FLT_MAX spliced in.  Median
+   time (CUDA events) of kernel and plain version, the bound (bytes over HBM
+   bandwidth, or operations over the peak rate) and, where one PyTorch call
+   computes the same function, that call's time (``index_select``,
+   ``Tensor.copy_``, ``sum(0)``, ``mean(0)``; the port never calls them);
 4. reference: two training steps of ``reduced(llama3.2-1b)`` (f32) on the
    card through the kernels, against the same steps with every kernel
    swapped for its plain version (bitwise: losses, parameters, memories),
-   for ``diana``, ``natural``, ``randk`` and ``topk_ef``, and the step-0
-   loss against its float64 evaluation (rel 1e-5);
+   for ``diana``, ``natural``, ``randk``, ``topk_ef`` and ``none``, and the
+   step-0 loss against its float64 evaluation (rel 1e-5);
 5. the main path: the trainer's ``build_train_step`` on llama3.2-1b at full width
    (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256, bf16, remat full),
    cut to 8 of 16 layers and a global batch of 8 at seq 4096, 4 workers,
    ``diana``, 3 steps; launch counters reset just before and read just
-   after: 4 quantize_pack, 4 unpack_reduce (each worker's own decode) and 1
-   unpack_reduce_apply per step;
-6. the memoryless path (``terngrad``, 2 layers, 1 step): ``unpack_reduce_mean``;
+   after, exactly: 4 quantize_pack_prng, 4 unpack_reduce (each worker's own
+   decode) and 1 unpack_reduce_apply per step, no threefry_bits;
+6. the memoryless path (``terngrad``, 2 layers, 1 step): 4
+   quantize_pack_prng and one ``unpack_reduce_mean``;
 7. the natural main path: the same trainer and model with ``natural``,
-   3 steps: 4 nat_pack, 4 nat_decode_sum (each worker's own decode) and 1
-   nat_decode_sum_apply per step;
+   3 steps: 4 nat_pack_prng, 4 nat_decode_sum (each worker's own decode)
+   and 1 nat_decode_sum_apply per step, no threefry_bits;
 8. the memoryless natural round (``NaturalCompressor(memory=False)`` over
-   the 8-layer bucket, 4 workers): one ``nat_decode_sum_mean``;
-9. the rand-k main path: the same trainer and model with ``randk``,
+   the 8-layer bucket, 4 workers): 4 nat_pack_prng, one
+   ``nat_decode_sum_mean``;
+9. the pre-drawn-bits round: one bucketed encode per worker (4 workers) of
+   the 8-layer bucket through ``threefry_bits`` + ``quantize_pack`` and
+   ``nat_pack``, each payload bitwise the in-kernel-PRNG route's;
+10. the rand-k main path: the same trainer and model with ``randk``,
    ``comp_k`` 2^20, 3 steps: per step 48 threefry draws (12 segments x 4
    workers), 4 sparse_gather, 4 sparse_decode_sum (each worker's own
    decode) and 1 sparse_decode_sum (the server sum); the selection
    (threefry + top-k of one worker's 12 segments) timed on its own;
-10. the top-k EF main path: the same with ``topk_ef``: per step 4
-   sparse_gather, 4 sparse_decode_sum and 1 sparse_decode_sum_mean.
+11. the top-k EF main path: the same with ``topk_ef``: per step 4
+   sparse_gather, 4 sparse_decode_sum and 1 sparse_decode_sum_mean;
+12. the ``none`` main path: the same trainer and model with ``none`` (the
+   uncompressed baseline), 3 steps: 4 dense_copy and 1
+   dense_decode_sum_mean per step, nothing else;
+13. the dense-sum round: ``BucketedCompressor(IdentityCompressor(),
+   layout).decode_sum`` over a gathered (4, Dp) payload of 4 workers: one
+   ``dense_decode_sum``, bitwise its plain version.
 
+Each kernel is credited with the launches of the path or round that runs it.
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -113,6 +133,7 @@ def main() -> None:
         from repro_torch.core import prng
         from repro_torch.core.bucket import BucketedCompressor
         from repro_torch.core.compression import CompressionConfig
+        from repro_torch.core.compressors.identity import IdentityCompressor
         from repro_torch.core.compressors.natural import NaturalCompressor
         from repro_torch.core.compressors.randk import RandKCompressor, uniform_subset
         from repro_torch.core.compressors.ternary import TernaryCompressor
@@ -140,7 +161,7 @@ def main() -> None:
     print(f"build: {lib.seconds:.2f} s for {len(build.SOURCES)} sources into "
           f"{build.BUILD_DIR.relative_to(ROOT)}")
     for line in lib.log.splitlines():
-        if "registers" in line or line.startswith("=="):
+        if "registers" in line or "stack frame" in line or line.startswith("=="):
             print(f"build: {line.strip()}")
 
     # --------------------------------------------------------------- kernels
@@ -181,12 +202,14 @@ def main() -> None:
            4.0 * words, 78.0 * words, f"bitwise, {words} words")
     del got, want
 
-    # quantize_pack over the whole bucket
+    # quantize_pack over the whole bucket, the bits of the 12 segments' keys
+    # drawn by threefry_bits (segment i: bits(keys[i], (m_i, B)))
+    seg_rows = [ps // bsz for ps in layout.padded_sizes]
+    tkeys = prng.split(key, layout.n_leaves)
     delta = torch.randn((m, bsz), generator=gen, device=dev)
     delta *= torch.rand((m, 1), generator=gen, device=dev) * 1e-2
     delta[:7] = 0.0
-    bits = comp._batched_bits(prng.split(key, layout.n_leaves),
-                              [ps // bsz for ps in layout.padded_sizes], dev)
+    bits = ops.segment_bits_op(tkeys, layout.padded_sizes, dev).reshape(m, bsz)
     for p in (2.0, 1.0, math.inf):
         kp, ks = ops.quantize_pack_op(delta, bits, p=p)
         pp, ps_ = ref.ref_quantize_pack(delta, bits, p)
@@ -209,16 +232,40 @@ def main() -> None:
            time_ms(lambda: ops.quantize_pack_op(delta, bits, p=math.inf), 10),
            time_ms(lambda: ref.ref_quantize_pack(delta, bits, math.inf), 3),
            n_coord * (4 + 4 + 0.25) + 4 * m, 8.0 * n_coord, "p=inf bitwise")
+    # quantize_pack_prng: the same encode, the bits drawn in the kernel, on
+    # the same input with -0.0, +-inf, subnormals and FLT_MAX spliced into 64
+    # rows each (a row holding an infinity encodes to zeros: its scale is inf)
+    dsp = delta.clone()
+    tspecial = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"), 1e-40, -1e-45,
+                             3.4028235e38, -3.4028235e38], device=dev)
+    for r in range(4):
+        dsp[torch.randperm(m, generator=gen, device=dev)[:64], r * 97:r * 97 + 2] = \
+            tspecial[2 * r:2 * r + 2]
+    for p in (2.0, 1.0, math.inf):
+        kp, ks = ops.quantize_pack_prng_op(dsp, tkeys, seg_rows, p=p)
+        bp, bs = ops.quantize_pack_op(dsp, bits, p=p)
+        if not (torch.equal(kp, bp) and torch.equal(ks, bs)):
+            fail(f"quantize_pack_prng (p={p}) differs from quantize_pack fed threefry_bits")
+        del bp, bs
     del bits
+    pp, ps_ = ref.ref_quantize_pack_prng(dsp, tkeys, seg_rows, math.inf)
+    if not (torch.equal(kp, pp) and torch.equal(ks, ps_)):
+        fail("quantize_pack_prng (p=inf) differs from the plain version")
+    del kp, ks, pp, ps_
+    record("quantize_pack_prng", "src/repro_torch/csrc/quantize_pack.cu",
+           "src/repro/kernels/quantize_pack.py:147 (pallas_call :177)", 0.0,
+           time_ms(lambda: ops.quantize_pack_prng_op(dsp, tkeys, seg_rows, p=math.inf), 10),
+           time_ms(lambda: ref.ref_quantize_pack_prng(dsp, tkeys, seg_rows, math.inf), 3),
+           n_coord * (4 + 0.25) + 4 * m, (78.0 + 8.0) * n_coord,
+           "p=inf bitwise the plain version; bitwise quantize_pack fed threefry_bits at "
+           "p in {inf, 2, 1}; -0.0, +-inf, subnormals, FLT_MAX spliced")
+    del dsp
 
     # the decode and server kernels, on payloads the kernel just produced
     pays = []
     for w in range(WORKERS):
         k = prng.split(prng.fold_in(prng.PRNGKey(0), w), layout.n_leaves)
-        b = comp._batched_bits(k, [ps // bsz for ps in layout.padded_sizes], dev)
-        pk, sc = ops.quantize_pack_op(delta * (w + 1), b, p=math.inf)
-        pays.append((pk, sc))
-        del b
+        pays.append(ops.quantize_pack_prng_op(delta * (w + 1), k, seg_rows, p=math.inf))
     del delta
     packed = torch.stack([p for p, _ in pays])
     scales = torch.stack([s for _, s in pays])
@@ -278,10 +325,8 @@ def main() -> None:
     special = torch.cat([special, -special]).repeat(64)
     x = torch.randn(nd, generator=gen, device=dev) * 1e-3
     x[torch.randperm(nd, generator=gen, device=dev)[:special.numel()]] = special
-    nbits = torch.empty(nd, dtype=torch.int32, device=dev)
     nkeys = prng.split(prng.fold_in(prng.PRNGKey(0), 2), nlayout.n_leaves)
-    for k, off, sz in zip(nkeys, nlayout.offsets, nlayout.padded_sizes):
-        ops.bits_op(k, (sz,), dev, out=nbits[off:off + sz])
+    nbits = ops.segment_bits_op(nkeys, nlayout.padded_sizes, dev)
     kc = ops.nat_pack_op(x, nbits)
     if not torch.equal(kc, ref.ref_nat_pack(x, nbits)):
         fail("nat_pack differs from the plain version")
@@ -290,11 +335,24 @@ def main() -> None:
            time_ms(lambda: ops.nat_pack_op(x, nbits, out=kc), 10),
            time_ms(lambda: ref.ref_nat_pack(x, nbits), 3),
            nd * (4 + 4 + 2), 12.0 * nd, f"bitwise, {special.numel()} special values spliced")
+    kcp = ops.nat_pack_prng_op(x, nkeys, nlayout.padded_sizes)
+    if not torch.equal(kcp, kc):
+        fail("nat_pack_prng differs from nat_pack fed threefry_bits")
+    if not torch.equal(kcp, ref.ref_nat_pack_prng(x, nkeys, nlayout.padded_sizes)):
+        fail("nat_pack_prng differs from the plain version")
+    record("nat_pack_prng", "src/repro_torch/csrc/nat_pack.cu",
+           "src/repro/kernels/nat_pack.py:134 (pallas_call :154)", 0.0,
+           time_ms(lambda: ops.nat_pack_prng_op(x, nkeys, nlayout.padded_sizes, out=kcp), 10),
+           time_ms(lambda: ref.ref_nat_pack_prng(x, nkeys, nlayout.padded_sizes), 3),
+           nd * (4 + 2), (78.0 + 12.0) * nd,
+           f"bitwise the plain version and nat_pack fed threefry_bits, "
+           f"{special.numel()} special values spliced")
+    del kcp
     # n = 4 payloads in the trainer's gathered buffer (rows 16-byte aligned)
     ncomp = NaturalCompressor()
     gathered = ncomp.gathered_bucketed(nlayout, WORKERS, dev)
     for w in range(WORKERS):
-        ops.nat_pack_op(x * (w + 1), nbits, out=gathered.packed[w])
+        ops.nat_pack_prng_op(x * (w + 1), nkeys, nlayout.padded_sizes, out=gathered.packed[w])
     del x, nbits, kc
     codes = gathered.packed
     small = torch.randint(-10, 0, (WORKERS, 4096), generator=gen, device=dev,
@@ -429,6 +487,65 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------- dense kernels
+    # The identity operator's payloads: four workers' values copied into the
+    # rows of the gathered (4, Dp) buffer, -0.0 at the same coordinates in
+    # every worker (the sum keeps it), +-inf, subnormals and FLT_MAX spliced.
+    ilayout = bucket_layout(CompressionConfig(method="none", bucketed=True), meta)
+    idp = ilayout.padded_size
+    icomp = BucketedCompressor(IdentityCompressor(), ilayout)
+    print(f"kernels: dense bucket {ilayout.n_leaves} leaves, alignment 1, Dp {idp}; "
+          f"n {WORKERS}")
+    x = torch.randn(idp, generator=gen, device=dev) * 1e-3
+    dspecial = torch.tensor([-0.0, float("inf"), float("-inf"), 1e-40, -1e-45, 3.4028235e38],
+                            device=dev).repeat(4096)
+    x[torch.randperm(idp, generator=gen, device=dev)[:dspecial.numel()]] = dspecial
+    ig = icomp.gathered(WORKERS, dev)
+    for w in range(WORKERS):
+        xw = x * (w + 1)
+        icomp.compress(xw, worker_key(prng.PRNGKey(9), w), out=ig.select(w))
+        if not same_bits(ig.values[w], xw):
+            fail("dense_copy (inside the identity compress) differs from its input")
+        del xw
+    row = ig.values[1]
+    if not same_bits(ops.dense_copy_op(x, out=row), ref.ref_dense_copy(x)):
+        fail("dense_copy differs from the plain version")
+    record("dense_copy", "src/repro_torch/csrc/dense.cu",
+           "src/repro/kernels/dense.py:38 (pallas_call :41)", 0.0,
+           time_ms(lambda: ops.dense_copy_op(x, out=row), 10),
+           time_ms(lambda: ref.ref_dense_copy(x), 3),
+           8.0 * idp, 0.0, "bitwise, into a row of the gathered buffer",
+           time_ms(lambda: row.copy_(x), 10))
+    ig.values[1].copy_(x * 2)
+    vals = ig.values
+    one = vals[:1]
+    if not same_bits(ops.dense_decode_sum_op(one), ref.ref_dense_decode_sum(one)):
+        fail("dense_decode_sum (n=1) differs from the plain version")
+    if not same_bits(ops.dense_decode_sum_op(vals), ref.ref_dense_decode_sum(vals)):
+        fail("dense_decode_sum (n=4) differs from the plain version")
+    n1_note = (f"n=1: ms {time_ms(lambda: ops.dense_decode_sum_op(one), 10):.4f} plain_ms "
+               f"{time_ms(lambda: ref.ref_dense_decode_sum(one), 3):.4f} bound_ms "
+               f"{bound(8.0 * idp, 0.0)[0]:.4f} library sum(0) ms "
+               f"{time_ms(lambda: one.sum(0), 10):.4f}")
+    record("dense_decode_sum", "src/repro_torch/csrc/dense.cu",
+           "src/repro/kernels/dense.py:76 (pallas_call :79)", 0.0,
+           time_ms(lambda: ops.dense_decode_sum_op(vals), 10),
+           time_ms(lambda: ref.ref_dense_decode_sum(vals), 3),
+           (4.0 * WORKERS + 4) * idp, (WORKERS - 1.0) * idp,
+           f"n=4 (the dense-sum round), bitwise; n=1 bitwise; {n1_note}",
+           time_ms(lambda: vals.sum(0), 10))
+    if not same_bits(ops.dense_decode_sum_mean_op(vals), ref.ref_dense_decode_sum_mean(vals)):
+        fail("dense_decode_sum_mean (n=4) differs from the plain version")
+    record("dense_decode_sum_mean", "src/repro_torch/csrc/dense.cu",
+           "src/repro/kernels/dense.py:90 (pallas_call :95)", 0.0,
+           time_ms(lambda: ops.dense_decode_sum_mean_op(vals), 10),
+           time_ms(lambda: ref.ref_dense_decode_sum_mean(vals), 3),
+           (4.0 * WORKERS + 4) * idp, 1.0 * WORKERS * idp, "n=4, bitwise",
+           time_ms(lambda: vals.mean(0), 10))
+    del x, dspecial, ig, row, vals, one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- reference on a small input
     rcfg = reduced(get_config("llama3.2-1b"))
     rshape = ShapeConfig("smoke", 64, 4, "train")
@@ -451,7 +568,7 @@ def main() -> None:
     with torch.no_grad():
         loss64 = float(train_loss({k: v.to(dev, torch.float64) for k, v in init.items()},
                                   rbatches[0], f64))
-    for method in ("diana", "natural", "randk", "topk_ef"):
+    for method in ("diana", "natural", "randk", "topk_ef", "none"):
         k_loss, k_params, k_diana = train_small(method)
         on_card = ops._on_card
         ops._on_card = lambda t: False      # the same steps, every kernel -> its plain version
@@ -475,6 +592,16 @@ def main() -> None:
     build.reset_launches()
 
     # --------------------------------------------------------- the main path
+    credit = {}   # kernel name -> (launches, the path or round that ran it)
+
+    def expect(label, counts, want, path, names):
+        """Exactly the launches ``want`` in ``counts``; credit the kernels
+        ``names`` (the ones this path or round is there for) to ``path``."""
+        if counts != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        for name in names:
+            credit[name] = (want[name], path)
+
     def run_path(pcfg, steps, label):
         shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
         opt = make_optimizer(pcfg)
@@ -520,34 +647,18 @@ def main() -> None:
         torch.cuda.empty_cache()
         return counts
 
-    counts = run_path(cfg, STEPS, "main")
-    want = {"quantize_pack": WORKERS * STEPS, "unpack_reduce": WORKERS * STEPS,
-            "unpack_reduce_apply": STEPS, "threefry_bits": WORKERS * STEPS * layout.n_leaves}
-    for name, n in want.items():
-        if counts.get(name, 0) != n:
-            fail(f"main: {name} launched {counts.get(name, 0)} times, expected {n}")
-    for r in rows:
-        r["launches"] = counts.get(r["name"], 0)
-
-    mcounts = run_path(replace(cfg, n_layers=2, compression="terngrad"), 1,
-                                "memoryless")
-    if mcounts.get("unpack_reduce_mean", 0) != 1 or mcounts.get("quantize_pack", 0) != WORKERS:
-        fail(f"memoryless: launches {mcounts}, expected 1 unpack_reduce_mean")
-    for r in rows:
-        if r["name"] == "unpack_reduce_mean":
-            r["launches"] = mcounts["unpack_reduce_mean"]
-            r["path"] = "memoryless (terngrad, 2 layers, 1 step)"
-    ncounts = run_path(replace(cfg, compression="natural"), STEPS, "natural")
-    want = {"nat_pack": WORKERS * STEPS, "nat_decode_sum": WORKERS * STEPS,
-            "nat_decode_sum_apply": STEPS,
-            "threefry_bits": WORKERS * STEPS * nlayout.n_leaves}
-    for name, n in want.items():
-        if ncounts.get(name, 0) != n:
-            fail(f"natural: {name} launched {ncounts.get(name, 0)} times, expected {n}")
-    for r in rows:
-        if r["name"].startswith("nat_"):
-            r["launches"] = ncounts.get(r["name"], 0)
-            r["path"] = "natural (8 layers, 3 steps)"
+    expect("main", run_path(cfg, STEPS, "main"),
+           {"quantize_pack_prng": WORKERS * STEPS, "unpack_reduce": WORKERS * STEPS,
+            "unpack_reduce_apply": STEPS}, "diana (8 layers, 3 steps)",
+           ("quantize_pack_prng", "unpack_reduce", "unpack_reduce_apply"))
+    expect("memoryless", run_path(replace(cfg, n_layers=2, compression="terngrad"), 1,
+                                  "memoryless"),
+           {"quantize_pack_prng": WORKERS, "unpack_reduce_mean": 1},
+           "memoryless (terngrad, 2 layers, 1 step)", ("unpack_reduce_mean",))
+    expect("natural", run_path(replace(cfg, compression="natural"), STEPS, "natural"),
+           {"nat_pack_prng": WORKERS * STEPS, "nat_decode_sum": WORKERS * STEPS,
+            "nat_decode_sum_apply": STEPS}, "natural (8 layers, 3 steps)",
+           ("nat_pack_prng", "nat_decode_sum", "nat_decode_sum_apply"))
 
     # The memoryless natural round over the same bucket: 4 workers encode
     # into the gathered buffer, ONE nat_decode_sum_mean gives ghat.
@@ -563,16 +674,46 @@ def main() -> None:
     torch.cuda.synchronize()
     mncounts = dict(build.LAUNCHES)
     print(f"memoryless natural: launches {mncounts}")
-    if (mncounts.get("nat_decode_sum_mean", 0) != 1 or mncounts.get("nat_pack", 0) != WORKERS
-            or mncounts.get("nat_decode_sum", 0) or mncounts.get("nat_decode_sum_apply", 0)):
-        fail(f"memoryless natural: launches {mncounts}, expected 1 nat_decode_sum_mean")
+    expect("memoryless natural", mncounts, {"nat_pack_prng": WORKERS, "nat_decode_sum_mean": 1},
+           "memoryless natural round (8-layer bucket, 4 workers)", ("nat_decode_sum_mean",))
     if hs_out is not hs or not same_bits(ghat, ref.ref_nat_decode_sum_mean(mg.packed)):
         fail("memoryless natural: ghat is not the plain mean of the decodes")
-    for r in rows:
-        if r["name"] == "nat_decode_sum_mean":
-            r["launches"] = mncounts["nat_decode_sum_mean"]
-            r["path"] = "memoryless natural round (8-layer bucket, 4 workers)"
     del mcomp, delta, hs, mg, ghat, hs_out
+    torch.cuda.empty_cache()
+
+    # The pre-drawn-bits round: each worker's bucketed encode of the 8-layer
+    # bucket through threefry_bits + quantize_pack / nat_pack, against the
+    # in-kernel-PRNG route the trainer takes (bitwise: the same draws).
+    tcomp = BucketedCompressor(TernaryCompressor(block_size=bsz), layout)
+    ncomp = BucketedCompressor(NaturalCompressor(), nlayout)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for w in range(WORKERS):
+        wkey = worker_key(prng.PRNGKey(8), w)
+        g = torch.randn(dp, generator=gen, device=dev) * 1e-3
+        tpay = tcomp.compress(g, wkey)
+        tbits = ops.segment_bits_op(prng.split(wkey, layout.n_leaves), layout.padded_sizes, dev)
+        bpk, bsc = ops.quantize_pack_op(g.reshape(m, bsz), tbits.reshape(m, bsz), p=math.inf)
+        if not (torch.equal(tpay.packed, bpk) and torch.equal(tpay.scales, bsc[:, 0])):
+            fail(f"pre-drawn bits: worker {w}'s ternary payload differs from the PRNG route's")
+        del g, tpay, tbits, bpk, bsc
+        g = torch.randn(nd, generator=gen, device=dev) * 1e-3
+        npay = ncomp.compress(g, wkey)
+        nbits_w = ops.segment_bits_op(prng.split(wkey, nlayout.n_leaves), nlayout.padded_sizes,
+                                      dev)
+        if not torch.equal(npay.packed, ops.nat_pack_op(g, nbits_w)):
+            fail(f"pre-drawn bits: worker {w}'s natural payload differs from the PRNG route's")
+        del g, npay, nbits_w
+    torch.cuda.synchronize()
+    pcounts = dict(build.LAUNCHES)
+    print(f"pre-drawn bits: 4 workers' bucketed ternary and natural payloads bitwise the "
+          f"in-kernel-PRNG route's; launches {pcounts}")
+    expect("pre-drawn bits", pcounts,
+           {"quantize_pack": WORKERS, "nat_pack": WORKERS, "quantize_pack_prng": WORKERS,
+            "nat_pack_prng": WORKERS,
+            "threefry_bits": WORKERS * (layout.n_leaves + nlayout.n_leaves)},
+           "pre-drawn-bits round (8-layer bucket, 4 workers)", ("quantize_pack", "nat_pack"))
+    del tcomp, ncomp
     torch.cuda.empty_cache()
 
     # The sparse main paths: rand-k and top-k EF at k = 2^20 per leaf.
@@ -596,30 +737,46 @@ def main() -> None:
         torch.cuda.synchronize()
         return time_ms(select, 3), torch.cuda.max_memory_allocated() - base
 
-    rcounts = run_path(replace(scfg, compression="randk"), STEPS, "randk")
+    expect("randk", run_path(replace(scfg, compression="randk"), STEPS, "randk"),
+           {"threefry_bits": WORKERS * STEPS * slayout.n_leaves, "sparse_gather": WORKERS * STEPS,
+            "sparse_decode_sum": (WORKERS + 1) * STEPS}, "randk (8 layers, 3 steps)",
+           ("threefry_bits", "sparse_gather", "sparse_decode_sum"))
     sel_ms["randk"] = time_selection(RandKCompressor(COMP_K))
-    want = {"threefry_bits": WORKERS * STEPS * slayout.n_leaves, "sparse_gather": WORKERS * STEPS,
-            "sparse_decode_sum": (WORKERS + 1) * STEPS}
-    if rcounts != want:
-        fail(f"randk: launches {rcounts}, expected {want}")
-    tcounts = run_path(replace(scfg, compression="topk_ef"), STEPS, "topk_ef")
+    expect("topk_ef", run_path(replace(scfg, compression="topk_ef"), STEPS, "topk_ef"),
+           {"sparse_gather": WORKERS * STEPS, "sparse_decode_sum": WORKERS * STEPS,
+            "sparse_decode_sum_mean": STEPS}, "topk_ef (8 layers, 3 steps)",
+           ("sparse_decode_sum_mean",))
     sel_ms["topk_ef"] = time_selection(TopKEFCompressor(COMP_K))
-    want = {"sparse_gather": WORKERS * STEPS, "sparse_decode_sum": WORKERS * STEPS,
-            "sparse_decode_sum_mean": STEPS}
-    if tcounts != want:
-        fail(f"topk_ef: launches {tcounts}, expected {want}")
     print(f"selection: one worker's 12 segments, k {COMP_K} per leaf: randk "
           f"{sel_ms['randk'][0]:.3f} ms (threefry tags + top-k), {sel_ms['randk'][1]} B "
           f"transient; topk_ef {sel_ms['topk_ef'][0]:.3f} ms (|x| bits + top-k), "
           f"{sel_ms['topk_ef'][1]} B transient")
-    for r in rows:
-        if r["name"] in ("sparse_gather", "sparse_decode_sum"):
-            r["launches"] = rcounts[r["name"]]
-            r["path"] = "randk (8 layers, 3 steps)"
-        elif r["name"] == "sparse_decode_sum_mean":
-            r["launches"] = tcounts[r["name"]]
-            r["path"] = "topk_ef (8 layers, 3 steps)"
 
+    # The uncompressed baseline: none (identity) at 32 bits per coordinate.
+    expect("none", run_path(replace(cfg, compression="none"), STEPS, "none"),
+           {"dense_copy": WORKERS * STEPS, "dense_decode_sum_mean": STEPS},
+           "none (8 layers, 3 steps)", ("dense_copy", "dense_decode_sum_mean"))
+
+    # The dense-sum round: the identity operator's decode_sum over a gathered
+    # payload of 4 workers (no one-card trainer path sums without the mean).
+    x = torch.randn(idp, generator=gen, device=dev) * 1e-3
+    torch.cuda.synchronize()
+    build.reset_launches()
+    ig = icomp.gathered(WORKERS, dev)
+    for w in range(WORKERS):
+        icomp.compress(x * (w + 1), worker_key(prng.PRNGKey(10), w), out=ig.select(w))
+    isum = icomp.decode_sum(ig, WORKERS)
+    torch.cuda.synchronize()
+    dcounts = dict(build.LAUNCHES)
+    print(f"dense sum: launches {dcounts}")
+    expect("dense sum", dcounts, {"dense_copy": WORKERS, "dense_decode_sum": 1},
+           "dense-sum round (8-layer bucket, 4 workers)", ("dense_decode_sum",))
+    if not same_bits(isum, ref.ref_dense_decode_sum(ig.values)):
+        fail("dense sum: the identity decode_sum is not the plain sum of the rows")
+    del x, ig, isum
+
+    for r in rows:
+        r["launches"], r["path"] = credit.get(r["name"], (0, None))
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         fail(f"kernels never launched on their path: {missing}")

@@ -24,7 +24,8 @@ __all__ = ["CompressionConfig", "payload_bits_per_dim"]
 @dataclass(frozen=True)
 class CompressionConfig:
     """method:     ``diana`` / ``qsgd`` / ``terngrad`` / ``dqgd`` / ``ternary`` /
-                ``natural`` / ``randk`` (``rand-k``) / ``topk_ef`` (``top-k-ef``)
+                ``natural`` / ``randk`` (``rand-k``) / ``topk_ef`` (``top-k-ef``) /
+                ``identity`` (``none``)
     p:          quantization norm power (``math.inf``, 2.0, 1.0, or > 2)
     block_size: quantization block d_l (Def. 2; ternary only)
     alpha:      memory learning rate override (None: alpha_p/2, Cor. 1, for
@@ -43,7 +44,7 @@ class CompressionConfig:
     bucketed: bool = False
 
     def __post_init__(self):
-        canonical_name(self.method)  # raises on unknown / not-yet-ported methods
+        canonical_name(self.method)  # raises on unknown methods
         if self.block_size % 4:
             raise ValueError("block_size must be a multiple of 4 for 2-bit packing")
 

@@ -11,9 +11,10 @@ Wire format: one signed exponent code per coordinate in ``Payload.packed``
 otherwise ``code = sign * (exponent + 160)``.
 
 Encode and decode go through :mod:`repro_torch.kernels.ops`: on a CUDA tensor
-the ``nat_pack`` and ``nat_decode_sum*`` kernels (and the threefry helper for
-the bits), on a CPU tensor their plain versions.  Given the same key the codes
-equal the JAX package's bit for bit; a decoded value is the exact power of
+the ``nat_pack_prng`` kernel (the bits ``bits(key, (d,))``, or
+``bits(keys[i], (s_i,))`` per bucket segment, drawn in registers) and the
+``nat_decode_sum*`` kernels, on a CPU tensor their plain versions.  Given the
+same key the codes equal the JAX package's CPU route's bit for bit; a decoded value is the exact power of
 two, which the JAX package's CPU build computes with ``exp2`` to within a
 relative 4.1e-6 (see ``tests/test_torch_natural.py``).
 """
@@ -44,8 +45,7 @@ class NaturalCompressor(Compressor):
 
     def compress(self, delta: torch.Tensor, key: torch.Tensor) -> Payload:
         x = delta.float().reshape(-1)
-        bits = ops.bits_op(key, x.shape, x.device)
-        return Payload(packed=ops.nat_pack_op(x, bits))
+        return Payload(packed=ops.nat_pack_prng_op(x, key.reshape(1, 2), (x.numel(),)))
 
     def decode(self, payload: Payload, d: int) -> torch.Tensor:
         """One worker's decode as the one-worker ``nat_decode_sum``: the same
@@ -74,14 +74,13 @@ class NaturalCompressor(Compressor):
     def compress_bucketed_keys(self, layout, delta: torch.Tensor, keys: torch.Tensor, *,
                                out: Optional[Payload] = None) -> Payload:
         """ONE encode over the whole buffer; segment ``i`` draws
-        ``bits(keys[i], (s_i,))`` into its stretch of ONE ``(Dp,)`` int32
-        buffer (the JAX package concatenates the same draws; alignment is 1,
-        so segments are unpadded and contiguous)."""
+        ``bits(keys[i], (s_i,))`` over its stretch in the kernel (the JAX
+        package's CPU route concatenates the same draws; alignment is 1, so
+        segments are unpadded and contiguous, and a boundary can fall
+        anywhere)."""
         x = delta.float().reshape(-1)
-        bits = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-        for k, off, s in zip(keys, layout.offsets, layout.padded_sizes):
-            ops.bits_op(k, (s,), x.device, out=bits[off:off + s])
-        codes = ops.nat_pack_op(x, bits, out=None if out is None else out.packed)
+        codes = ops.nat_pack_prng_op(x, keys, layout.padded_sizes,
+                                     out=None if out is None else out.packed)
         return Payload(packed=codes) if out is None else out
 
     def gathered_bucketed(self, layout, n: int, device) -> Payload:

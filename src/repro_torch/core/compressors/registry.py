@@ -1,7 +1,8 @@
 """Compressor registry: canonical names, legacy aliases, config -> instance.
 
-Ported so far: the ternary operator with its legacy aliases (the paper's
-Sec. 3 special cases), natural compression, and the sparse operators:
+Every operator of the JAX package's registry is ported: the ternary operator
+with its legacy aliases (the paper's Sec. 3 special cases), natural
+compression, the sparse operators and the uncompressed baseline:
 
     diana    -> ternary with memory            (Algorithm 1)
     qsgd     -> ternary p=2,   memory off      (Algorithm 2)
@@ -10,9 +11,7 @@ Sec. 3 special cases), natural compression, and the sparse operators:
     natural  -> natural compression with memory (alpha 8/9)
     randk    -> rand-k with memory (alpha k/d per leaf); alias rand-k
     topk_ef  -> top-k with error feedback;          alias top-k-ef
-
-The JAX package's identity operator (and its ``none`` alias) raises
-``NotImplementedError`` naming the ROADMAP item.
+    identity -> uncompressed f32 (32 bits/dim);     alias none
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import math
 from typing import Callable, Dict, Tuple
 
 from .base import Compressor
+from .identity import IdentityCompressor
 from .natural import NaturalCompressor
 from .randk import RandKCompressor
 from .ternary import TernaryCompressor
@@ -30,8 +30,6 @@ __all__ = ["make_compressor", "canonical_name", "available_methods"]
 
 _FACTORIES: Dict[str, Callable[..., Compressor]] = {}
 _ALIASES: Dict[str, Tuple[str, dict]] = {}
-# Registered in the JAX package, not ported yet (ROADMAP.md queue 1).
-_NOT_PORTED = ("identity", "none")
 
 
 def canonical_name(method: str) -> str:
@@ -39,10 +37,6 @@ def canonical_name(method: str) -> str:
         return method
     if method in _ALIASES:
         return _ALIASES[method][0]
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compression method {method!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 'identity')")
     raise KeyError(f"unknown compression method {method!r}; choose from {available_methods()}")
 
 
@@ -74,10 +68,15 @@ def _topk_ef(cfg):
     return TopKEFCompressor(cfg.k)
 
 
+def _identity(cfg):
+    return IdentityCompressor()
+
+
 _FACTORIES["ternary"] = _ternary
 _FACTORIES["natural"] = _natural
 _FACTORIES["randk"] = _randk
 _FACTORIES["topk_ef"] = _topk_ef
+_FACTORIES["identity"] = _identity
 _ALIASES.update({
     "diana": ("ternary", {"memory": True}),
     "qsgd": ("ternary", {"p": 2.0, "memory": False}),
@@ -85,4 +84,5 @@ _ALIASES.update({
     "dqgd": ("ternary", {"memory": False}),
     "rand-k": ("randk", {}),
     "top-k-ef": ("topk_ef", {}),
+    "none": ("identity", {}),
 })

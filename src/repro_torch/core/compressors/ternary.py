@@ -4,17 +4,21 @@ Wire format: 2-bit sign codes (4/byte, :mod:`repro_torch.core.packing`) + one
 f32 ``||.||_p`` scale per block — ``2 + 32/B`` bits/dim.
 
 Encode and server decode go through :mod:`repro_torch.kernels.ops`, which
-launches the CUDA kernels (``quantize_pack``, ``unpack_reduce*``, and the
-threefry helper for the Bernoulli bits) on a CUDA tensor and runs their plain
-versions on a CPU tensor.  Given the same key, every payload, decoded sum and
-memory update equals the JAX package's jitted ``TernaryCompressor`` bit for
-bit (p = inf; p in {1, 2} up to the norm's summation order).
+launches the CUDA kernels (``quantize_pack_prng``, which draws the Bernoulli
+bits in registers, and ``unpack_reduce*``) on a CUDA tensor and runs their
+plain versions on a CPU tensor.  The bits are ``bits(key, (m, B))`` (per
+leaf) or ``bits(keys[i], (m_i, B))`` per bucket segment, as the JAX
+package's CPU route draws them, so given the same key every payload, decoded
+sum and memory update equals the JAX package's jitted ``TernaryCompressor``
+bit for bit (p = inf; p in {1, 2} up to the norm's summation order).  (On
+its TPU the JAX package draws from the TPU's generator instead: equal in
+distribution only.)
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -49,8 +53,8 @@ class TernaryCompressor(Compressor):
 
     def compress(self, delta: torch.Tensor, key: torch.Tensor) -> Payload:
         blocks = pad_to_blocks(delta.float(), self.block_size)
-        bits = ops.bits_op(key, blocks.shape, blocks.device)
-        packed, scales = ops.quantize_pack_op(blocks, bits, p=self.p)
+        packed, scales = ops.quantize_pack_prng_op(blocks, key.reshape(1, 2),
+                                                   (blocks.shape[0],), p=self.p)
         return Payload(packed=packed, scales=scales[:, 0])
 
     def decode(self, payload: Payload, d: int) -> torch.Tensor:
@@ -87,26 +91,15 @@ class TernaryCompressor(Compressor):
         to one leaf and the scales equal the per-leaf path's."""
         return self.block_size
 
-    def _batched_bits(self, keys: torch.Tensor, seg_rows: Sequence[int],
-                      device) -> torch.Tensor:
-        """The concatenated (sum m_i, B) bit matrix: segment ``i`` draws
-        ``bits(keys[i], (m_i, B))`` into its rows.  Threefry is counter mode,
-        so this equals the JAX package's vmapped batched draw."""
-        out = torch.empty((sum(seg_rows), self.block_size), dtype=torch.int32, device=device)
-        row = 0
-        for i, m in enumerate(seg_rows):
-            ops.bits_op(keys[i], (m, self.block_size), device, out=out[row:row + m])
-            row += m
-        return out
-
     def compress_bucketed_keys(self, layout, delta: torch.Tensor, keys: torch.Tensor, *,
                                out: Optional[Payload] = None) -> Payload:
         """ONE fused quantize+pack over the whole block matrix, segment ``i``
-        drawing its bits from ``keys[i]`` over its own padded rows."""
+        drawing ``bits(keys[i], (m_i, B))`` in the kernel over its own padded
+        rows (counter mode: the JAX package's vmapped per-segment draw, with
+        no (Dp,) bits buffer)."""
         blocks = delta.float().reshape(-1, self.block_size)
         seg_rows = [ps // self.block_size for ps in layout.padded_sizes]
-        bits = self._batched_bits(keys, seg_rows, blocks.device)
-        packed, scales = ops.quantize_pack_op(blocks, bits, p=self.p)
+        packed, scales = ops.quantize_pack_prng_op(blocks, keys, seg_rows, p=self.p)
         if out is None:
             return Payload(packed=packed, scales=scales[:, 0])
         out.packed.copy_(packed)

@@ -11,10 +11,11 @@ for ternary p = inf ``ghat``, ``h_worker`` and ``h_server`` equal the jitted
 JAX ``reference_step`` bit for bit, in both layouts.  For ``natural`` the
 codes do; the decoded powers of two are exact here, where the JAX package's
 CPU ``exp2`` is off by up to 4.05e-6 (``tests/test_torch_natural.py``).
-``randk`` (per-segment rates ``k/d`` in the bucketed layout) and ``topk_ef``
-(the error-feedback rule) are bitwise the jitted JAX round for n a power of
-two; at other n the jitted reference divides by n as ``s * f32(1/n)``
-(``tests/test_torch_sparse.py``).  The round has no operator branches: each
+``randk`` (per-segment rates ``k/d`` in the bucketed layout), ``topk_ef``
+(the error-feedback rule) and ``none`` (identity) are bitwise the jitted JAX
+round for n a power of two; at other n the jitted reference divides by n as
+``s * f32(1/n)`` (``tests/test_torch_sparse.py``,
+``tests/test_torch_identity.py``).  The round has no operator branches: each
 operator's hooks carry its format and its memory rule.
 
 Trees are ``{path: tensor}`` dicts (:mod:`repro_torch.core.tree`); stacked

@@ -9,44 +9,22 @@
 // Bound: the output, 4 B/word written once (the counters are computed, not
 // read), and ~110 32-bit integer ops per word (20 rounds of add/rotate/xor
 // plus 5 key injections).  Design: one thread per output word, native
-// uint32 arithmetic, grid-stride loop; consecutive threads write consecutive
-// words, so the stores coalesce.
+// uint32 arithmetic (the cipher is threefry.cuh's, shared with the in-kernel
+// generators), grid-stride loop; consecutive threads write consecutive words,
+// so the stores coalesce.  On the trainer's path it draws only rand-k's tags:
+// the ternary and natural encodes generate their bits in registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void round4(uint32_t& x0, uint32_t& x1, int r0, int r1,
-                                       int r2, int r3) {
-  x0 += x1; x1 = rotl(x1, r0) ^ x0;
-  x0 += x1; x1 = rotl(x1, r1) ^ x0;
-  x0 += x1; x1 = rotl(x1, r2) ^ x0;
-  x0 += x1; x1 = rotl(x1, r3) ^ x0;
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
-                                             uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0; x1 += k1;
-  round4(x0, x1, 13, 15, 26, 6);  x0 += k1; x1 += k2 + 1u;
-  round4(x0, x1, 17, 29, 16, 24); x0 += k2; x1 += k0 + 2u;
-  round4(x0, x1, 13, 15, 26, 6);  x0 += k0; x1 += k1 + 3u;
-  round4(x0, x1, 17, 29, 16, 24); x0 += k1; x1 += k2 + 4u;
-  round4(x0, x1, 13, 15, 26, 6);  x0 += k2; x1 += k0 + 5u;
-}
 
 __global__ void threefry_bits_kernel(uint32_t k0, uint32_t k1, uint32_t* __restrict__ out,
                                      long long n) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    uint32_t x0 = (uint32_t)((unsigned long long)i >> 32);
-    uint32_t x1 = (uint32_t)i;
-    threefry2x32(k0, k1, x0, x1);
-    out[i] = x0 ^ x1;
+    out[i] = threefry::bits_word(k0, k1, (unsigned long long)i);
   }
 }
 

@@ -6,8 +6,9 @@ PyTorch headers: such a file builds in seconds, where one that includes
 ``torch/extension.h`` takes minutes).  All sources compile at once, one
 ``nvcc`` process each, at the first launch on a CUDA tensor (or when
 :func:`library` is called), into ``build/torch_kernels/`` at the root of the
-checkout.  A library is named by a hash of its source and flags, so an
-unchanged source is not rebuilt within a checkout.
+checkout.  A library is named by a hash of its source, of every shared
+header (``csrc/*.cuh``) and of the flags, so an unchanged source is not
+rebuilt within a checkout and a changed header rebuilds every library.
 
 Flags: ``-O3 -gencode=arch=compute_90a,code=sm_90a -fmad=false``.  No fast
 math: ``|x| / scale``, ``sqrtf`` and the means' ``/ n`` stay IEEE, subnormals
@@ -40,7 +41,8 @@ __all__ = ["LAUNCHES", "reset_launches", "library", "check", "stream_ptr", "BUIL
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent.parent / "build" / "torch_kernels"
-SOURCES = ("threefry", "quantize_pack", "unpack_reduce", "nat_pack", "nat_decode", "sparse")
+SOURCES = ("threefry", "quantize_pack", "unpack_reduce", "nat_pack", "nat_decode", "sparse",
+           "dense")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,14 +56,19 @@ _SIGNATURES = {
     "threefry_bits": (_c_u32, _c_u32, _c_void_p, _c_ll, _c_void_p),
     "quantize_pack": (_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_int,
                       _c_int, _c_float, _c_float, _c_void_p),
+    "quantize_pack_prng": (_c_void_p, _c_void_p, _c_void_p, _c_ll, _c_int, _c_int, _c_float,
+                           _c_float, _c_void_p, _c_void_p, _c_int, _c_void_p),
     "unpack_reduce": (_c_int, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                       _c_int, _c_ll, _c_int, _c_float, _c_void_p),
     "nat_pack": (_c_void_p, _c_void_p, _c_void_p, _c_ll, _c_void_p),
+    "nat_pack_prng": (_c_void_p, _c_void_p, _c_ll, _c_void_p, _c_void_p, _c_int, _c_void_p),
     "nat_decode": (_c_int, _c_void_p, _c_ll, _c_int, _c_ll, _c_void_p, _c_void_p, _c_void_p,
                    _c_float, _c_void_p),
     "sparse_gather": (_c_void_p, _c_ll, _c_void_p, _c_int, _c_ll, _c_void_p, _c_void_p),
     "sparse_decode": (_c_int, _c_int, _c_void_p, _c_ll, _c_int, _c_void_p, _c_ll, _c_void_p,
                       _c_ll, _c_ll, _c_void_p, _c_void_p),
+    "dense_copy": (_c_void_p, _c_void_p, _c_ll, _c_void_p),
+    "dense_decode": (_c_int, _c_void_p, _c_ll, _c_int, _c_ll, _c_void_p, _c_void_p),
 }
 
 
@@ -98,7 +105,13 @@ def _nvcc() -> str:
 
 
 def _target(stem: str) -> Path:
+    """The library of ``<stem>.cu``, named by the hash of what builds it: the
+    source, every header of ``csrc/`` (any source may include any of them)
+    and the flags."""
     h = hashlib.sha1((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:12]}.so"
 

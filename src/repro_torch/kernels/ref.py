@@ -1,7 +1,11 @@
-"""Plain PyTorch versions of the CUDA kernels (the ternary, natural and
-sparse families).
+"""Plain PyTorch versions of the CUDA kernels (the ternary, natural, sparse
+and dense families, and the in-kernel-PRNG encodes).
 
-The port's copy of ``repro.kernels.ref`` (``:44-140``).  These run on the CPU
+The port's copy of ``repro.kernels.ref`` (``:44-147``).  The in-kernel-PRNG
+encodes have no plain version in the JAX package (its TPU kernels draw from
+the TPU's own generator); theirs here is the bits encode fed
+``concat_i bits(keys[i], shape_i)``, which the CUDA kernels reproduce bit for
+bit in registers.  These run on the CPU
 wherever a kernel would run on the card (``repro_torch.kernels.ops`` picks
 them by tensor device), and ``chip_smoke.py`` holds each kernel against them
 on the card.  The JAX package jits its round, and XLA contracts
@@ -15,18 +19,22 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.numerics import div_n, fma32
 from repro_torch.core.packing import pack2bit, unpack2bit
 from repro_torch.core.quantization import lp_norm, uniform_from_bits
 
 __all__ = [
+    "ref_segment_bits",
     "ref_quantize_pack",
+    "ref_quantize_pack_prng",
     "ref_unpack_reduce",
     "ref_unpack_reduce_mean",
     "ref_apply_server",
     "ref_unpack_reduce_apply",
     "NAT_BIAS",
     "ref_nat_pack",
+    "ref_nat_pack_prng",
     "ref_nat_decode",
     "ref_nat_decode_sum",
     "ref_nat_decode_sum_mean",
@@ -34,10 +42,26 @@ __all__ = [
     "ref_sparse_gather",
     "ref_sparse_decode_sum",
     "ref_sparse_decode_sum_mean",
+    "ref_dense_copy",
+    "ref_dense_decode_sum",
+    "ref_dense_decode_sum_mean",
 ]
 
 NAT_BIAS = 160  # int16 code bias: repro/core/compressors/natural.py ``_BIAS``
 _FLT_MIN = 2.0 ** -126
+
+
+def ref_segment_bits(keys: torch.Tensor, sizes, device) -> torch.Tensor:
+    """``concat_i bits(keys[i], (sizes[i],))`` as one int32 (sum sizes,)
+    buffer on ``device``, drawn segment by segment (the int64 emulation's
+    temporaries are those of the largest segment)."""
+    keys = keys.reshape(-1, 2)
+    out = torch.empty(sum(sizes), dtype=torch.int32, device=device)
+    off = 0
+    for k, s in zip(keys, sizes):
+        out[off:off + s] = prng.bits(k, (s,), device=device)
+        off += s
+    return out
 
 
 def ref_quantize_pack(delta: torch.Tensor, bits: torch.Tensor, p: float):
@@ -49,6 +73,15 @@ def ref_quantize_pack(delta: torch.Tensor, bits: torch.Tensor, p: float):
     xi = (uniform_from_bits(bits) < probs).to(torch.int8)
     signs = torch.sign(delta).to(torch.int8) * xi
     return pack2bit(signs), scales.float()
+
+
+def ref_quantize_pack_prng(delta: torch.Tensor, keys: torch.Tensor, seg_rows, p: float):
+    """The in-kernel-PRNG encode: delta (m, B) f32, keys (nseg, 2), segment
+    ``i`` of ``seg_rows[i]`` rows drawing ``bits(keys[i], (seg_rows[i], B))``
+    -> :func:`ref_quantize_pack` of those bits."""
+    m, b = delta.shape
+    bits = ref_segment_bits(keys, [r * b for r in seg_rows], delta.device)
+    return ref_quantize_pack(delta, bits.reshape(m, b), p)
 
 
 def ref_unpack_reduce(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -95,6 +128,13 @@ def ref_nat_pack(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     chosen = expo - 1 + (u < p_up).to(expo.dtype)
     code = torch.sign(x).to(torch.int32) * (chosen + NAT_BIAS)
     return torch.where(torch.abs(x) < _FLT_MIN, 0, code).to(torch.int16)
+
+
+def ref_nat_pack_prng(x: torch.Tensor, keys: torch.Tensor, sizes) -> torch.Tensor:
+    """The in-kernel-PRNG encode: x (d,) f32, keys (nseg, 2), segment ``i``
+    of ``sizes[i]`` coordinates drawing ``bits(keys[i], (sizes[i],))`` ->
+    :func:`ref_nat_pack` of those bits."""
+    return ref_nat_pack(x, ref_segment_bits(keys, sizes, x.device))
 
 
 def ref_nat_decode(codes: torch.Tensor) -> torch.Tensor:
@@ -160,3 +200,23 @@ def ref_sparse_decode_sum_mean(idx: torch.Tensor, values: torch.Tensor, scale: t
                                d: int) -> torch.Tensor:
     """The worker sum, then one true division by n."""
     return div_n(ref_sparse_decode_sum(idx, values, scale, d), idx.shape[0])
+
+
+def ref_dense_copy(x: torch.Tensor) -> torch.Tensor:
+    """Identity encode: x (d,) -> a (d,) f32 copy."""
+    return x.to(torch.float32, copy=True)
+
+
+def ref_dense_decode_sum(values: torch.Tensor) -> torch.Tensor:
+    """Dense (identity) decode (``repro/kernels/ref.py:143``): values (n, d)
+    f32 -> (d,) f32, the rows summed from row 0's, in order (a -0.0
+    survives)."""
+    acc = values[0].clone()
+    for i in range(1, values.shape[0]):
+        acc = acc + values[i]
+    return acc
+
+
+def ref_dense_decode_sum_mean(values: torch.Tensor) -> torch.Tensor:
+    """The worker sum, then one true division by n."""
+    return div_n(ref_dense_decode_sum(values), values.shape[0])

@@ -9,12 +9,18 @@ thread per output word.
 
 Bound: bytes written (4 B per word) or its ~110 integer ops per word,
 whichever is larger on the card.  Plain version: ``prng.bits``.
+
+The ternary and natural encodes draw their bits inside their kernels from
+the same cipher (``csrc/threefry.cuh``); :func:`key_table` packs their
+per-segment keys into the launch's parameters.  On the trainer's path this
+helper then draws only rand-k's tags.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -22,9 +28,34 @@ from repro_torch.core import prng
 
 from .build import LAUNCHES, check, library, stream_ptr
 
-__all__ = ["threefry_bits", "plain"]
+__all__ = ["threefry_bits", "plain", "key_table", "MAX_SEGMENTS"]
 
 plain = prng.bits
+
+MAX_SEGMENTS = 128  # csrc/threefry.cuh kMaxSegments: the key table's capacity
+
+
+def key_table(keys: torch.Tensor, sizes: Sequence[int]) -> Tuple[object, object, int]:
+    """The in-kernel generators' key table as host arrays for the C entry
+    points: segment ``i`` (``sizes[i]`` units, in order) draws from
+    ``keys[i]``.  Returns ``(words (nseg, 2) uint32, starts (nseg + 1,)
+    int64, nseg)``.  Raises when the table exceeds the kernels' capacity (no
+    fallback)."""
+    keys = keys.reshape(-1, 2)
+    nseg = len(sizes)
+    if keys.shape[0] != nseg or nseg < 1:
+        raise ValueError(f"key table: {keys.shape[0]} keys for {nseg} segments")
+    if nseg > MAX_SEGMENTS:
+        raise ValueError(f"key table: {nseg} segments exceed the kernels' capacity of "
+                         f"{MAX_SEGMENTS}")
+    if any(s < 0 for s in sizes):
+        raise ValueError(f"key table: negative segment size in {list(sizes)}")
+    words = [int(w) & prng.MASK for w in keys.reshape(-1).tolist()]
+    starts = [0]
+    for s in sizes:
+        starts.append(starts[-1] + int(s))
+    return ((ctypes.c_uint32 * (2 * nseg))(*words), (ctypes.c_longlong * (nseg + 1))(*starts),
+            nseg)
 
 
 def threefry_bits(key: torch.Tensor, shape: Sequence[int], device,

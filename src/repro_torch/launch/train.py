@@ -11,15 +11,18 @@ the N workers run one after another on one card.  Each step:
 3. it encodes its input, in place in the gradient buffer
    (``compress_input_``: ``delta = g - h_worker[w]`` for the alpha-memory
    rule, ``g + h_worker[w]`` for top-k's error feedback), with keys
-   ``split(fold_in(step_key, w), n_leaves)`` (``quantize_pack`` for the
-   ternary family, ``nat_pack`` for ``natural``, a per-segment selection
-   and ``sparse_gather`` for ``randk`` / ``topk_ef``) into its row of the
+   ``split(fold_in(step_key, w), n_leaves)`` (``quantize_pack_prng`` for
+   the ternary family and ``nat_pack_prng`` for ``natural``, which draw the
+   bits in the kernel; a per-segment selection and ``sparse_gather`` for
+   ``randk`` / ``topk_ef``; ``dense_copy`` for ``none``) into its row of the
    stacked payload buffer, decodes its own payload and updates
-   ``h_worker[w]`` with the operator's rule (``next_memory``);
+   ``h_worker[w]`` with the operator's rule (``next_memory``; the memoryless
+   operators skip both);
 4. after the n workers, ONE fused decode over the stacked payloads
    (``unpack_reduce_apply`` / ``nat_decode_sum_apply``; ``randk``'s
    ``sparse_decode_sum`` and its per-segment server rule; ``topk_ef``'s
-   ``sparse_decode_sum_mean``) updates ``h_server`` and gives ``ghat``,
+   ``sparse_decode_sum_mean``; ``none``'s ``dense_decode_sum_mean``)
+   updates ``h_server`` and gives ``ghat``,
    rounded to the leaf dtypes (the distributed path's
    ``unflatten(cast=True)``);
 5. momentum and the parameter write-back.
@@ -31,6 +34,8 @@ for the CPU (``--device cpu``), where the kernels' plain versions run.
         --mesh 4x1 --steps 3 --batch 8 --seq 4096
     python -m repro_torch.launch.train --arch llama3.2-1b --compression randk \\
         --comp-k 1048576 --mesh 4x1 --steps 3 --batch 8 --seq 4096
+    python -m repro_torch.launch.train --arch llama3.2-1b --compression none \\
+        --mesh 4x1 --steps 3 --batch 8 --seq 4096
 """
 
 from __future__ import annotations

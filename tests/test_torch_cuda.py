@@ -3,7 +3,11 @@
 kernels odd lengths, 1-3 workers and rows that are not 8-byte aligned; for
 the sparse kernels k = 1 and k = d, odd k, the three index widths, indices
 at both ends, -0.0, +-inf and products that underflow to -0.0, rows of a
-wider gathered buffer).
+wider gathered buffer; for the in-kernel-PRNG encodes one-row and empty
+segments, segment boundaries inside a group of 4 and inside the peeled
+head, and equality with the bits kernels fed ``threefry_bits``; for the
+dense kernels odd d, 1-5 workers, rows at unaligned starts, -0.0, +-inf and
+NaN).
 Needs an NVIDIA GPU: each test skips without one.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -231,3 +235,162 @@ def test_sparse_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         ops.sparse_decode_sum_mean_op(idx, torch.zeros((2, 4), device=dev),
                                       torch.zeros(3, device=dev), 10)
+
+
+# ------------------------------------------------ in-kernel-PRNG encodes
+
+def _keys(n, seed):
+    return prng.split(prng.fold_in(prng.PRNGKey(seed), 9), n)
+
+
+@pytest.mark.parametrize("p", [math.inf, 2.0, 1.0, 3.0])
+@pytest.mark.parametrize("seg_rows,b", [((13,), 128), ((1, 1, 5, 1, 3, 2), 128),
+                                        ((1,), 2048), ((3, 0, 40, 1), 2048)])
+def test_quantize_pack_prng(dev, p, seg_rows, b):
+    """Bitwise the bits kernel fed ``threefry_bits`` per segment (every p: the
+    same reduction order), and the plain version (p = inf; else as
+    ``quantize_pack``'s tolerance)."""
+    m = sum(seg_rows)
+    g = torch.Generator(device=dev).manual_seed(m + b)
+    delta = torch.randn((m, b), generator=g, device=dev)
+    delta[0, :7] = torch.tensor([-0.0, 0.0, 1e-40, -1e-45, 3.4028235e38, -3.4028235e38, 2.0])
+    if m > 2:
+        delta[1] = 0.0
+        delta[2, 5] = float("inf")
+    keys = _keys(len(seg_rows), m)
+    before = dict(build.LAUNCHES)
+    kp, ks = ops.quantize_pack_prng_op(delta, keys, seg_rows, p=p)
+    assert build.LAUNCHES["quantize_pack_prng"] == before.get("quantize_pack_prng", 0) + 1
+    bits = ops.segment_bits_op(keys, [r * b for r in seg_rows], dev).reshape(m, b)
+    bp, bs = ops.quantize_pack_op(delta, bits, p=p)
+    assert torch.equal(kp, bp) and torch.equal(ks, bs)
+    pp, ps = ref.ref_quantize_pack_prng(delta, keys, seg_rows, p)
+    if p == math.inf:
+        assert torch.equal(kp, pp) and torch.equal(ks, ps)
+    else:
+        ulp = (ks.view(torch.int32).long() - ps.view(torch.int32).long()).abs().max()
+        assert int(ulp) <= 4
+        same = sum(int(((kp >> s) & 3).eq((pp >> s) & 3).sum()) for s in (0, 2, 4, 6))
+        assert same >= 0.9999 * m * b
+
+
+def _split(d, seed):
+    """Segment sizes summing to d: one-coordinate and empty segments, and odd
+    sizes whose boundaries fall inside groups of 4."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < d:
+        sizes.append(int(min(d - sum(sizes), rng.choice([0, 1, 1, 2, 3, 5, 7, 33, 1001]))))
+    return sizes
+
+
+@pytest.mark.parametrize("d", [1, 3, 7, 1001, 4097])
+@pytest.mark.parametrize("one_key", [True, False])
+def test_nat_pack_prng(dev, d, one_key):
+    x, _ = _nat_inputs(dev, d, seed=d + 5)
+    sizes = [d] if one_key else _split(d, d)
+    keys = _keys(len(sizes), d)
+    want = ref.ref_nat_pack_prng(x, keys, sizes)
+    bits = ops.segment_bits_op(keys, sizes, dev)
+    assert torch.equal(ops.nat_pack_op(x, bits), want)       # the bits kernel agrees
+    before = build.LAUNCHES["nat_pack_prng"]
+    assert torch.equal(ops.nat_pack_prng_op(x, keys, sizes), want)
+    # x at 4-, 8- and 12-byte offsets (peeled heads of 3, 2 and 1 coordinates)
+    xb = torch.empty(d + 3, device=dev)
+    for off in (1, 2, 3):
+        xb[off:off + d] = x
+        assert torch.equal(ops.nat_pack_prng_op(xb[off:off + d], keys, sizes), want)
+    # into the rows of a gathered buffer whose rows are only 2-byte aligned
+    buf = torch.zeros((3, d + 1), dtype=torch.int16, device=dev)
+    for w in range(3):
+        assert ops.nat_pack_prng_op(x, keys, sizes, out=buf[w, :d]) is not None
+        assert torch.equal(buf[w, :d], want) and int(buf[w, d]) == 0
+    assert build.LAUNCHES["nat_pack_prng"] == before + 7
+
+
+def test_prng_wrappers_reject_bad_inputs(dev):
+    x = torch.zeros(300, device=dev)
+    keys = _keys(129, 0)
+    with pytest.raises(ValueError):           # more segments than the key table holds
+        ops.nat_pack_prng_op(x, keys, [1] * 128 + [172])
+    with pytest.raises(ValueError):           # segments do not cover x
+        ops.nat_pack_prng_op(x, keys[:2], [100, 100])
+    with pytest.raises(ValueError):
+        ops.quantize_pack_prng_op(torch.zeros((3, 128), device=dev), keys[:2], (1, 1),
+                                  p=math.inf)
+    with pytest.raises(ValueError):           # block not a multiple of 128
+        ops.quantize_pack_prng_op(torch.zeros((3, 100), device=dev), keys[:1], (3,),
+                                  p=math.inf)
+
+
+# ------------------------------------------------------------ dense
+
+def _same_bits_or_nan(a, b):
+    """Equal bits, NaN payloads aside (a NaN is compared as a NaN)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def _dense_rows(dev, n, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((n, d), generator=g, device=dev) * 10.0 ** (
+        torch.rand((n, d), generator=g, device=dev) * 60 - 30)
+    v[:, ::7] = -0.0                              # -0.0 in every worker: the sum keeps it
+    sp = torch.tensor([float("inf"), float("-inf"), float("nan"), 1e-40, -1e-45,
+                       3.4028235e38, 0.0], device=dev)
+    for i in range(n):
+        j = torch.randperm(d, generator=g, device=dev)[:min(d, sp.numel())]
+        v[i, j] = sp[:j.numel()]
+    return v
+
+
+@pytest.mark.parametrize("d", [1, 3, 1001, 4097])
+def test_dense_copy(dev, d):
+    x = _dense_rows(dev, 1, d, seed=d)[0]
+    before = build.LAUNCHES["dense_copy"]
+    assert torch.equal(ops.dense_copy_op(x).view(torch.int32), x.view(torch.int32))
+    xb = torch.empty(d + 3, device=dev)
+    ob = torch.full((d + 3,), 7.0, device=dev)
+    for xo, oo in ((1, 1), (3, 3), (1, 0), (0, 2)):   # shared offsets peel; others scalar
+        xb[xo:xo + d] = x
+        ob.fill_(7.0)
+        out = ops.dense_copy_op(xb[xo:xo + d], out=ob[oo:oo + d])
+        assert torch.equal(out.view(torch.int32), x.view(torch.int32))
+        assert bool((ob[:oo] == 7.0).all()) and bool((ob[oo + d:] == 7.0).all())
+    assert build.LAUNCHES["dense_copy"] == before + 5
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("d", [1, 3, 1001, 4097])
+@pytest.mark.parametrize("ld_pad", [0, 1, 4])
+def test_dense_decode_family(dev, n, d, ld_pad):
+    """Rows ``d + ld_pad`` floats apart (contiguous; 4-byte aligned for odd
+    d; 16-byte aligned where d is a multiple of 4), and the same rows one
+    float into the buffer (an unaligned start)."""
+    vals = _dense_rows(dev, n, d, seed=n * 11 + d + ld_pad)
+    buf = torch.zeros((n, d + ld_pad + 1), device=dev)
+    before = dict(build.LAUNCHES)
+    for start in (0, 1):
+        view = buf[:, start:start + d]
+        view.copy_(vals)
+        s = ops.dense_decode_sum_op(view)
+        want = ref.ref_dense_decode_sum(vals)
+        assert _same_bits_or_nan(s, want)
+        neg0 = ((vals == 0) & torch.signbit(vals)).all(0)     # -0.0 in every worker
+        assert bool((torch.signbit(s[neg0]) & (s[neg0] == 0)).all())
+        assert _same_bits_or_nan(ops.dense_decode_sum_mean_op(view),
+                                 ref.ref_dense_decode_sum_mean(vals))
+    assert build.LAUNCHES["dense_decode_sum"] == before.get("dense_decode_sum", 0) + 2
+    assert build.LAUNCHES["dense_decode_sum_mean"] == before.get("dense_decode_sum_mean", 0) + 2
+
+
+def test_dense_wrappers_reject_bad_inputs(dev):
+    with pytest.raises(ValueError):
+        ops.dense_copy_op(torch.zeros(10, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        ops.dense_copy_op(torch.zeros(10, device=dev), out=torch.zeros(9, device=dev))
+    with pytest.raises(ValueError):
+        ops.dense_decode_sum_op(torch.zeros(10, device=dev))
+    with pytest.raises(ValueError):
+        ops.dense_decode_sum_mean_op(torch.zeros((2, 10), dtype=torch.int32, device=dev))

@@ -136,3 +136,26 @@ def test_quantize_blocks_matches_jax(p):
         assert np.array_equal(tq.scales.numpy(), np.asarray(jq.scales))
     else:
         assert _ulps(tq.scales.numpy(), np.asarray(jq.scales)).max() <= 4
+
+
+def test_build_target_hashes_every_header(tmp_path, monkeypatch):
+    """A library is named by its source, every ``csrc/*.cuh`` header and the
+    flags: a changed (or added) header gives every source a new target, so
+    no stale library is loaded from the build cache."""
+    from repro_torch.kernels import build
+
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no include\n")
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    a1, b1 = build._target("a"), build._target("b")
+    assert build._target("a") == a1 and a1 != b1 and a1.parent == build.BUILD_DIR
+    (tmp_path / "h.cuh").write_text("// two\n")
+    a2, b2 = build._target("a"), build._target("b")
+    assert a2 != a1 and b2 != b1
+    (tmp_path / "g.cuh").write_text("// new\n")
+    assert build._target("a") not in (a1, a2)
+    (tmp_path / "g.cuh").unlink()
+    assert build._target("a") == a2
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// changed\n')
+    assert build._target("a") != a2 and build._target("b") == b2

@@ -231,9 +231,9 @@ def test_registry_config_and_layout_match_jax():
     assert (tl.sizes, tl.offsets) == (jl.sizes, jl.offsets)
     assert bucketed_compressor(TCfg(method="natural", bucketed=True), tl).bits_per_dim() == \
         JBucketed(JNatural(use_kernel=False), jl).bits_per_dim() == 9.0
-    for method in ("identity", "none"):   # the sparse operators are ported
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TCfg(method=method)
+    for method in ("identity", "none"):   # every registry method is ported
+        assert TCfg(method=method).make().name == "identity"
+        assert t_bits(TCfg(method=method)) == j_bits(JCfg(method=method)) == 32.0
 
 
 # --------------------------------------------------------- the DIANA round

@@ -9,7 +9,7 @@ from repro.core import diana as jdiana
 from repro.core.compressors.ternary import TernaryCompressor as JTernary
 from repro_torch.core import diana as tdiana
 from repro_torch.core import prng
-from repro_torch.core.compressors.ternary import TernaryCompressor as TTernary
+from repro_torch.kernels import ops
 
 
 def _words(k):
@@ -47,13 +47,15 @@ def test_bits(shape):
 
 def test_batched_bits_matches_vmapped_draw():
     """Segments sharing a row count are drawn by ONE vmapped jax.random.bits
-    call in the JAX package; the port draws per key into the concatenation."""
+    call in the JAX package; the port draws per key into the concatenation
+    (``segment_bits_op``: the bits the in-kernel-PRNG ternary encode draws,
+    segment ``i`` over ``m_i * B`` coordinates)."""
     seg_rows = [2, 3, 2, 1, 3, 2]
     jkeys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), 2), len(seg_rows))
     tkeys = prng.split(prng.fold_in(prng.PRNGKey(0), 2), len(seg_rows))
     jb = np.concatenate([np.asarray(b) for b in
                          JTernary(block_size=128, use_kernel=False)._batched_bits(jkeys, seg_rows)])
-    tb = TTernary(block_size=128)._batched_bits(tkeys, seg_rows, "cpu")
+    tb = ops.segment_bits_op(tkeys, [r * 128 for r in seg_rows], "cpu").reshape(-1, 128)
     assert np.array_equal(tb.numpy().view(np.uint32), jb)
 
 

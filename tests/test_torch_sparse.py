@@ -427,8 +427,7 @@ def test_registry_config_and_accounting_match_jax():
             vec = np.concatenate([np.full(s, r, np.float32)
                                   for r, s in zip(ta.rates, ta.sizes)])
             assert ta.offsets == tl.offsets and np.array_equal(vec, np.asarray(ja))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCfg(method="identity")
+    assert TCfg(method="identity").make().name == "identity"   # ported too
 
 
 def test_worker_key_schedule_matches_jax_bucketed_payload():

@@ -31,7 +31,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("method", ["diana", "natural", "randk", "topk_ef"])
+@pytest.mark.parametrize("method", ["diana", "natural", "randk", "topk_ef", "identity"])
 def test_trainer_round_equals_reference_step(method):
     """The trainer's in-place round (the input written into the gradient
     buffer: ``g - h``, or ``g + h`` for error feedback; payloads encoded
