@@ -25,7 +25,12 @@ Phases (each prints its lines; any failure exits non-zero):
    entries per worker): ``sparse_gather``, ``sparse_decode_sum`` (n = 1 and
    4) and ``_mean`` (n = 4) bitwise, on payloads from a real rand-k bucketed
    compress with -0.0, +-inf, subnormals, products that underflow to -0.0
-   and indices 0 and Dp - 1 spliced in.  Dense (identity, alignment 1):
+   and indices 0 and Dp - 1 spliced in; the gather also over K uniform
+   indices confined to windows of 32 MB, 256 MB, 1 GB and the whole bucket,
+   beside ``index_select`` (what sets its pace); the n = 4 decode twice
+   (the same bits), split into its phases (count, scan, bin, sort, tile) by
+   ``torch.profiler`` at n = 1 and 4, with the most entries any coarse bin
+   holds.  Dense (identity, alignment 1):
    ``dense_copy`` into the rows of the gathered (4, Dp) buffer,
    ``dense_decode_sum`` (n = 1 and 4) and ``_mean`` (n = 4) bitwise, with
    -0.0 (in every worker), +-inf, subnormals and FLT_MAX spliced in.  Median
@@ -61,7 +66,12 @@ Phases (each prints its lines; any failure exits non-zero):
    decode) and 1 sparse_decode_sum (the server sum); the selection
    (threefry + top-k of one worker's 12 segments) timed on its own;
 11. the top-k EF main path: the same with ``topk_ef``: per step 4
-   sparse_gather, 4 sparse_decode_sum and 1 sparse_decode_sum_mean;
+   sparse_gather, 4 sparse_decode_sum and 1 sparse_decode_sum_mean; then,
+   after the counts and the peak are read, one more step whose server
+   decode's inputs are kept: on that real top-k EF payload,
+   ``sparse_decode_sum`` (n = 1) and ``_mean`` (n = 4) bitwise, timed
+   beside ``zero_`` + n x ``index_add_``, split into phases, with the most
+   entries any coarse bin holds;
 12. the ``none`` main path: the same trainer and model with ``none`` (the
    uncompressed baseline), 3 steps: 4 dense_copy and 1
    dense_decode_sum_mean per step, nothing else;
@@ -69,13 +79,17 @@ Phases (each prints its lines; any failure exits non-zero):
    layout).decode_sum`` over a gathered (4, Dp) payload of 4 workers: one
    ``dense_decode_sum``, bitwise its plain version.
 
-Each kernel is credited with the launches of the path or round that runs it.
+Each timed step starts from a Python collection (outside its time); its
+line gives the time of the collections inside it and the caching
+allocator's device allocations, frees and retries.  Each kernel is credited
+with the launches of the path or round that runs it.
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -141,6 +155,7 @@ def main() -> None:
         from repro_torch.core.diana import bucket_layout, worker_key
         from repro_torch.data.pipeline import make_lm_batch
         from repro_torch.kernels import build, ops, ref
+        from repro_torch.kernels.sparse import COARSE
         from repro_torch.launch.train import build_train_step, init_train_state, make_optimizer
         from repro_torch.models.transformer import init_model, param_shapes, train_loss
     except ImportError as e:
@@ -161,7 +176,8 @@ def main() -> None:
     print(f"build: {lib.seconds:.2f} s for {len(build.SOURCES)} sources into "
           f"{build.BUILD_DIR.relative_to(ROOT)}")
     for line in lib.log.splitlines():
-        if "registers" in line or "stack frame" in line or line.startswith("=="):
+        if ("registers" in line or "stack frame" in line or "entry function" in line
+                or line.startswith("==")):
             print(f"build: {line.strip()}")
 
     # --------------------------------------------------------------- kernels
@@ -397,6 +413,46 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -------------------------------------------------- sparse kernels
+    def decode_phases(label, idx, vals, scale, d, op=None, calls=3):
+        """The decode's phases (count, scan, bin, the sort's chunk counts,
+        run scan and placement, tile) from one torch.profiler window over
+        ``calls`` calls, read by kernel name: device time per launch over
+        the launches the window saw (it may miss some), and the most
+        entries any coarse bin holds."""
+        op = op or ops.sparse_decode_sum_op
+        nw = idx.shape[0]
+        per_bin = torch.bincount((idx.to(torch.int64) // COARSE).flatten(),
+                                 minlength=-(-d // COARSE))
+        op(idx, vals, scale, d)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                op(idx, vals, scale, d)
+            torch.cuda.synchronize()
+        phases = ("Memset", "coarse_count_kernel", "bin_scan_kernel", "coarse_bin_kernel",
+                  "chunk_count_kernel", "run_scan_kernel", "chunk_place_kernel", "tile_kernel")
+        split = {ph: [0.0, 0] for ph in phases}
+        for ev in prof.key_averages():
+            for ph in phases:
+                if ph in ev.key and getattr(ev, "device_time_total", 0.0) > 0:
+                    split[ph][0] += ev.device_time_total / 1e3
+                    split[ph][1] += ev.count
+        del prof
+        split = {ph: (t / c if c else 0.0, c) for ph, (t, c) in split.items()}
+        whole = time_ms(lambda: op(idx, vals, scale, d), 10)
+        bins = (f"coarse bins: {per_bin.numel()}, entries per bin mean "
+                f"{nw * idx.shape[1] / per_bin.numel():.1f} max {int(per_bin.max())}")
+        total = sum(t for t, _ in split.values())
+        if total > 0:
+            print(f"decode phases {label} n={nw} (torch.profiler device time per launch, ms; "
+                  f"launches seen of {calls}): "
+                  + " ".join(f"{ph} {t:.4f} ({c}/{calls})" for ph, (t, c) in split.items())
+                  + f"; sum {total:.4f}; whole call (CUDA events) {whole:.4f}; " + bins)
+        else:
+            print(f"decode phases {label} n={nw}: torch.profiler's key_averages() shows no "
+                  f"device time; whole call (CUDA events) {whole:.4f} ms; {bins}")
+
     # Payloads of a real rand-k bucketed compress (threefry tags, top-k per
     # segment, sparse_gather) of four workers into the trainer's gathered
     # buffer, with special values and both end indices spliced in.
@@ -441,7 +497,23 @@ def main() -> None:
            time_ms(lambda: ref.ref_sparse_gather(x, xi), 3),
            kk * (4 + 4 + 4), 0.0, f"bitwise, K {kk}",
            time_ms(lambda: torch.index_select(x, 0, xi64, out=lib_gather), 10))
-    del kv, xi64, lib_gather
+    del xi64
+    # What sets the gather's pace: K random reads confined to windows of x
+    # (32 MB is L2-resident), kernel and index_select in turn on each.
+    for label, win in (("32 MB", 8 << 20), ("256 MB", 64 << 20), ("1 GB", 256 << 20),
+                       (f"{sd * 4 / 1e9:.2f} GB (the bucket)", sd)):
+        wi64 = torch.randint(0, win, (kk,), generator=gen, device=dev, dtype=torch.int64)
+        wi = wi64.to(torch.int32).view(torch.uint32)
+        if not same_bits(ops.sparse_gather_op(x, wi, out=kv), x[wi64]):
+            fail(f"sparse_gather differs from the plain version over a {label} window")
+        g_ms = time_ms(lambda: ops.sparse_gather_op(x, wi, out=kv), 10)
+        l_ms = time_ms(lambda: torch.index_select(x, 0, wi64, out=lib_gather), 10)
+        g2_ms = time_ms(lambda: ops.sparse_gather_op(x, wi, out=kv), 10)
+        print(f"gather window {label}: K {kk} uniform reads; sparse_gather {g_ms:.4f} / "
+              f"{g2_ms:.4f} ms ({kk / min(g_ms, g2_ms) / 1e6:.2f} G reads/s), index_select "
+              f"{l_ms:.4f} ms ({kk / l_ms / 1e6:.2f} G reads/s)")
+        del wi, wi64
+    del kv, lib_gather
     one = (sidx[:1], svals[:1])
     sgot = ops.sparse_decode_sum_op(*one, sscale, sd)
     if not same_bits(sgot, ref.ref_sparse_decode_sum(*one, sscale, sd)):
@@ -450,9 +522,15 @@ def main() -> None:
         fail("sparse_decode_sum (n=1) holds a -0.0")
     del sgot
     sgot = ops.sparse_decode_sum_op(sidx, svals, sscale, sd)
-    if not same_bits(sgot, ref.ref_sparse_decode_sum(sidx, svals, sscale, sd)):
+    want = ref.ref_sparse_decode_sum(sidx, svals, sscale, sd)
+    if not same_bits(sgot, want):
         fail("sparse_decode_sum (n=4) differs from the plain version")
+    if not same_bits(ops.sparse_decode_sum_op(sidx, svals, sscale, sd), sgot):
+        fail("sparse_decode_sum (n=4) differs between two launches")
     del sgot
+    del want
+    for nw in (1, WORKERS):
+        decode_phases("rand-k", sidx[:nw], svals[:nw], sscale, sd)
     idx64 = sidx.to(torch.int64)
     lib_out = torch.empty(sd, device=dev)
 
@@ -602,7 +680,7 @@ def main() -> None:
         for name in names:
             credit[name] = (want[name], path)
 
-    def run_path(pcfg, steps, label):
+    def run_path(pcfg, steps, label, after=None):
         shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
         opt = make_optimizer(pcfg)
         params, opt_state = init_train_state(pcfg, opt, WORKERS, dev)
@@ -614,7 +692,24 @@ def main() -> None:
         held = torch.cuda.memory_allocated()
         build.reset_launches()
         times, losses = [], []
+        # Python's collections inside each step, timed (gc.callbacks): a full
+        # one over the objects the earlier phases leave took 0.26 s inside a
+        # timed step (H100 host), so each step starts from a collection,
+        # untimed.  And the caching allocator's device calls per step.
+        in_gc = {"ms": 0.0, "full": 0}
+
+        def gc_clock(phase, info, started=[0.0]):
+            if phase == "start":
+                started[0] = time.perf_counter()
+            else:
+                in_gc["ms"] += (time.perf_counter() - started[0]) * 1e3
+                in_gc["full"] += info["generation"] == 2
+        gc.callbacks.append(gc_clock)
+        alloc_keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
         for s in range(steps):
+            gc.collect()
+            in_gc.update(ms=0.0, full=0)
+            before = torch.cuda.memory_stats()
             t0 = time.perf_counter()
             params, opt_state, met = step_fn(params, opt_state, batches[s],
                                              prng.fold_in(prng.PRNGKey(0), s))
@@ -622,8 +717,12 @@ def main() -> None:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(loss)
+            after_stats = torch.cuda.memory_stats()
             print(f"{label}: step {s} loss {loss:.6f} ghat_norm {float(met['ghat_norm']):.6f} "
-                  f"time {times[-1]:.3f} s")
+                  f"time {times[-1]:.3f} s; gc {in_gc['ms']:.1f} ms ({in_gc['full']} full); "
+                  + ", ".join(f"{k} +{after_stats.get(k, 0) - before.get(k, 0)}"
+                              for k in alloc_keys))
+        gc.callbacks.remove(gc_clock)
         counts = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         if not all(math.isfinite(x) and 0 < x < 20 for x in losses):
@@ -643,6 +742,8 @@ def main() -> None:
               f"{pcfg.compression}: step times {times} s; one worker's forward+backward "
               f"{fb[-1]} s; peak memory {peak} B (held before the path: params, state, "
               f"batches {held} B); launches {counts}")
+        if after is not None:
+            after(params, opt_state, step_fn, batches[-1])
         del params, opt_state, step_fn, batches
         torch.cuda.empty_cache()
         return counts
@@ -742,11 +843,59 @@ def main() -> None:
             "sparse_decode_sum": (WORKERS + 1) * STEPS}, "randk (8 layers, 3 steps)",
            ("threefry_bits", "sparse_gather", "sparse_decode_sum"))
     sel_ms["randk"] = time_selection(RandKCompressor(COMP_K))
-    expect("topk_ef", run_path(replace(scfg, compression="topk_ef"), STEPS, "topk_ef"),
+    topk = {}
+
+    def keep_topk_payload(params, opt_state, step_fn, batch):
+        """One more step (after the path's counts and peak are read) whose
+        server decode's inputs are kept: a real top-k EF bucketed payload."""
+        mean_op = ops.sparse_decode_sum_mean_op
+
+        def keep(idx, values, scale, d):
+            topk.update(idx=idx, values=values, scale=scale, d=d)
+            return mean_op(idx, values, scale, d)
+        ops.sparse_decode_sum_mean_op = keep
+        try:
+            step_fn(params, opt_state, batch, prng.fold_in(prng.PRNGKey(0), STEPS))
+        finally:
+            ops.sparse_decode_sum_mean_op = mean_op
+
+    expect("topk_ef", run_path(replace(scfg, compression="topk_ef"), STEPS, "topk_ef",
+                               keep_topk_payload),
            {"sparse_gather": WORKERS * STEPS, "sparse_decode_sum": WORKERS * STEPS,
             "sparse_decode_sum_mean": STEPS}, "topk_ef (8 layers, 3 steps)",
            ("sparse_decode_sum_mean",))
     sel_ms["topk_ef"] = time_selection(TopKEFCompressor(COMP_K))
+    # The sparse kernels' rows above read a rand-k payload (uniform indices);
+    # a top-k EF payload follows the gradient, so its coarse bins may be
+    # uneven.  The decodes of its step on that payload:
+    tidx, tvals, tscale, td = topk["idx"], topk["values"], topk["scale"], topk["d"]
+    tone = (tidx[:1], tvals[:1])
+    if not same_bits(ops.sparse_decode_sum_op(*tone, tscale, td),
+                     ref.ref_sparse_decode_sum(*tone, tscale, td)):
+        fail("sparse_decode_sum (n=1) differs from the plain version on the top-k EF payload")
+    if not same_bits(ops.sparse_decode_sum_mean_op(tidx, tvals, tscale, td),
+                     ref.ref_sparse_decode_sum_mean(tidx, tvals, tscale, td)):
+        fail("sparse_decode_sum_mean (n=4) differs from the plain version on the top-k EF "
+             "payload")
+    t64 = tidx.to(torch.int64)
+    t_out = torch.empty(td, device=dev)
+
+    def index_add_topk(nw):
+        t_out.zero_()
+        for i in range(nw):
+            t_out.index_add_(0, t64[i], tvals[i] * tscale)
+    print(f"topk_ef payload (K {tidx.shape[1]} per worker): sparse_decode_sum n=1 ms "
+          f"{time_ms(lambda: ops.sparse_decode_sum_op(*tone, tscale, td), 10):.4f} "
+          f"(zero_+index_add_ {time_ms(lambda: index_add_topk(1), 3):.4f}); "
+          f"sparse_decode_sum_mean n=4 ms "
+          f"{time_ms(lambda: ops.sparse_decode_sum_mean_op(tidx, tvals, tscale, td), 10):.4f} "
+          f"(zero_+index_add_, no divide {time_ms(lambda: index_add_topk(WORKERS), 3):.4f}); "
+          f"bitwise")
+    decode_phases("topk_ef", *tone, tscale, td)
+    decode_phases("topk_ef", tidx, tvals, tscale, td, ops.sparse_decode_sum_mean_op)
+    del tidx, tvals, tscale, tone, t64, t_out
+    topk.clear()
+    torch.cuda.empty_cache()
     print(f"selection: one worker's 12 segments, k {COMP_K} per leaf: randk "
           f"{sel_ms['randk'][0]:.3f} ms (threefry tags + top-k), {sel_ms['randk'][1]} B "
           f"transient; topk_ef {sel_ms['topk_ef'][0]:.3f} ms (|x| bits + top-k), "

@@ -66,7 +66,7 @@ _SIGNATURES = {
                    _c_float, _c_void_p),
     "sparse_gather": (_c_void_p, _c_ll, _c_void_p, _c_int, _c_ll, _c_void_p, _c_void_p),
     "sparse_decode": (_c_int, _c_int, _c_void_p, _c_ll, _c_int, _c_void_p, _c_ll, _c_void_p,
-                      _c_ll, _c_ll, _c_void_p, _c_void_p),
+                      _c_ll, _c_ll, _c_void_p, ctypes.POINTER(_c_void_p), _c_void_p),
     "dense_copy": (_c_void_p, _c_void_p, _c_ll, _c_void_p),
     "dense_decode": (_c_int, _c_void_p, _c_ll, _c_int, _c_ll, _c_void_p, _c_void_p),
 }

@@ -4,26 +4,31 @@ value gather and the scatter-add server decode (sum, or mean).
 Replaces ``src/repro/kernels/sparse.py:sparse_gather``,
 ``:sparse_decode_sum`` and ``:sparse_decode_sum_mean`` (Pallas TPU kernels;
 ``pallas_call`` at ``:65``, ``:131``, ``:157``) with one source,
-``csrc/sparse.cu``.  The gather is one thread per kept entry.  The decode
-zero-fills the ``(d,)`` output, then scatters each worker's
-``values * scale`` in worker order, one launch per worker (indices are
-unique within a worker: no atomics, the reference's summation order), and
-the mean divides by n: bitwise the plain versions in ``kernels/ref.py``
-(the argument is in the source).  As in the JAX package there is no fused
-memory update: with memory, rand-k's server rule composes outside the
-kernel from the materialised sum.
+``csrc/sparse.cu``.  The gather takes 8 entries per thread, all 8 random
+reads in flight before any store.  The decode sorts each kept entry into
+the run of its (output tile of ``TILE`` floats, worker), in two levels
+(coarse bins of ``COARSE`` floats, then tiles within a bin, a bin's run
+taken ``CHUNK`` records per block so that a bin that holds many entries is
+spread over many blocks), then one block
+per tile accumulates its workers' ``values * scale`` in shared memory,
+worker by worker in order (indices are unique within a worker: no atomics
+on values, the reference's summation order), and writes the tile once,
+divided by n for the mean: bitwise the plain versions in
+``kernels/ref.py`` (the argument is in the source).  As in the JAX package
+there is no fused memory update: with memory, rand-k's server rule
+composes outside the kernel from the materialised sum.
 
 Indices are the payload's unsigned words (uint8 / uint16 / uint32 by the
 vector length, the JAX package's wire widths), read as they are.
 
-Bound: bytes.  Gather: 12 B per entry.  Decode: 4 B per coordinate (the
-fill) plus 8 B per entry and worker (index, value) and the (k,) scale;
-the mean adds 8 B per coordinate.
+Bound: bytes.  Gather: 12 B per entry.  Decode: 4 B per coordinate out
+plus 8 B per entry and worker (index, value) and the (k,) scale.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -39,6 +44,30 @@ plain = {
 }
 
 INDEX_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
+# The decode's widths, compile-time constants of csrc/sparse.cu (kTile,
+# kCoarse, kChunk), mirrored here to size its scratch.
+TILE = 16384         # output floats one block of the decode owns (64 KB of shared memory)
+COARSE = 1 << 19     # floats of a coarse bin of the decode's first sorting level
+CHUNK = 4096         # records of a coarse bin's run that one block of its sort takes
+
+
+def decode_scratch(n: int, k: int, d: int) -> Dict[str, int]:
+    """Element counts of the decode's scratch for ``n`` workers of ``k``
+    entries into ``d`` coordinates: ``bins`` coarse bins of ``COARSE``
+    floats (a count, a cursor and a first chunk each, and one more first
+    chunk for the total), ``tiles`` output tiles of ``TILE`` floats (the last
+    ones partial), a count, a start and a cursor per (tile, worker) ``run``,
+    two buffers of ``records`` 8-byte records, one per entry (entries with an
+    index >= d are dropped, so n * k is the most there can be), and the bin
+    of each of at most ``chunks`` chunks of ``CHUNK`` records (every record
+    in a chunk of its own bin's, plus one partial chunk per bin): 16 B per
+    bin, 20 B per run, 16 B per record and 4 B per chunk in all."""
+    bins = -(-d // COARSE)
+    tiles = -(-d // TILE)
+    runs = tiles * n
+    records = n * k
+    chunks = -(-records // CHUNK) + bins
+    return {"bins": bins, "tiles": tiles, "runs": runs, "records": records, "chunks": chunks}
 
 
 def _check_index(idx: torch.Tensor, name: str) -> None:
@@ -88,11 +117,28 @@ def _decode(mean: int, name: str, idx: torch.Tensor, values: torch.Tensor,
                          "float32), scale (k,) float32, d >= 1, on one device")
     idx, values, scale = _rows(idx), _rows(values), scale.contiguous()
     n, k = idx.shape
-    out = torch.empty(d, dtype=torch.float32, device=values.device)
+    if d > 1 << 32:     # checked again by the launch, but before (d,) is allocated
+        raise ValueError(f"{name}: the card's decode takes d <= 2^32 (the widest index "
+                         f"word), got {d}")
+    dev = values.device
+    out = torch.empty(d, dtype=torch.float32, device=dev)
+    size = decode_scratch(n, k, d)
+    # One allocation, cut in the order of csrc/sparse.cu's struct Scratch:
+    # the 8-byte arrays (cursors, fine starts, fine cursors, the two record
+    # buffers), then the 4-byte ones (counts and fine counts together, first
+    # chunks, chunk bins).
+    lengths = ((8, size["bins"]), (8, size["runs"]), (8, size["runs"]),
+               (8, size["records"]), (8, size["records"]), (4, size["bins"]),
+               (4, size["runs"]), (4, size["bins"] + 1), (4, size["chunks"]))
+    scratch = torch.empty(sum(w * m for w, m in lengths), dtype=torch.uint8, device=dev)
+    ptrs, at = [], scratch.data_ptr()
+    for w, m in lengths:
+        ptrs.append(at)
+        at += w * m
     check(library().sparse_decode(
         mean, n, idx.data_ptr(), idx.stride(0), idx.itemsize, values.data_ptr(),
         values.stride(0), scale.data_ptr(), k, d, out.data_ptr(),
-        stream_ptr(values.device)), name)
+        (ctypes.c_void_p * len(ptrs))(*ptrs), stream_ptr(dev)), name)
     LAUNCHES[name] += 1
     return out
 
@@ -101,7 +147,9 @@ def sparse_decode_sum(idx: torch.Tensor, values: torch.Tensor, scale: torch.Tens
                       d: int) -> torch.Tensor:
     """idx (n, k) unsigned, values (n, k) f32, scale (k,) f32 -> (d,) f32
     ``sum_i scatter(idx_i, values_i * scale)`` from worker 0, in order.  Rows
-    may sit any number of elements apart (views of a gathered buffer)."""
+    may sit any number of elements apart (views of a gathered buffer).  The
+    launch takes at most 512 workers (the (tile, worker) keys of a coarse
+    bin in shared memory) and raises beyond."""
     return _decode(0, "sparse_decode_sum", idx, values, scale, d)
 
 

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.compressors.base import index_dtype
+from repro_torch.core.numerics import div_n
 from repro_torch.kernels import build, ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -235,6 +236,119 @@ def test_sparse_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         ops.sparse_decode_sum_mean_op(idx, torch.zeros((2, 4), device=dev),
                                       torch.zeros(3, device=dev), 10)
+    with pytest.raises(ValueError):                 # beyond the widest index word
+        ops.sparse_decode_sum_op(idx, torch.zeros((2, 3), device=dev),
+                                 torch.zeros(3, device=dev), (1 << 32) + 1)
+    with pytest.raises(RuntimeError):               # more workers than the launch takes
+        ops.sparse_decode_sum_op(torch.zeros((513, 1), dtype=torch.uint8, device=dev),
+                                 torch.zeros((513, 1), device=dev), torch.zeros(1, device=dev),
+                                 10)
+
+
+def _widths(d):
+    """Every wire width that holds indices below d + 8 (some tests add some)."""
+    return [dt for dt, top in ((torch.uint8, 256), (torch.uint16, 65536), (torch.uint32, 1 << 32))
+            if d + 8 <= top]
+
+
+def _decode_expected(idx, values, scale, d, mean):
+    """The plain version over each worker's entries below d, summed in order."""
+    acc = None
+    for r in range(idx.shape[0]):
+        ir = idx[r].to(torch.int64)
+        m = ir < d
+        row = ref.ref_sparse_decode_sum(ir[m][None], values[r][m][None], scale[m], d)
+        acc = row if acc is None else acc + row
+    return div_n(acc, idx.shape[0]) if mean else acc
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("d_off", ["small", -1, 0, 1])
+def test_sparse_decode_tile_edges(dev, n, d_off):
+    """d < T, T - 1, T, T + 1 (T the decode's tile); every worker keeps every
+    coordinate (full tiles, collisions everywhere), then a sparse row set
+    with indices >= d that the decode drops; every width that holds the
+    indices; rows of wider buffers."""
+    from repro_torch.kernels.sparse import TILE
+
+    d = 200 if d_off == "small" else TILE + d_off
+    for k in (d, max(1, d // 7)):
+        idx, values, scale = _sparse_case(dev, n, d, k, seed=n * 13 + d + k)
+        if k < d:                                    # entries d .. d + 7: dropped
+            idx = idx.to(torch.int64)
+            idx[:, 5:5 + min(8, k - 5)] = d + torch.arange(min(8, k - 5), device=dev)
+        for dt in _widths(d):
+            ids = idx.to(torch.int64).to(dt)
+            ibuf = torch.zeros((n, k + 3), dtype=dt, device=dev)
+            ibuf[:, :k] = ids
+            vbuf = torch.zeros((n, k + 5), device=dev)
+            vbuf[:, :k] = values
+            for mean, op in ((False, ops.sparse_decode_sum_op), (True, ops.sparse_decode_sum_mean_op)):
+                want = _decode_expected(ids, values, scale, d, mean)
+                assert _same_bits(op(ids, values, scale, d), want)
+                assert _same_bits(op(ibuf[:, :k], vbuf[:, :k], scale, d), want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_sparse_decode_across_coarse_bins(dev, n):
+    """d just above 2 S (S the coarse bin): three bins, the last one partial
+    (5 coordinates, one partial tile); entries in bins 0 and 2 only, so bin
+    1 and its 32 tiles stay empty, with both ends of every bin, entries
+    >= d and a dense stretch that every worker keeps whole."""
+    from repro_torch.kernels.sparse import COARSE, TILE
+
+    d = 2 * COARSE + 5
+    rng = np.random.default_rng(n)
+    dense = np.arange(COARSE - TILE // 2, COARSE)            # the end of bin 0, every worker
+    pool = np.setdiff1d(np.concatenate([np.arange(COARSE), np.arange(2 * COARSE, d)]), dense)
+    ends = np.array([0, 2 * COARSE, d - 1])                 # COARSE - 1 is in the dense stretch
+    rows = [np.concatenate([dense, rng.choice(np.setdiff1d(pool, ends), 3000, replace=False),
+                            ends, [d, d + 1]]) for _ in range(n)]
+    idx = torch.from_numpy(np.stack([rng.permutation(r) for r in rows])).to(torch.uint32).to(dev)
+    k = idx.shape[1]
+    values = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
+    values[:, :7] = torch.tensor([-0.0, float("inf"), 1e-40, -1e-45, 3.0, -2.0, 0.5], device=dev)
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, k).astype(np.float32)).to(dev)
+    for mean, op in ((False, ops.sparse_decode_sum_op), (True, ops.sparse_decode_sum_mean_op)):
+        got = op(idx, values, scale, d)
+        assert _same_bits(got, _decode_expected(idx, values, scale, d, mean))
+        assert bool((got[COARSE:2 * COARSE] == 0).all())
+
+
+def test_sparse_decode_is_deterministic(dev):
+    """The cursor atomics order a run's records differently from launch to
+    launch; the result may not change."""
+    from repro_torch.kernels.sparse import TILE
+
+    d = 3 * TILE + 5
+    idx, values, scale = _sparse_case(dev, 4, d, d // 2, seed=3)
+    first = ops.sparse_decode_sum_op(idx, values, scale, d)
+    for _ in range(3):
+        assert _same_bits(ops.sparse_decode_sum_op(idx, values, scale, d), first)
+    assert _same_bits(first, ref.ref_sparse_decode_sum(idx, values, scale, d))
+
+
+@pytest.mark.parametrize("k", [1, 7, 9, 15, 1001])
+@pytest.mark.parametrize("d", [200, 3001, 70001])
+def test_sparse_gather_unaligned_rows(dev, d, k):
+    """Index rows and output rows at every element offset of a 16-byte
+    line (a gathered payload's rows start w * k elements apart), k not a
+    multiple of 8, every width that holds the indices, and indices >= d,
+    which the gather clamps to d - 1."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn(d, generator=g, device=dev)
+    rng = np.random.default_rng(d + k)
+    want_idx = torch.from_numpy(rng.integers(0, d + 8, k)).to(dev)
+    want = x[want_idx.clamp(max=d - 1)]
+    for dt in _widths(d):
+        flat = torch.zeros(k + 16, dtype=dt, device=dev)
+        for io in range(8):
+            flat[io:io + k] = want_idx.to(dt)
+            for oo in (0, 1, 3, 5):
+                out = torch.full((k + 8,), 7.0, device=dev)
+                ops.sparse_gather_op(x, flat[io:io + k], out=out[oo:oo + k])
+                assert _same_bits(out[oo:oo + k], want)
+                assert bool((out[:oo] == 7.0).all()) and bool((out[oo + k:] == 7.0).all())
 
 
 # ------------------------------------------------ in-kernel-PRNG encodes
