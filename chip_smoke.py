@@ -5,7 +5,8 @@
 Phases (each prints its lines; any failure exits non-zero):
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
-   power limit and the torch / CUDA versions;
+   power limit, the torch / CUDA versions, and the SM count and maximum SM
+   clock that the integer bound (:func:`bound_int`) counts with;
 2. build: compiles every kernel source of ``src/repro_torch/csrc`` (one nvcc
    each, in parallel) into ``build/torch_kernels/``;
 3. kernels: each kernel's wrapper on the card at the trainer's shapes (the
@@ -23,7 +24,8 @@ Phases (each prints its lines; any failure exits non-zero):
    2^k, subnormals, FLT_MAX and codes that decode to -0.0, subnormals and
    infinity.  Sparse (rand-k with k = 2^20 per leaf, K = 9,472,000 kept
    entries per worker): ``sparse_gather``, ``sparse_decode_sum`` (n = 1 and
-   4) and ``_mean`` (n = 4) bitwise, on payloads from a real rand-k bucketed
+   4) and ``_mean`` (n = 4) bitwise (and both at n = 513, more workers than
+   one launch group, at a small d), on payloads from a real rand-k bucketed
    compress with -0.0, +-inf, subnormals, products that underflow to -0.0
    and indices 0 and Dp - 1 spliced in; the gather also over K uniform
    indices confined to windows of 32 MB, 256 MB, 1 GB and the whole bucket,
@@ -35,7 +37,8 @@ Phases (each prints its lines; any failure exits non-zero):
    ``dense_decode_sum`` (n = 1 and 4) and ``_mean`` (n = 4) bitwise, with
    -0.0 (in every worker), +-inf, subnormals and FLT_MAX spliced in.  Median
    time (CUDA events) of kernel and plain version, the bound (bytes over HBM
-   bandwidth, or operations over the peak rate) and, where one PyTorch call
+   bandwidth, or operations over the peak rate; for the threefry cipher its
+   integer instructions over the SMs' dispatch rate) and, where one PyTorch call
    computes the same function, that call's time (``index_select``,
    ``Tensor.copy_``, ``sum(0)``, ``mean(0)``; the port never calls them);
 4. reference: two training steps of ``reduced(llama3.2-1b)`` (f32) on the
@@ -103,7 +106,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak memory rate
-F32_OPS_PER_S = 67e12          # H100 SXM non-tensor f32 peak; taken for 32-bit int ops too
+F32_OPS_PER_S = 67e12          # H100 SXM non-tensor f32 peak (an FMA counts 2): float work
+CIPHER_INSTRUCTIONS = 68       # threefry2x32-20 per word, from its specification (bound_int)
+LANES_PER_SM_CLOCK = 128       # 4 warp-instructions dispatched per SM per clock
 LAYERS, BATCH, SEQ, WORKERS, STEPS = 8, 8, 4096, 4, 3
 COMP_K = 1 << 20               # rand-k / top-k: coordinates kept per leaf
 
@@ -130,6 +135,27 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
 
 def bound(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_int(words: float, nbytes: float, clock_hz: float, sms: int):
+    """The least time for ``words`` threefry2x32 words plus ``nbytes`` of
+    memory traffic: the larger of the bytes over the HBM rate and the
+    cipher's integer instructions over the SMs' dispatch rate.
+
+    Threefry2x32 with 20 rounds, counted from its specification, takes 68
+    32-bit integer instructions per word: 1 for the counter's low word plus
+    the key (the high word is the same for a run of words, below 2^32 words
+    a constant, so x0's start is computed once); 60 for the 20 rounds (add,
+    rotate, xor); 1 for x0's five key injections, whose first four fold
+    into the next round's three-input add; 5 for x1's five injections; 1 for
+    the final x0 ^ x1.  An SM dispatches at most 4 warp-instructions per
+    clock, 128 lanes, on ``sms`` SMs at ``clock_hz`` (the card's maximum SM
+    clock).  This ignores that xor and funnel shift issue only on the
+    64-lane integer pipe, and the encode's own arithmetic, so it is a lower
+    bound."""
+    t_ops = words * CIPHER_INSTRUCTIONS / (LANES_PER_SM_CLOCK * sms * clock_hz) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -170,6 +196,16 @@ def main() -> None:
     print(f"device: {card}")
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    try:
+        clock_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60).stdout.split()[0])
+    except (OSError, IndexError, ValueError, subprocess.TimeoutExpired) as e:
+        fail(f"cannot read the card's maximum SM clock from nvidia-smi ({e})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"device: {sms} SMs, maximum SM clock {clock_mhz:.0f} MHz (the cipher's integer "
+          f"bound: {CIPHER_INSTRUCTIONS} instructions per word at {LANES_PER_SM_CLOCK} lanes "
+          f"per SM per clock)")
 
     # ----------------------------------------------------------------- build
     lib = build.library()
@@ -195,8 +231,11 @@ def main() -> None:
     rows = []
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_count, note="",
-               library_ms=None):
-        b_ms, b_by = bound(nbytes, ops_count)
+               library_ms=None, words=None):
+        """One kernel line; ``words`` threefry words make the bound
+        bound_int's (the cipher), else bytes and f32-rate operations."""
+        b_ms, b_by = (bound(nbytes, ops_count) if words is None
+                      else bound_int(words, nbytes, clock_mhz * 1e6, sms))
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
@@ -215,7 +254,7 @@ def main() -> None:
            "src/repro/core/compressors/ternary.py:167 (jax.random.bits, no Pallas kernel)", 0.0,
            time_ms(lambda: ops.bits_op(key, (seg, bsz), dev, out=got), 10),
            time_ms(lambda: prng.bits(key, (seg, bsz), device=dev), 3),
-           4.0 * words, 78.0 * words, f"bitwise, {words} words")
+           4.0 * words, 0.0, f"bitwise, {words} words", words=words)
     del got, want
 
     # quantize_pack over the whole bucket, the bits of the 12 segments' keys
@@ -272,9 +311,9 @@ def main() -> None:
            "src/repro/kernels/quantize_pack.py:147 (pallas_call :177)", 0.0,
            time_ms(lambda: ops.quantize_pack_prng_op(dsp, tkeys, seg_rows, p=math.inf), 10),
            time_ms(lambda: ref.ref_quantize_pack_prng(dsp, tkeys, seg_rows, math.inf), 3),
-           n_coord * (4 + 0.25) + 4 * m, (78.0 + 8.0) * n_coord,
+           n_coord * (4 + 0.25) + 4 * m, 0.0,
            "p=inf bitwise the plain version; bitwise quantize_pack fed threefry_bits at "
-           "p in {inf, 2, 1}; -0.0, +-inf, subnormals, FLT_MAX spliced")
+           "p in {inf, 2, 1}; -0.0, +-inf, subnormals, FLT_MAX spliced", words=n_coord)
     del dsp
 
     # the decode and server kernels, on payloads the kernel just produced
@@ -360,9 +399,9 @@ def main() -> None:
            "src/repro/kernels/nat_pack.py:134 (pallas_call :154)", 0.0,
            time_ms(lambda: ops.nat_pack_prng_op(x, nkeys, nlayout.padded_sizes, out=kcp), 10),
            time_ms(lambda: ref.ref_nat_pack_prng(x, nkeys, nlayout.padded_sizes), 3),
-           nd * (4 + 2), (78.0 + 12.0) * nd,
+           nd * (4 + 2), 0.0,
            f"bitwise the plain version and nat_pack fed threefry_bits, "
-           f"{special.numel()} special values spliced")
+           f"{special.numel()} special values spliced", words=nd)
     del kcp
     # n = 4 payloads in the trainer's gathered buffer (rows 16-byte aligned)
     ncomp = NaturalCompressor()
@@ -562,6 +601,23 @@ def main() -> None:
            4.0 * sd + 8.0 * WORKERS * kk + 4.0 * kk, 2.0 * WORKERS * kk + sd,
            "n=4, bitwise")
     del x, sgath, sidx, svals, sscale, one, idx64, lib_out, xi, pos, specials
+    # More workers than the decode's passes take at once (512): n = 513 at a
+    # small d, the second group continuing the first one's sums.
+    gn, gd, gk = 513, 70001, 4099
+    gidx = torch.argsort(torch.rand((gn, gd), generator=gen, device=dev), dim=1)[:, :gk]
+    gidx = gidx.to(torch.int32).view(torch.uint32)
+    gvals = torch.randn((gn, gk), generator=gen, device=dev)
+    gvals[:, 0] = -0.0
+    gscale = torch.rand(gk, generator=gen, device=dev) + 0.5
+    for name, op, plain_op in (
+            ("sparse_decode_sum", ops.sparse_decode_sum_op, ref.ref_sparse_decode_sum),
+            ("sparse_decode_sum_mean", ops.sparse_decode_sum_mean_op,
+             ref.ref_sparse_decode_sum_mean)):
+        if not same_bits(op(gidx, gvals, gscale, gd), plain_op(gidx, gvals, gscale, gd)):
+            fail(f"{name} (n={gn}) differs from the plain version")
+    print(f"kernels: sparse_decode_sum and _mean at n={gn} (two groups of workers), d {gd}, "
+          f"k {gk}: bitwise the plain versions")
+    del gidx, gvals, gscale
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -21,16 +21,37 @@
 // variant equals the bits variant fed those draws, bit for bit, and the
 // trainer's payloads stay the JAX package's CPU route's.
 //
-// Bound: bytes, ~8.25 B per coordinate with pre-drawn bits (4 B delta + 4 B
-// bits read once, 0.25 B of codes written), 4.25 B with the generator, which
-// then does ~78 integer operations per coordinate (the cipher).  Design: one
-// thread block per row; each thread reads 4 consecutive coordinates as one
-// float4 (16 B) and their bits as one uint4 (or draws 4 words), and writes
-// one byte.  The row norm reduces in registers, then warp shuffles, then
-// shared memory, in a fixed order (deterministic; p = inf is a max, so it
-// equals the plain version bitwise).  The second pass re-reads the row,
-// which the first pass left in L1/L2 (8 KB per row at B = 2048), so device
-// memory sees each input about once.
+// Bound: with pre-drawn bits, bytes: ~8.25 B per coordinate (4 B delta +
+// 4 B bits read once, 0.25 B of codes written).  With the generator, 4.25 B
+// per coordinate and the cipher's 68 integer instructions per coordinate
+// (threefry.cuh), which take longer at the SM's dispatch rate than the bytes
+// at the HBM rate: the kernel is bound by the cipher, and its memory pass
+// has to hide under it.
+//
+// Design: one warp per row, a grid of 512-thread blocks sized to the SMs'
+// resident warps walking the rows, no block-wide barrier; lane l owns the
+// row's float4 groups i*32 + l (the warp's loads and stores coalesce).
+// Pass 1 loads the lane's groups, 8 float4 in flight, and reduces the norm:
+// the lane's values in order, then a butterfly of shuffles, whose result
+// every lane holds bitwise (p = inf is a max, equal to the plain version
+// bitwise; the pre-drawn and PRNG variants share the row body, so they
+// agree bitwise at every p).  Pass 2 walks the groups, kGroups at a time,
+// and codes them.  The PRNG variant re-reads each pair of groups (from L1,
+// where pass 1 left them), draws their 8 words as 8 independent cipher
+// chains and codes; where the row's counters share their high word (always
+// for a power-of-two B, which divides 2^32) the counters are 32-bit adds
+// off the row's base, else each word takes a 64-bit counter (a loop of its
+// own, so the common one carries no branch).  Both loops are rolled, so the
+// hot code fits the instruction cache (a row of 64 words per lane held in
+// registers, fully unrolled, does not) and few registers leave room for 16
+// warps per SM: while some wait on their rows' loads, the others' ciphers
+// run, and the memory pass hides under the cipher.  The pre-drawn variant,
+// whose pass 2 waits on its bits, stages the row in shared memory in pass
+// 1, turns it into the signed ratios copysign(|x| / scale, x) in a pass of
+// its own and then streams the bits 8 groups at a time against them (where
+// the stage fits: B <= 3584).  The blocks are of 512 threads: on an H100
+// they ran the PRNG variant faster than 128-thread blocks with as many warps
+// per SM (the rows one SM walks then lie together).
 //
 // Numerics: built with -fmad=false and IEEE division / sqrt (no fast math),
 // so |x| / scale and the sums round as the plain version's do.
@@ -42,7 +63,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;           // 16 warps, one row each
+constexpr int kWarps = kThreads / 32;
+constexpr int kLoads = 8;               // float4 per lane in flight in pass 1
+constexpr int kMaxStage = 232448;       // shared memory a block can have (227 KB)
 
 enum NormKind { kInf = 0, kOne = 1, kTwo = 2, kGeneral = 3 };
 
@@ -50,103 +74,254 @@ __device__ __forceinline__ float combine(float a, float b, int kind) {
   return kind == kInf ? fmaxf(a, b) : a + b;
 }
 
-__device__ __forceinline__ float term(float x, int kind, float p) {
+template <int kKind>
+__device__ __forceinline__ float term(float x, float p) {
   const float a = fabsf(x);
-  if (kind == kInf || kind == kOne) return a;
-  if (kind == kTwo) return x * x;
+  if (kKind == kInf || kKind == kOne) return a;
+  if (kKind == kTwo) return x * x;
   return powf(a, p);
 }
 
-__device__ float block_reduce(float v, int kind, float* smem) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v = combine(v, __shfl_down_sync(0xffffffffu, v, o), kind);
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? smem[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) v = combine(v, __shfl_down_sync(0xffffffffu, v, o), kind);
-    if (lane == 0) smem[0] = v;
-  }
-  __syncthreads();
-  return smem[0];
+template <int kKind>
+__device__ __forceinline__ float accumulate(float acc, float4 v, float p) {
+  acc = combine(acc, term<kKind>(v.x, p), kKind);
+  acc = combine(acc, term<kKind>(v.y, p), kKind);
+  acc = combine(acc, term<kKind>(v.z, p), kKind);
+  return combine(acc, term<kKind>(v.w, p), kKind);
 }
 
+// The lane's part of the norm over its G groups x4[32 i], in order, kLoads
+// loads in flight at a time; each group also copied to stage where given.
+template <int kKind>
+__device__ __forceinline__ float lane_partial(const float4* x4, float4* stage, int G,
+                                              float p) {
+  float acc = 0.0f;
+  for (int i0 = 0; i0 < G; i0 += kLoads) {
+    float4 v[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      if (i0 + k < G) v[k] = x4[32 * (i0 + k)];
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      if (i0 + k < G) {
+        acc = accumulate<kKind>(acc, v[k], p);
+        if (stage) stage[32 * (i0 + k)] = v[k];
+      }
+    }
+  }
+  return acc;
+}
+
+// The warp's norm from each lane's partial: a butterfly (every lane ends with
+// the same bits: each step combines the same two values, in either order),
+// then the root for p = 2 and general p.
+__device__ __forceinline__ float row_scale(float acc, int kind, float inv_p) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    acc = combine(acc, __shfl_xor_sync(0xffffffffu, acc, o), kind);
+  }
+  return kind == kTwo ? sqrtf(acc) : (kind == kGeneral ? powf(acc, inv_p) : acc);
+}
+
+// The code of x: sign(x) + 1 where u = (r >> 8) 2^-24 < |x| / safe, else 1.
+// A kept x has |x| / safe > u >= 0, so it is neither zero nor NaN and its
+// sign bit is sign(x): 0 for a negative x, 2 for a positive one.
 __device__ __forceinline__ uint32_t code(float x, uint32_t r, float safe) {
   const float u = (float)(r >> 8) * (1.0f / 16777216.0f);
-  const bool keep = u < fabsf(x) / safe;
-  const int s = (x > 0.0f) - (x < 0.0f);
-  return (uint32_t)(keep ? s + 1 : 1);
+  return u < fabsf(x) / safe ? ((__float_as_uint(x) >> 30) & 2u) ^ 2u : 1u;
 }
 
-// The bits of 4 consecutive coordinates: a pre-drawn uint4, or 4 threefry words.
+// The same rule from the signed ratio q = copysign(|x| / safe, x).
+__device__ __forceinline__ uint32_t ratio_code(float q, uint32_t r) {
+  const float u = (float)(r >> 8) * (1.0f / 16777216.0f);
+  return u < fabsf(q) ? ((__float_as_uint(q) >> 30) & 2u) ^ 2u : 1u;
+}
+
+__device__ __forceinline__ uint8_t pack4(float4 v, uint4 r, float safe) {
+  return (uint8_t)(code(v.x, r.x, safe) | (code(v.y, r.y, safe) << 2) |
+                   (code(v.z, r.z, safe) << 4) | (code(v.w, r.w, safe) << 6));
+}
+
+__device__ __forceinline__ uint8_t pack_ratios(float4 q, uint4 r) {
+  return (uint8_t)(ratio_code(q.x, r.x) | (ratio_code(q.y, r.y) << 2) |
+                   (ratio_code(q.z, r.z) << 4) | (ratio_code(q.w, r.w) << 6));
+}
+
+// The bits of a row's groups i*32 + lane (4 consecutive coordinates each):
+// a pre-drawn (m, B) operand, or threefry words of the row's segment.
 struct PredrawnBits {
-  const uint4* r4;
-  __device__ __forceinline__ uint4 operator()(int g) const { return r4[g]; }
+  static constexpr int kGroups = 8;     // groups per step of pass 2
+  static constexpr bool kCounters = false;
+  const uint32_t* bits;
+  struct Row {
+    const uint4* r4;  // the lane's first group
+    template <int N, bool kSameHi>
+    __device__ __forceinline__ void draw(int i, uint4 (&r)[N]) const {
+#pragma unroll
+      for (int k = 0; k < N; ++k) r[k] = __ldcs(r4 + 32 * (i + k));
+    }
+  };
+  __device__ __forceinline__ Row row(long long row, int B, int lane) const {
+    return {reinterpret_cast<const uint4*>(bits + row * B) + lane};
+  }
 };
 
 struct ThreefryBits {
-  uint32_t k0, k1;
-  unsigned long long base;  // the row's first counter within its segment
-  __device__ __forceinline__ uint4 operator()(int g) const {
-    const unsigned long long j = base + 4ull * (unsigned)g;
-    return make_uint4(threefry::bits_word(k0, k1, j), threefry::bits_word(k0, k1, j + 1),
-                      threefry::bits_word(k0, k1, j + 2), threefry::bits_word(k0, k1, j + 3));
+  static constexpr int kGroups = 2;
+  static constexpr bool kCounters = true;
+  const threefry::KeyTable* table;
+  struct Row {
+    threefry::Schedule s;
+    unsigned long long base;  // the lane's first counter within its segment
+    bool same_hi;             // the row's counters share their high word
+    // Words of groups i .. i + N - 1: counters base + 128 (i + k) + q.
+    template <int N, bool kSameHi>
+    __device__ __forceinline__ void draw(int i, uint4 (&r)[N]) const {
+      const unsigned long long j = base + 128ull * (unsigned)i;
+      uint32_t w[4 * N];
+      if constexpr (kSameHi) {
+#pragma unroll
+        for (int q = 0; q < 4 * N; ++q) w[q] = (uint32_t)j + 128u * (q / 4) + q % 4;
+        threefry::words<4 * N>(s, (uint32_t)(j >> 32), w);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4 * N; ++q) w[q] = threefry::bits_word(s, j + 128u * (q / 4) + q % 4);
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        r[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+      }
+    }
+  };
+  __device__ __forceinline__ Row row(long long row, int B, int lane) const {
+    const int seg = threefry::segment_of(*table, row);
+    const unsigned long long first = (unsigned long long)(row - table->start[seg]) * (unsigned)B;
+    return {threefry::schedule_of(*table, seg), first + 4u * (unsigned)lane,
+            (uint32_t)first <= 0xFFFFFFFFu - (uint32_t)(B - 1)};
   }
 };
 
-template <class Bits>
-__device__ __forceinline__ void quantize_row(const float* __restrict__ delta, Bits bits,
+// N groups from i: the values (or signed ratios, kStaged) from src, their
+// bits, their codes.
+template <int N, bool kSameHi, bool kStaged, class Row>
+__device__ __forceinline__ void code_step(const float4* src, const Row& rb, uint8_t* out, int i,
+                                          float safe) {
+  float4 v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = src[32 * (i + k)];
+  uint4 r[N];
+  rb.template draw<N, kSameHi>(i, r);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    out[32 * (i + k)] = kStaged ? pack_ratios(v[k], r[k]) : pack4(v[k], r[k], safe);
+  }
+}
+
+template <int N, bool kSameHi, bool kStaged, class Row>
+__device__ __forceinline__ void code_groups(const float4* src, const Row& rb, uint8_t* out,
+                                            int G, float safe) {
+  int i = 0;
+#pragma unroll 1
+  for (; i + N <= G; i += N) code_step<N, kSameHi, kStaged>(src, rb, out, i, safe);
+#pragma unroll 1
+  for (; i < G; ++i) code_step<1, kSameHi, kStaged>(src, rb, out, i, safe);
+}
+
+// One row: pass 1 the norm (and the stage), pass 2 the bits and the codes.
+template <class Bits, bool kStaged>
+__device__ __forceinline__ void quantize_row(const float* __restrict__ delta, const Bits& bits,
                                              uint8_t* __restrict__ packed,
                                              float* __restrict__ scales, long long row, int B,
-                                             int kind, float p, float inv_p, float* smem) {
-  const int groups = B / 4;
-  const float4* x4 = reinterpret_cast<const float4*>(delta + row * B);
-  uint8_t* out = packed + row * groups;
-
-  float acc = 0.0f;
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    const float4 v = x4[g];
-    acc = combine(acc, term(v.x, kind, p), kind);
-    acc = combine(acc, term(v.y, kind, p), kind);
-    acc = combine(acc, term(v.z, kind, p), kind);
-    acc = combine(acc, term(v.w, kind, p), kind);
+                                             int kind, float p, float inv_p, int lane,
+                                             float4* stage) {
+  const int G = B / 128;  // groups per lane
+  const float4* x4 = reinterpret_cast<const float4*>(delta + row * B) + lane;
+  float acc;
+  switch (kind) {
+    case kInf: acc = lane_partial<kInf>(x4, stage, G, p); break;
+    case kOne: acc = lane_partial<kOne>(x4, stage, G, p); break;
+    case kTwo: acc = lane_partial<kTwo>(x4, stage, G, p); break;
+    default: acc = lane_partial<kGeneral>(x4, stage, G, p); break;
   }
-  const float red = block_reduce(acc, kind, smem);
-  const float scale = kind == kTwo ? sqrtf(red) : (kind == kGeneral ? powf(red, inv_p) : red);
+  const float scale = row_scale(acc, kind, inv_p);
   const float safe = scale > 0.0f ? scale : 1.0f;
-
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    const float4 v = x4[g];
-    const uint4 r = bits(g);
-    out[g] = (uint8_t)(code(v.x, r.x, safe) | (code(v.y, r.y, safe) << 2) |
-                       (code(v.z, r.z, safe) << 4) | (code(v.w, r.w, safe) << 6));
+  if (kStaged) {
+#pragma unroll 4
+    for (int i = 0; i < G; ++i) {
+      const float4 v = stage[32 * i];
+      stage[32 * i] = make_float4(copysignf(fabsf(v.x) / safe, v.x),
+                                  copysignf(fabsf(v.y) / safe, v.y),
+                                  copysignf(fabsf(v.z) / safe, v.z),
+                                  copysignf(fabsf(v.w) / safe, v.w));
+    }
   }
-  if (threadIdx.x == 0) scales[row] = scale;
+  const float4* src = kStaged ? stage : x4;
+  const typename Bits::Row rb = bits.row(row, B, lane);
+  uint8_t* out = packed + row * (B / 4) + lane;
+  if constexpr (Bits::kCounters) {
+    if (!rb.same_hi) {
+      code_groups<Bits::kGroups, false, kStaged>(src, rb, out, G, safe);
+      if (lane == 0) scales[row] = scale;
+      return;
+    }
+  }
+  code_groups<Bits::kGroups, true, kStaged>(src, rb, out, G, safe);
+  if (lane == 0) scales[row] = scale;
 }
 
-__global__ void quantize_pack_kernel(const float* __restrict__ delta,
-                                     const uint32_t* __restrict__ bits,
-                                     uint8_t* __restrict__ packed,
-                                     float* __restrict__ scales, int B, int kind,
-                                     float p, float inv_p) {
-  __shared__ float smem[32];
-  const long long row = blockIdx.x;
-  const PredrawnBits src{reinterpret_cast<const uint4*>(bits + row * B)};
-  quantize_row(delta, src, packed, scales, row, B, kind, p, inv_p, smem);
+template <class Bits, bool kStaged>
+__device__ __forceinline__ void quantize_rows(const float* __restrict__ delta, const Bits& bits,
+                                              uint8_t* __restrict__ packed,
+                                              float* __restrict__ scales, long long m, int B,
+                                              int kind, float p, float inv_p) {
+  extern __shared__ float4 stage_rows[];  // kWarps rows of B floats (kStaged)
+  const int lane = threadIdx.x & 31;
+  float4* stage = kStaged ? stage_rows + (threadIdx.x >> 5) * (B / 4) + lane : nullptr;
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); row < m;
+       row += warps) {
+    quantize_row<Bits, kStaged>(delta, bits, packed, scales, row, B, kind, p, inv_p, lane,
+                                stage);
+  }
 }
 
-__global__ void quantize_pack_prng_kernel(const float* __restrict__ delta,
-                                          uint8_t* __restrict__ packed,
-                                          float* __restrict__ scales, int B, int kind,
-                                          float p, float inv_p,
-                                          const __grid_constant__ threefry::KeyTable table) {
-  __shared__ float smem[32];
-  const long long row = blockIdx.x;
-  const int seg = threefry::segment_of(table, row);
-  const ThreefryBits src{table.k[2 * seg], table.k[2 * seg + 1],
-                         (unsigned long long)(row - table.start[seg]) * (unsigned)B};
-  quantize_row(delta, src, packed, scales, row, B, kind, p, inv_p, smem);
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    quantize_pack_kernel(const float* __restrict__ delta, const uint32_t* __restrict__ bits,
+                         uint8_t* __restrict__ packed, float* __restrict__ scales, long long m,
+                         int B, int kind, float p, float inv_p) {
+  quantize_rows<PredrawnBits, kStaged>(delta, PredrawnBits{bits}, packed, scales, m, B, kind,
+                                       p, inv_p);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    quantize_pack_prng_kernel(const float* __restrict__ delta, uint8_t* __restrict__ packed,
+                              float* __restrict__ scales, long long m, int B, int kind,
+                              float p, float inv_p,
+                              const __grid_constant__ threefry::KeyTable table) {
+  quantize_rows<ThreefryBits, false>(delta, ThreefryBits{&table}, packed, scales, m, B, kind,
+                                     p, inv_p);
+}
+
+// The grid: one warp per row, at most as many warps as the SMs hold at once
+// with smem bytes of dynamic shared memory per block.
+template <class Kernel>
+int grid_for(Kernel kernel, long long m, int smem, unsigned* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess && smem > 48 * 1024) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  if (rc != cudaSuccess) return (int)rc;
+  const long long need = (m + kWarps - 1) / kWarps;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *blocks = (unsigned)(need < most ? need : most);
+  return 0;
 }
 
 }  // namespace
@@ -156,8 +331,15 @@ extern "C" int quantize_pack(const void* delta, const void* bits, void* packed, 
                              long long m, int B, int kind, float p, float inv_p,
                              void* stream) {
   if (m <= 0) return 0;
-  quantize_pack_kernel<<<(unsigned)m, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)delta, (const uint32_t*)bits, (uint8_t*)packed, (float*)scales, B, kind,
+  // Stage the rows in shared memory where they fit.
+  const long long stage = (long long)kWarps * B * sizeof(float);
+  const bool staged = stage <= kMaxStage;
+  const int smem = staged ? (int)stage : 0;
+  auto* kernel = staged ? quantize_pack_kernel<true> : quantize_pack_kernel<false>;
+  unsigned blocks = 0;
+  if (int rc = grid_for(kernel, m, smem, &blocks)) return rc;
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)delta, (const uint32_t*)bits, (uint8_t*)packed, (float*)scales, m, B, kind,
       p, inv_p);
   return (int)cudaGetLastError();
 }
@@ -176,7 +358,9 @@ extern "C" int quantize_pack_prng(const void* delta, void* packed, void* scales,
                             nseg)) {
     return (int)cudaErrorInvalidValue;
   }
-  quantize_pack_prng_kernel<<<(unsigned)m, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)delta, (uint8_t*)packed, (float*)scales, B, kind, p, inv_p, table);
+  unsigned blocks = 0;
+  if (int rc = grid_for(quantize_pack_prng_kernel, m, 0, &blocks)) return rc;
+  quantize_pack_prng_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)delta, (uint8_t*)packed, (float*)scales, m, B, kind, p, inv_p, table);
   return (int)cudaGetLastError();
 }

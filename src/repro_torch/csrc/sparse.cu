@@ -125,8 +125,9 @@ constexpr int kTilesPerBin = kCoarse / kTile;
 constexpr long long kMaxD = 1LL << 32;                      // the widest index word
 constexpr int kMaxBins = (int)(kMaxD >> kLogCoarse);        // 8192; pass c: 40 KB + 12 B
                                                             // per bin of shared memory
-constexpr int kMaxWorkers = 512;       // pass d3: 40 KB + 8 B per (tile, worker) key of a
-                                       // bin, kTilesPerBin * n keys, of shared memory
+constexpr int kGroup = 512;            // workers per launch group: pass d3 holds 40 KB + 8 B
+                                       // per (tile, worker) key of a bin, kTilesPerBin * n
+                                       // keys, of shared memory
 constexpr int kTileThreads = 512;
 constexpr int kTilePer = 4;            // records per thread in flight in the tile pass
 
@@ -563,15 +564,17 @@ __global__ void chunk_place_kernel(int n, int bins, const unsigned* __restrict__
   }
 }
 
-// e. One block per tile: +0.0, then the fine runs of workers 0..n-1 in
-// order, then one write of the tile (divided by n for the mean).  Each
+// e. One block per tile: +0.0 (or, for a later group of workers, the tile
+// the earlier groups left in out), then the fine runs of the group's
+// workers 0..n-1 in order, then one write of the tile (for the mean's last
+// group, divided by n_all, the count of all the groups' workers).  Each
 // thread holds kTilePer records of a run in flight, and the loads of worker
 // w + 1's first records are issued before the barrier that ends worker w.
 template <bool kMean>
 __global__ void tile_kernel(int n, const unsigned* __restrict__ fine_counts,
                             const unsigned long long* __restrict__ fine_starts,
-                            const uint2* __restrict__ records, long long d, float fn,
-                            float* __restrict__ out) {
+                            const uint2* __restrict__ records, long long d, int from_out,
+                            int n_all, float* __restrict__ out) {
   extern __shared__ float4 acc4[];
   float* acc = reinterpret_cast<float*>(acc4);
   const long long t = blockIdx.x;
@@ -587,8 +590,15 @@ __global__ void tile_kernel(int n, const unsigned* __restrict__ fine_counts,
       r[e] = __ldcs(records + from + (unsigned long long)e * blockDim.x);
     }
   }
-  for (int q = threadIdx.x; q < kTile / 4; q += blockDim.x) {
-    acc4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (from_out) {
+    const float4* i4 = reinterpret_cast<const float4*>(out + base);
+    for (int q = threadIdx.x; q < len / 4; q += blockDim.x) acc4[q] = i4[q];
+    const int q = (len & ~3) + threadIdx.x;
+    if (q < len) acc[q] = out[base + q];
+  } else {
+    for (int q = threadIdx.x; q < kTile / 4; q += blockDim.x) {
+      acc4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   __syncthreads();
   for (int w = 0; w < n; ++w) {
@@ -621,7 +631,8 @@ __global__ void tile_kernel(int n, const unsigned* __restrict__ fine_counts,
   }
   // For n a power of two, s * (1/n) is the same correctly rounded value as
   // s / n (1/n is exact), and costs one multiply instead of a division.
-  const bool pow2 = (n & (n - 1)) == 0;
+  const bool pow2 = (n_all & (n_all - 1)) == 0;
+  const float fn = (float)n_all;
   const float inv = 1.0f / fn;
   float4* o4 = reinterpret_cast<float4*>(out + base);
   for (int q = threadIdx.x; q < len / 4; q += blockDim.x) {
@@ -642,14 +653,15 @@ int allow_smem(const void* kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Workers w0 .. w0 + n - 1 (n <= kGroup) of n_all: passes a-e, the tile
+// pass starting from out where w0 > 0; mean != 0 divides by n_all.
 template <typename I>
-int decode(int mean, int n, const void* idx, long long idx_ld, const float* values,
-           long long val_ld, const float* scale, long long k, long long d, float* out,
-           const Scratch& sc, cudaStream_t st) {
+int decode_group(int mean, int n, int w0, int n_all, const I* ix, long long idx_ld,
+                 const float* values, long long val_ld, const float* scale, long long k,
+                 long long d, float* out, const Scratch& sc, cudaStream_t st) {
   const long long tiles = (d + kTile - 1) / kTile;
   const int bins = (int)((d + kCoarse - 1) / kCoarse);
   const int keys = kTilesPerBin * n;
-  const I* ix = (const I*)idx;
   int rc = (int)cudaMemsetAsync(sc.counts, 0, (size_t)(bins + tiles * n) * sizeof(unsigned),
                                 st);
   if (rc) return rc;
@@ -696,8 +708,26 @@ int decode(int mean, int n, const void* idx, long long idx_ld, const float* valu
   auto* kernel = mean ? tile_kernel<true> : tile_kernel<false>;
   if ((rc = allow_smem((const void*)kernel, smem))) return rc;
   kernel<<<(unsigned)tiles, kTileThreads, smem, st>>>(n, sc.fine_counts, sc.fine_starts,
-                                                      sc.records, d, (float)n, out);
+                                                      sc.records, d, w0 > 0, n_all, out);
   return (int)cudaGetLastError();
+}
+
+// All n workers, kGroup at a time in worker order: each group's tile pass
+// continues the sum the earlier groups left in out, so every coordinate's
+// sum still runs from +0.0 through the workers in order (the bits of one
+// launch over all of them), and only the last group divides for the mean.
+template <typename I>
+int decode(int mean, int n, const void* idx, long long idx_ld, const float* values,
+           long long val_ld, const float* scale, long long k, long long d, float* out,
+           const Scratch& sc, cudaStream_t st) {
+  for (int w0 = 0; w0 < n; w0 += kGroup) {
+    const int g = n - w0 < kGroup ? n - w0 : kGroup;
+    const int rc = decode_group<I>(mean && w0 + g == n, g, w0, n, (const I*)idx + w0 * idx_ld,
+                                   idx_ld, values + w0 * val_ld, val_ld, scale, k, d, out, sc,
+                                   st);
+    if (rc) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -720,15 +750,16 @@ extern "C" int sparse_gather(const void* x, long long d, const void* idx, int id
 
 // idx / values (n, k) with rows idx_ld / val_ld elements apart; scale (k,)
 // f32; out (d,) f32, 16-byte aligned; d <= 2^32 (the widest index word) and
-// 1 <= n <= 512, else cudaErrorInvalidValue.  mean != 0 divides the sum by n.
+// n >= 1, else cudaErrorInvalidValue.  mean != 0 divides the sum by n.
 // scratch holds the nine pointers of struct Scratch, in its order, into
-// arrays sized by kernels/sparse.py::decode_scratch for (n, k, d).
+// arrays sized by kernels/sparse.py::decode_scratch for (min(n, 512), k, d):
+// the workers go through passes a-e 512 at a time.
 extern "C" int sparse_decode(int mean, int n, const void* idx, long long idx_ld, int idx_bytes,
                              const void* values, long long val_ld, const void* scale,
                              long long k, long long d, void* out, void* const* scratch,
                              void* stream) {
   if (d <= 0) return 0;
-  if (n <= 0 || n > kMaxWorkers || d > kMaxD || (uintptr_t)out % 16) {
+  if (n <= 0 || d > kMaxD || (uintptr_t)out % 16) {
     return (int)cudaErrorInvalidValue;
   }
   const Scratch sc{(unsigned long long*)scratch[0], (unsigned long long*)scratch[1],

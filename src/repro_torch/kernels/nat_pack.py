@@ -3,9 +3,10 @@ bits drawn in the kernel.
 
 Replaces ``src/repro/kernels/nat_pack.py:nat_pack`` and ``:nat_pack_prng``
 (Pallas TPU kernels; ``pallas_call`` at ``:119`` and ``:154``) with
-``csrc/nat_pack.cu``: each thread turns 4 coordinates (one float4 of x, and
-one uint4 of bits or four threefry words computed in registers) into 4
-int16 codes, read off the float's exponent and mantissa bits.
+``csrc/nat_pack.cu``: each coordinate becomes an int16 code read off the
+float's exponent and mantissa bits (four per float4 of x, with one uint4
+of pre-drawn bits, or with threefry words that a warp draws in registers
+for a chunk of 512 coordinates).
 
 The in-kernel generator is counter-mode threefry2x32, the JAX package's
 ``jax.random.bits``: coordinates of segment ``i`` draw
@@ -14,8 +15,9 @@ boundary can fall inside a group of 4).  So :func:`nat_pack_prng` equals
 :func:`nat_pack` fed those draws, bit for bit.
 
 Bound: bytes, 10 B per coordinate with pre-drawn bits (4 B x + 4 B bits in,
-2 B codes out), 6 B with the generator (plus ~78 integer operations per
-coordinate).  Plain versions: :func:`repro_torch.kernels.ref.ref_nat_pack`
+2 B codes out); with the generator 6 B and the cipher's 68 integer
+instructions per coordinate, which bound it at the SMs' dispatch rate.
+Plain versions: :func:`repro_torch.kernels.ref.ref_nat_pack`
 (frexp) and ``ref_nat_pack_prng``, bitwise.
 """
 

@@ -3,10 +3,10 @@ or with the bits drawn in the kernel.
 
 Replaces ``src/repro/kernels/quantize_pack.py:quantize_pack`` and
 ``:quantize_pack_prng`` (Pallas TPU kernels; ``pallas_call`` at ``:126`` and
-``:177``) with ``csrc/quantize_pack.cu``: one thread block per quantization
-row reduces the row's ``||.||_p`` scale, then each thread turns 4
-consecutive coordinates (one 16-byte load of delta and one of bits, or four
-threefry words computed in registers) into one packed byte.
+``:177``) with ``csrc/quantize_pack.cu``: one warp per quantization row
+reduces the row's ``||.||_p`` scale, then each lane turns groups of 4
+consecutive coordinates (16-byte loads of delta, and pre-drawn bits or
+threefry words computed in registers) into packed bytes.
 
 The in-kernel generator is counter-mode threefry2x32, the JAX package's
 ``jax.random.bits``: segment ``i`` of the rows draws
@@ -15,8 +15,9 @@ The in-kernel generator is counter-mode threefry2x32, the JAX package's
 stream is equal to it only in distribution).
 
 Bound: bytes, ~8.25 B per coordinate with pre-drawn bits (4 B delta + 4 B
-bits + 0.25 B codes), 4.25 B with the generator, which adds ~78 integer
-operations per coordinate.  Plain versions:
+bits + 0.25 B codes); with the generator 4.25 B and the cipher's 68 integer
+instructions per coordinate, which bound it at the SMs' dispatch rate.
+Plain versions:
 :func:`repro_torch.kernels.ref.ref_quantize_pack` and
 ``ref_quantize_pack_prng`` — bitwise for p = inf (a max does not depend on
 order); for p in {1, 2} the sums run in another order than torch's, so

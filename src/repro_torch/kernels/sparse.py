@@ -49,6 +49,7 @@ INDEX_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
 TILE = 16384         # output floats one block of the decode owns (64 KB of shared memory)
 COARSE = 1 << 19     # floats of a coarse bin of the decode's first sorting level
 CHUNK = 4096         # records of a coarse bin's run that one block of its sort takes
+GROUP = 512          # workers the decode's passes take at a time (kGroup)
 
 
 def decode_scratch(n: int, k: int, d: int) -> Dict[str, int]:
@@ -122,7 +123,7 @@ def _decode(mean: int, name: str, idx: torch.Tensor, values: torch.Tensor,
                          f"word), got {d}")
     dev = values.device
     out = torch.empty(d, dtype=torch.float32, device=dev)
-    size = decode_scratch(n, k, d)
+    size = decode_scratch(min(n, GROUP), k, d)     # one group of workers at a time
     # One allocation, cut in the order of csrc/sparse.cu's struct Scratch:
     # the 8-byte arrays (cursors, fine starts, fine cursors, the two record
     # buffers), then the 4-byte ones (counts and fine counts together, first
@@ -148,8 +149,9 @@ def sparse_decode_sum(idx: torch.Tensor, values: torch.Tensor, scale: torch.Tens
     """idx (n, k) unsigned, values (n, k) f32, scale (k,) f32 -> (d,) f32
     ``sum_i scatter(idx_i, values_i * scale)`` from worker 0, in order.  Rows
     may sit any number of elements apart (views of a gathered buffer).  The
-    launch takes at most 512 workers (the (tile, worker) keys of a coarse
-    bin in shared memory) and raises beyond."""
+    kernels take the workers ``GROUP`` at a time (the (tile, worker) keys of
+    a coarse bin live in shared memory), each group's sum continuing the
+    last one's output in worker order: the same bits as one pass."""
     return _decode(0, "sparse_decode_sum", idx, values, scale, d)
 
 

@@ -7,8 +7,8 @@ int64 temporary at the largest bucket segment (``embed``, 268 M words), so
 the trainer draws on the card with ``csrc/threefry.cu``: native uint32, one
 thread per output word.
 
-Bound: bytes written (4 B per word) or its ~110 integer ops per word,
-whichever is larger on the card.  Plain version: ``prng.bits``.
+Bound: bytes written (4 B per word) or the cipher's 68 integer instructions
+per word at the SMs' dispatch rate, whichever is larger on the card.  Plain version: ``prng.bits``.
 
 The ternary and natural encodes draw their bits inside their kernels from
 the same cipher (``csrc/threefry.cuh``); :func:`key_table` packs their

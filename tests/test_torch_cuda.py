@@ -3,11 +3,13 @@
 kernels odd lengths, 1-3 workers and rows that are not 8-byte aligned; for
 the sparse kernels k = 1 and k = d, odd k, the three index widths, indices
 at both ends, -0.0, +-inf and products that underflow to -0.0, rows of a
-wider gathered buffer; for the in-kernel-PRNG encodes one-row and empty
-segments, segment boundaries inside a group of 4 and inside the peeled
-head, and equality with the bits kernels fed ``threefry_bits``; for the
-dense kernels odd d, 1-5 workers, rows at unaligned starts, -0.0, +-inf and
-NaN).
+wider gathered buffer, more workers than one launch group (513, 1025); for
+the in-kernel-PRNG encodes one-row and empty segments, segment boundaries
+between rows, inside a group of 4, inside the peeled head and inside a
+warp's chunk, B in {128, 2048, 4096} with row counts below and above the
+grid's warps, a segment past 2^32 words (17 GB of f32), and equality with
+the bits kernels fed ``threefry_bits``; for the dense kernels odd d, 1-5
+workers, rows at unaligned starts, -0.0, +-inf and NaN).
 Needs an NVIDIA GPU: each test skips without one.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -239,10 +241,27 @@ def test_sparse_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):                 # beyond the widest index word
         ops.sparse_decode_sum_op(idx, torch.zeros((2, 3), device=dev),
                                  torch.zeros(3, device=dev), (1 << 32) + 1)
-    with pytest.raises(RuntimeError):               # more workers than the launch takes
-        ops.sparse_decode_sum_op(torch.zeros((513, 1), dtype=torch.uint8, device=dev),
-                                 torch.zeros((513, 1), device=dev), torch.zeros(1, device=dev),
-                                 10)
+
+
+@pytest.mark.parametrize("n", [513, 1025])
+@pytest.mark.parametrize("d,k", [(200, 200), (70001, 4099)])
+def test_sparse_decode_beyond_one_group(dev, n, d, k):
+    """More workers than the decode's passes take at once (512): the groups
+    continue each other's sums in worker order, so sum and mean stay bitwise
+    the plain versions; -0.0, +-inf and underflowing products included, and
+    rows of wider buffers."""
+    from repro_torch.kernels.sparse import GROUP
+
+    assert n > GROUP
+    idx, values, scale = _sparse_case(dev, n, d, k, seed=n + d)
+    vbuf = torch.zeros((n, k + 3), device=dev)
+    vbuf[:, :k] = values
+    before = dict(build.LAUNCHES)
+    for mean, op in ((False, ops.sparse_decode_sum_op), (True, ops.sparse_decode_sum_mean_op)):
+        want = _decode_expected(idx, values, scale, d, mean)
+        assert _same_bits(op(idx, values, scale, d), want)
+        assert _same_bits(op(idx, vbuf[:, :k], scale, d), want)
+    assert build.LAUNCHES["sparse_decode_sum"] == before.get("sparse_decode_sum", 0) + 2
 
 
 def _widths(d):
@@ -357,13 +376,21 @@ def _keys(n, seed):
     return prng.split(prng.fold_in(prng.PRNGKey(seed), 9), n)
 
 
+_MANY_ROWS = (1700, 0, 1, 3000, 0, 299, 2)      # 5002 rows: more than the grid's warps
+
+
 @pytest.mark.parametrize("p", [math.inf, 2.0, 1.0, 3.0])
 @pytest.mark.parametrize("seg_rows,b", [((13,), 128), ((1, 1, 5, 1, 3, 2), 128),
-                                        ((1,), 2048), ((3, 0, 40, 1), 2048)])
+                                        ((1,), 2048), ((3, 0, 40, 1), 2048),
+                                        ((2, 0, 9, 1), 4096), (_MANY_ROWS, 128),
+                                        (_MANY_ROWS, 2048), (_MANY_ROWS, 4096)])
 def test_quantize_pack_prng(dev, p, seg_rows, b):
     """Bitwise the bits kernel fed ``threefry_bits`` per segment (every p: the
     same reduction order), and the plain version (p = inf; else as
-    ``quantize_pack``'s tolerance)."""
+    ``quantize_pack``'s tolerance).  B = 2048 stages the pre-drawn rows in
+    shared memory, 4096 does not; a few rows leave most of the grid's warps
+    idle, 5002 rows make every warp walk several; empty segments and
+    boundaries between rows."""
     m = sum(seg_rows)
     g = torch.Generator(device=dev).manual_seed(m + b)
     delta = torch.randn((m, b), generator=g, device=dev)
@@ -386,6 +413,60 @@ def test_quantize_pack_prng(dev, p, seg_rows, b):
         assert int(ulp) <= 4
         same = sum(int(((kp >> s) & 3).eq((pp >> s) & 3).sum()) for s in (0, 2, 4, 6))
         assert same >= 0.9999 * m * b
+
+
+def _plain_words(key, lo_counter, count):
+    """Words lo_counter .. lo_counter + count - 1 of ``bits(key, ...)``,
+    from the plain cipher (64-bit counters), as int32."""
+    j = torch.arange(lo_counter, lo_counter + count, dtype=torch.int64)
+    k0, k1 = prng.key_words(key)
+    x0, x1 = prng.threefry2x32(k0, k1, j >> 32, j & prng.MASK)
+    return prng.to_int32(x0 ^ x1)
+
+
+def test_quantize_pack_prng_past_2_32_words(dev):
+    """A segment of 2^21 + 5 rows of B = 2048: its counters pass 2^32 at
+    row 2^21 of the segment (the rows above draw with high word 1).  Bitwise
+    the bits kernel fed ``threefry_bits``, and around the crossing the plain
+    version fed the plain cipher's words."""
+    b, seg_rows = 2048, (3, (1 << 21) + 5)
+    m = sum(seg_rows)
+    g = torch.Generator(device=dev).manual_seed(21)
+    delta = torch.randn((m, b), generator=g, device=dev)
+    keys = _keys(2, 32)
+    kp, ks = ops.quantize_pack_prng_op(delta, keys, seg_rows, p=math.inf)
+    bits = ops.segment_bits_op(keys, [r * b for r in seg_rows], dev).reshape(m, b)
+    bp, bs = ops.quantize_pack_op(delta, bits, p=math.inf)
+    assert torch.equal(kp, bp) and torch.equal(ks, bs)
+    del bits, bp, bs
+    r0 = seg_rows[0] + (1 << 21) - 2                 # 2 rows below the crossing, 2 above
+    words = _plain_words(keys[1], (r0 - seg_rows[0]) * b, 4 * b).to(dev).reshape(4, b)
+    pp, ps = ref.ref_quantize_pack(delta[r0:r0 + 4], words, math.inf)
+    assert torch.equal(kp[r0:r0 + 4], pp) and torch.equal(ks[r0:r0 + 4], ps)
+    del delta, kp, ks
+    torch.cuda.empty_cache()
+
+
+def test_nat_pack_prng_past_2_32_words(dev):
+    """A segment of 2^32 + 2995 coordinates after one of 5: its counters
+    pass 2^32 inside a warp's chunk (the 64-bit path) and the chunks above
+    draw with high word 1.  Bitwise ``nat_pack`` fed ``threefry_bits``, and
+    around the crossing the plain version fed the plain cipher's words."""
+    sizes = [5, (1 << 32) + 2995]
+    d = sum(sizes)
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn(d, generator=g, device=dev)
+    keys = _keys(2, 33)
+    got = ops.nat_pack_prng_op(x, keys, sizes)
+    bits = ops.segment_bits_op(keys, sizes, dev)
+    assert torch.equal(got, ops.nat_pack_op(x, bits))
+    del bits
+    c = sizes[0] + (1 << 32)                         # coordinate of counter 2^32
+    lo = c - 1500
+    words = _plain_words(keys[1], lo - sizes[0], 3000).to(dev)
+    assert torch.equal(got[lo:lo + 3000], ref.ref_nat_pack(x[lo:lo + 3000], words))
+    del x, got
+    torch.cuda.empty_cache()
 
 
 def _split(d, seed):
@@ -420,6 +501,35 @@ def test_nat_pack_prng(dev, d, one_key):
         assert ops.nat_pack_prng_op(x, keys, sizes, out=buf[w, :d]) is not None
         assert torch.equal(buf[w, :d], want) and int(buf[w, d]) == 0
     assert build.LAUNCHES["nat_pack_prng"] == before + 7
+
+
+@pytest.mark.parametrize("layout", ["head", "chunk", "edges", "tail"])
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_nat_pack_prng_boundaries(dev, layout, off):
+    """d = 70,001 (136 chunks of 512 and a tail of 369 - head coordinates)
+    with x at a 4 * off byte offset (a peeled head of 0, 3 or 1
+    coordinates): segment boundaries inside the head (one-coordinate and
+    empty segments), inside chunks and groups of 4, on chunk edges, and
+    inside the tail; into contiguous codes and into rows of a buffer that
+    are only 2-byte aligned."""
+    d = 70001
+    head = (4 - off) % 4
+    sizes = {"head": [1, 0, 1, d - 2],
+             "chunk": [head + 37, 0, 512 * 3 + 1, 2, 511, d - head - 37 - 1537 - 513],
+             "edges": [head + 512, 512, 0, 1024, d - head - 2048],
+             "tail": [d - 300, 3, 0, 296, 1]}[layout]
+    assert sum(sizes) == d
+    x, _ = _nat_inputs(dev, d, seed=off + 7)
+    keys = _keys(len(sizes), d + off)
+    want = ref.ref_nat_pack_prng(x, keys, sizes)
+    assert torch.equal(ops.nat_pack_op(x, ops.segment_bits_op(keys, sizes, dev)), want)
+    xb = torch.empty(d + 3, device=dev)
+    xb[off:off + d] = x
+    assert torch.equal(ops.nat_pack_prng_op(xb[off:off + d], keys, sizes), want)
+    buf = torch.zeros((2, d + 1), dtype=torch.int16, device=dev)
+    for w in range(2):
+        ops.nat_pack_prng_op(xb[off:off + d], keys, sizes, out=buf[w, :d])
+        assert torch.equal(buf[w, :d], want) and int(buf[w, d]) == 0
 
 
 def test_prng_wrappers_reject_bad_inputs(dev):

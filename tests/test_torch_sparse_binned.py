@@ -10,7 +10,11 @@ seeded permutation); per coarse bin, fine runs by (tile, worker) in
 tile-major worker-minor order, again in an arbitrary order inside a run
 (the kernel's chunks of a bin reserve their pieces of a run with atomics);
 then per tile an accumulator from +0.0 that takes the fine runs of workers
-0..n-1 in order and is written once (divided by n for the mean).  The CUDA
+0..n-1 in order and is written once (divided by n for the mean).  More
+workers than one launch group takes (512 on the card) go through the passes
+a group at a time, each group's tile pass starting from the output the
+earlier groups left, only the last one dividing for the mean
+(:func:`grouped_decode`, at small groups).  The CUDA
 kernel itself is held to the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -34,10 +38,14 @@ def _arbitrary_order(keys, rng):
     return perm[torch.argsort(keys[perm], stable=True)]
 
 
-def binned_decode(idx, values, scale, d, tile, coarse, mean=False, seed=0):
+def binned_decode(idx, values, scale, d, tile, coarse, mean=False, seed=0, start=None,
+                  n_all=None):
     """Passes a-e of the card's decode in plain torch, at tiles of ``tile``
-    and coarse bins of ``coarse`` floats (the card's are TILE and COARSE)."""
+    and coarse bins of ``coarse`` floats (the card's are TILE and COARSE).
+    Pass e starts from ``start`` (an earlier group's output) where given, and
+    the mean divides by ``n_all`` (default: these rows' count)."""
     n, k = idx.shape
+    n_all = n if n_all is None else n_all
     bins, tiles = -(-d // coarse), -(-d // tile)
     rng = np.random.default_rng(seed)
     i = idx.to(torch.int64)
@@ -72,12 +80,28 @@ def binned_decode(idx, values, scale, d, tile, coarse, mean=False, seed=0):
     out = torch.empty(d, dtype=torch.float32)
     for t in range(tiles):
         acc = torch.zeros(tile, dtype=torch.float32)
+        if start is not None:
+            part = start[t * tile:(t + 1) * tile]
+            acc[:part.numel()] = part
         for wk in range(n):
             a = int(fine_start[t * n + wk])
             b = a + int(fine_count[t * n + wk])
             acc[loc[a:b]] = acc[loc[a:b]] + prod[a:b]
         seg = acc[:min(tile, d - t * tile)]
-        out[t * tile:t * tile + seg.numel()] = div_n(seg, n) if mean else seg
+        out[t * tile:t * tile + seg.numel()] = div_n(seg, n_all) if mean else seg
+    return out
+
+
+def grouped_decode(idx, values, scale, d, tile, coarse, group, mean=False, seed=0):
+    """The card's decode of more workers than a launch group: workers
+    ``group`` at a time in order, each group's pass e continuing the last
+    group's output, the last group alone dividing for the mean."""
+    n = idx.shape[0]
+    out = None
+    for w0 in range(0, n, group):
+        last = w0 + group >= n
+        out = binned_decode(idx[w0:w0 + group], values[w0:w0 + group], scale, d, tile, coarse,
+                            mean=mean and last, seed=seed + w0, start=out, n_all=n)
     return out
 
 
@@ -159,6 +183,19 @@ def test_binned_order_drops_indices_at_or_beyond_d(n, d, k, tile, coarse, oob):
     for mean in (False, True):
         assert _same(binned_decode(idx, values, scale, d, tile, coarse, mean=mean, seed=n),
                      _expected(idx, values, scale, d, mean))
+
+
+@pytest.mark.parametrize("n,group", [(2, 1), (5, 2), (7, 3), (9, 4), (13, 4), (4, 4)])
+@pytest.mark.parametrize("d,k,tile,coarse", [(200, 150, 16, 64), (3001, 1001, 64, 256)])
+def test_grouped_decode_equals_plain(n, group, d, k, tile, coarse):
+    """Groups of workers continuing each other's sums: bitwise the plain
+    versions (sum and mean), -0.0, +-inf, NaN and subnormals included."""
+    idx, values, scale = _case(n, d, k, tile, seed=n * 7 + group + d)
+    for mean in (False, True):
+        got = grouped_decode(idx, values, scale, d, tile, coarse, group, mean=mean, seed=n)
+        want = (ref.ref_sparse_decode_sum_mean if mean else ref.ref_sparse_decode_sum)(
+            idx, values, scale, d)
+        assert _same(got, want)
 
 
 def test_binned_order_run_order_does_not_matter():
