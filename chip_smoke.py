@@ -80,7 +80,20 @@ Phases (each prints its lines; any failure exits non-zero):
    dense_decode_sum_mean per step, nothing else;
 13. the dense-sum round: ``BucketedCompressor(IdentityCompressor(),
    layout).decode_sum`` over a gathered (4, Dp) payload of 4 workers: one
-   ``dense_decode_sum``, bitwise its plain version.
+   ``dense_decode_sum``, bitwise its plain version;
+14. distributed: the ``torch.distributed`` round through the trainer's
+   ``build_distributed_step`` in a world of one over NCCL, in this process
+   (a ``HashStore``; NCCL puts no two ranks on one GPU): for ``diana``,
+   ``natural``, ``randk``, ``topk_ef`` and ``none``, 2 steps of the 8-layer
+   full-width slice at a batch of 2 x 4096, held bitwise (losses,
+   parameters, ``h_worker``, ``h_server``) to ``build_train_step`` at
+   n = 1 on the same batches and keys; launch counts exact per step (1
+   encode, 1 own decode, 1 server decode; ``randk`` 12 threefry draws and 2
+   sparse decodes; ``none`` no kernel: its round is one all-reduce); the
+   all-gather timed with CUDA events and its bytes printed (at world 1 a
+   device copy of the payload, not a wire);
+15. the full depth: the distributed ``diana`` path on all 16 layers,
+   world of one, 3 steps: finite losses, step times and peak memory.
 
 Each timed step starts from a Python collection (outside its time); its
 line gives the time of the collections inside it and the caching
@@ -103,6 +116,7 @@ from dataclasses import replace
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak memory rate
@@ -182,7 +196,8 @@ def main() -> None:
         from repro_torch.data.pipeline import make_lm_batch
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.sparse import COARSE
-        from repro_torch.launch.train import build_train_step, init_train_state, make_optimizer
+        from repro_torch.launch.train import (build_distributed_step, build_train_step,
+                                              init_train_state, make_optimizer)
         from repro_torch.models.transformer import init_model, param_shapes, train_loss
     except ImportError as e:
         fail(f"the repro_torch package is not next to this script ({e})")
@@ -980,8 +995,124 @@ def main() -> None:
         fail("dense sum: the identity decode_sum is not the plain sum of the rows")
     del x, ig, isum
 
+    # ------------------------------------------------------ the distributed path
+    # A world of one over NCCL in this process: the round's all-gather (or
+    # all-reduce) runs on the card; NCCL puts no two ranks on one GPU.
+    try:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                                device_id=dev)
+    except (RuntimeError, ValueError) as e:
+        fail(f"NCCL did not start a world of one on the card ({e})")
+    gathers = []
+    nccl_gather = dist.all_gather_into_tensor
+
+    def timed_gather(out, inp, group=None, async_op=False):
+        """The round's all-gather between CUDA events, with its bytes."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        work = nccl_gather(out, inp, group=group, async_op=async_op)
+        b.record()
+        gathers.append((a, b, inp.numel() * inp.element_size()))
+        return work
+    dist.all_gather_into_tensor = timed_gather
+    dcredit = {}   # kernel name -> (launches, the distributed path that ran them)
+    dshape = ShapeConfig("train_4k", SEQ, BATCH // WORKERS, "train")   # 2 x 4096: one worker
+    per_step = {
+        "diana": {"quantize_pack_prng": 1, "unpack_reduce": 1, "unpack_reduce_apply": 1},
+        "natural": {"nat_pack_prng": 1, "nat_decode_sum": 1, "nat_decode_sum_apply": 1},
+        "randk": {"threefry_bits": slayout.n_leaves, "sparse_gather": 1, "sparse_decode_sum": 2},
+        "topk_ef": {"sparse_gather": 1, "sparse_decode_sum": 1, "sparse_decode_sum_mean": 1},
+        "none": {},
+    }
+
+    def dist_run(pcfg, steps, label, step_builder):
+        """``steps`` steps of one worker from the path's initial state;
+        returns losses, params, DIANA state, step times, peak, launches."""
+        opt = make_optimizer(pcfg)
+        params, opt_state = init_train_state(pcfg, opt, 1, dev)
+        step_fn = step_builder(pcfg, opt)
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in make_lm_batch(pcfg, dshape, s).items()} for s in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        build.reset_launches()
+        gathers.clear()
+        times, losses = [], []
+        for s in range(steps):
+            gc.collect()
+            t0 = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batches[s],
+                                             prng.fold_in(prng.PRNGKey(0), s))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        counts = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        wire = [(a.elapsed_time(b), nbytes) for a, b, nbytes in gathers]
+        if not all(math.isfinite(x) and 0 < x < 20 for x in losses):
+            fail(f"{label}: non-finite or implausible losses {losses}")
+        print(f"{label}: {pcfg.n_layers} layers, batch {dshape.global_batch} x seq {SEQ}, one "
+              f"worker, {pcfg.compression}: losses {losses}; step times {times} s; peak memory "
+              f"{peak} B (held before the path: params, state, batches {held} B); launches "
+              f"{counts}")
+        del batches, step_fn
+        return losses, params, opt_state.diana, counts, wire
+
+    for method in ("diana", "natural", "randk", "topk_ef", "none"):
+        pcfg = replace(cfg, compression=method, comp_k=COMP_K)
+        d_loss, d_params, d_diana, counts, wire = dist_run(
+            pcfg, 2, f"distributed {method}", build_distributed_step)
+        want = {k: v * 2 for k, v in per_step[method].items()}
+        if counts != want:
+            fail(f"distributed {method}: launches {counts}, expected {want}")
+        for name, n in want.items():
+            dcredit.setdefault(name, (n, f"distributed {method} (world 1, 8 layers, 2 steps)"))
+        # To the host, so that the in-turn run's memory lines hold only its own.
+        d_params = {k: v.detach().cpu() for k, v in d_params.items()}
+        d_diana = [t.cpu() for t in d_diana]
+        torch.cuda.empty_cache()
+        if method == "none":
+            if wire:
+                fail("distributed none: its round all-gathered; it all-reduces")
+        else:
+            if len(wire) != 2:
+                fail(f"distributed {method}: {len(wire)} all-gathers in 2 steps, expected 2")
+            print(f"distributed {method}: all_gather_into_tensor {wire[-1][1]} B per step "
+                  f"(at world 1 a device copy of the payload, not a wire), "
+                  f"{[round(ms, 4) for ms, _ in wire]} ms (CUDA events around the call)")
+        t_loss, t_params, t_diana, _, _ = dist_run(
+            pcfg, 2, f"in turn {method} (n = 1)",
+            lambda c, o: build_train_step(c, o, 1, dev))
+        same = (d_loss == t_loss
+                and all(torch.equal(d_params[k], t_params[k].cpu()) for k in t_params)
+                and all(torch.equal(d, t.cpu()) for d, t in zip(d_diana, t_diana)))
+        print(f"distributed {method}: losses, parameters, h_worker and h_server bitwise the "
+              f"in-turn trainer's at n = 1: {same}")
+        if not same:
+            fail(f"distributed {method}: the world-of-one trainer differs from the in-turn "
+                 "trainer at n = 1")
+        del d_params, d_diana, t_params, t_diana
+        torch.cuda.empty_cache()
+    # The model's full depth: 16 layers, the distributed diana path.
+    fcfg = get_config("llama3.2-1b")
+    f_loss, f_params, f_diana, counts, wire = dist_run(
+        fcfg, STEPS, "distributed full depth", build_distributed_step)
+    want = {k: v * STEPS for k, v in per_step["diana"].items()}
+    if counts != want:
+        fail(f"distributed full depth: launches {counts}, expected {want}")
+    print(f"distributed full depth: {f_diana.h_worker.shape[1]} coordinates; "
+          f"all_gather_into_tensor {wire[-1][1]} B per step, "
+          f"{[round(ms, 4) for ms, _ in wire]} ms (a device copy at world 1)")
+    del f_params, f_diana
+    dist.all_gather_into_tensor = nccl_gather
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
     for r in rows:
         r["launches"], r["path"] = credit.get(r["name"], (0, None))
+        if r["name"] in dcredit:
+            r["distributed_launches"], r["distributed_path"] = dcredit[r["name"]]
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         fail(f"kernels never launched on their path: {missing}")

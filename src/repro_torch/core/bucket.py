@@ -6,6 +6,9 @@
 * :class:`BucketedCompressor` — the ordinary compressor interface over that
   buffer, delegating to the operator's ``*_bucketed`` hooks, so a round is
   one compress, one payload and one fused decode per worker set.
+* :func:`fuse_payload` / :func:`unfuse_payload` — the wire object: every
+  populated payload field byte-cast into ONE uint8 buffer, so the worker
+  all-gather is one collective (``repro/core/bucket.py:291-343``).
 
 Bitwise contract (as in ``repro.core.bucket``): the bucketed round equals the
 per-leaf round — same per-segment PRNG draws, same per-block scales, same
@@ -25,7 +28,8 @@ import torch
 from . import tree as T
 from .compressors.base import Compressor, Payload
 
-__all__ = ["BucketLayout", "BucketedCompressor", "bucketed_compressor"]
+__all__ = ["BucketLayout", "BucketedCompressor", "bucketed_compressor", "payload_recipe",
+           "fuse_payload", "unfuse_payload"]
 
 
 @dataclass(frozen=True)
@@ -157,3 +161,44 @@ class BucketedCompressor(Compressor):
 def bucketed_compressor(cfg, layout: BucketLayout) -> BucketedCompressor:
     """Cached ``(CompressionConfig, BucketLayout) -> BucketedCompressor``."""
     return BucketedCompressor(cfg.make(), layout)
+
+
+# ---------------------------------------------------------------------------
+# Payload wire fusion: one uint8 buffer per gather
+# ---------------------------------------------------------------------------
+
+def payload_recipe(pay: Payload):
+    """Static ``(field, shape, dtype)`` description used to un-fuse the buffer."""
+    return tuple((i, tuple(f.shape), f.dtype) for i, f in enumerate(pay) if f is not None)
+
+
+def fuse_payload(pay: Payload) -> torch.Tensor:
+    """Byte-cast and concatenate every populated field into ONE uint8 buffer
+    of shape ``(lead, W)`` (``lead`` = the fields' shared leading dim), so the
+    worker all-gather is a single collective.  ``Tensor.view(torch.uint8)``
+    is exact, like ``bitcast_convert_type``: on a little-endian host the
+    bytes are the JAX package's."""
+    parts = []
+    lead = None
+    for f in pay:
+        if f is None:
+            continue
+        lead = f.shape[0] if lead is None else lead
+        if f.shape[0] != lead:
+            raise ValueError("payload fields must share the leading dim")
+        parts.append(f.contiguous().view(torch.uint8).reshape(lead, -1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def unfuse_payload(buf: torch.Tensor, recipe) -> Payload:
+    """Inverse of :func:`fuse_payload`; tolerates extra leading (worker) dims
+    on ``buf`` from the gather.  Each field comes back contiguous."""
+    batch = tuple(buf.shape[:-2])
+    fields: list = [None] * len(Payload._fields)
+    start = 0
+    for fi, shape, dt in recipe:
+        width = math.prod(shape[1:]) * dt.itemsize
+        part = buf[..., start:start + width].contiguous()
+        start += width
+        fields[fi] = part.view(dt).reshape(*batch, *shape)
+    return Payload(*fields)

@@ -75,6 +75,9 @@ class Compressor:
 
     name: str = "abstract"
     carries_state: bool = False
+    # The payload IS the dense vector and no state is kept: the distributed
+    # round all-reduces instead of gather + decode (identity).
+    prefers_allreduce: bool = False
 
     # ---------------------------------------------------------------- wire
 

@@ -32,8 +32,9 @@ class IdentityCompressor(Compressor):
     name = "identity"
     unbiased = True
     carries_state = False
-    # Dense payload: one all-reduce would beat gather + decode; read by the
-    # torch.distributed round (ROADMAP.md queue 1), not by the one-card round.
+    # Dense payload: one all-reduce beats gather + decode; read by the
+    # torch.distributed round (core/diana.py::_dispatch_round), not by the
+    # in-turn round.
     prefers_allreduce = True
 
     # ---------------------------------------------------------------- wire

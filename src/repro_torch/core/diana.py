@@ -18,6 +18,16 @@ round for n a power of two; at other n the jitted reference divides by n as
 ``tests/test_torch_identity.py``).  The round has no operator branches: each
 operator's hooks carry its format and its memory rule.
 
+The distributed round, :func:`aggregate_distributed`, is the port's
+``aggregate_shardmap`` (``repro/core/diana.py:891``) for the flat config on
+``torch.distributed``: each rank is one worker, encodes with its own key,
+and ONE all-gather of the fused payload (one per field per leaf in the
+per-leaf layout) brings every rank the same payloads, which every rank
+decodes to the same ``ghat`` and ``h_server``.  ``none`` (identity) takes
+one all-reduce instead.  Given the same keys it is bitwise
+:func:`reference_step`'s round, as the JAX package's distributed round is its
+reference's (``tests/test_torch_distributed.py``).
+
 Trees are ``{path: tensor}`` dicts (:mod:`repro_torch.core.tree`); stacked
 per-worker grads carry a leading worker axis on every leaf.  VR, the
 downlink, policies, participation and the chunked/hierarchical schedules are
@@ -29,18 +39,20 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from . import prng
 from . import tree as T
-from .bucket import BucketLayout, bucketed_compressor
+from .bucket import (BucketLayout, bucketed_compressor, fuse_payload, payload_recipe,
+                     unfuse_payload)
 from .compression import CompressionConfig
 from .compressors.base import Payload
-from .numerics import fma32
+from .numerics import div_n, fma32
 
 __all__ = [
     "DOWN_FOLD", "GROUP_FOLD", "CHUNK_FOLD",
     "ReferenceState", "reference_init", "reference_step", "bucket_layout",
-    "worker_key",
+    "worker_key", "DianaState", "init_state", "aggregate_distributed",
 ]
 
 # The JAX package's fold constants (repro/core/diana.py:79-98): the downlink
@@ -49,6 +61,17 @@ __all__ = [
 DOWN_FOLD = 0x444E  # 'DN'
 GROUP_FOLD = 0x4750  # 'GP'
 CHUNK_FOLD = 0x434B  # 'CK'
+
+
+class DianaState(NamedTuple):
+    """The DIANA memories one process holds: ``h_worker`` with one row per
+    worker it runs — ``(rows, Dp)`` bucketed or ``{path: (rows, d_leaf)}``
+    per leaf; under ``torch.distributed`` the rank's own row, as shard_map's
+    ``P(worker)`` gives it — and the replicated ``h_server``, ``(Dp,)`` or
+    ``{path: (d_leaf,)}``."""
+
+    h_worker: Any
+    h_server: Any
 
 
 class ReferenceState(NamedTuple):
@@ -60,6 +83,21 @@ class ReferenceState(NamedTuple):
 def bucket_layout(cfg: CompressionConfig, tree: Mapping[str, torch.Tensor]) -> BucketLayout:
     """The flat-buffer layout of ``tree`` under ``cfg``'s operator."""
     return BucketLayout.for_tree(tree, align=cfg.make().bucket_align())
+
+
+def init_state(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
+               n_workers: int) -> DianaState:
+    """Zero memories in ``cfg.h_dtype`` for ``n_workers`` rows (1 on a rank)."""
+    dev = next(iter(params.values())).device
+    dt = cfg.h_dtype
+    if cfg.bucketed:
+        dp = bucket_layout(cfg, params).padded_size
+        return DianaState(h_worker=torch.zeros((n_workers, dp), dtype=dt, device=dev),
+                          h_server=torch.zeros((dp,), dtype=dt, device=dev))
+    return DianaState(
+        h_worker={p: torch.zeros((n_workers, x.numel()), dtype=dt, device=dev)
+                  for p, x in params.items()},
+        h_server={p: torch.zeros((x.numel(),), dtype=dt, device=dev) for p, x in params.items()})
 
 
 def reference_init(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
@@ -145,3 +183,171 @@ def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg):
     ghat_flat, new_hs = comp.decode_sum_apply(Payload.stack(payloads), n, dp, h_server)
     # f32 leaves, like the per-leaf reference
     return layout.unflatten(ghat_flat, cast=False), torch.stack(new_h), new_hs
+
+
+# ---------------------------------------------------------------------------
+# Distributed aggregation (one worker per torch.distributed rank)
+# ---------------------------------------------------------------------------
+
+def _gather_field(a: torch.Tensor, n: int) -> torch.Tensor:
+    """All-gather ONE payload field over the ranks: ``(n, *a.shape)`` in rank
+    order (``repro/core/diana.py:311``, no groups).
+
+    The field travels as its bytes (``view(torch.uint8)``, exact), ``(lead,
+    W)``, into ONE preallocated ``(n * lead, W)`` buffer viewed as ``(n,
+    lead, W)``: every dtype of the wire format (uint16/uint32 indices, int16
+    codes) crosses gloo and NCCL alike."""
+    src = a.contiguous().view(torch.uint8).reshape(a.shape[0], -1)
+    out = torch.empty((n * src.shape[0], src.shape[1]), dtype=torch.uint8, device=src.device)
+    dist.all_gather_into_tensor(out, src)
+    return out.view(n, *src.shape).view(a.dtype).reshape(n, *a.shape)
+
+
+def _gather_payloads(payloads: Mapping[str, Payload], n: int):
+    """All-gather every field of every per-leaf payload (one collective per
+    field per leaf, ``:336``)."""
+    return {p: Payload(*(None if f is None else _gather_field(f, n) for f in pay))
+            for p, pay in payloads.items()}
+
+
+def _gathered_sum(payloads, like, n: int, comp):
+    """``sum_i decode(payload_i)`` per leaf: the gathered payloads through
+    the operator's ``decode_sum`` (``:347``)."""
+    gathered = _gather_payloads(payloads, n)
+    return {p: comp.decode_sum(gathered[p], n, like[p].numel()) for p in payloads}
+
+
+def _gathered_mean(payloads, like, n: int, comp):
+    """``mean_i decode(payload_i)``, shaped and typed like ``like`` (``:372``)."""
+    return {p: div_n(t, n).reshape(like[p].shape).to(like[p].dtype)
+            for p, t in _gathered_sum(payloads, like, n, comp).items()}
+
+
+def _gather_fused(payload: Payload, n: int) -> Payload:
+    """All-gather ONE fused uint8 buffer instead of one collective per field
+    (``:474``): the populated fields byte-cast into one ``(lead, W)``
+    buffer (:func:`~repro_torch.core.bucket.fuse_payload`), gathered once,
+    split back locally.  One populated field is gathered as itself: it
+    already is one collective, and the fuse would only copy it."""
+    populated = [i for i, f in enumerate(payload) if f is not None]
+    if len(populated) == 1:
+        fields = [None] * len(Payload._fields)
+        fields[populated[0]] = _gather_field(payload[populated[0]], n)
+        return Payload(*fields)
+    return unfuse_payload(_gather_field(fuse_payload(payload), n), payload_recipe(payload))
+
+
+def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n):
+    """The per-leaf Algorithm-1 round on this rank's leaves (``:381``, the
+    ``part is None`` branch): leaf ``i`` encodes with ``split(key,
+    n_leaves)[i]``, each payload field is gathered on its own, and the server
+    side is ``_gathered_mean``, then ``next_server_memory`` and
+    ``server_direction`` (not the fused ``decode_sum_apply``), as the JAX
+    package composes it.  ``ghat`` comes back f32, shaped like the grads."""
+    comp = cfg.make()
+    paths = T.paths(grads_local)
+    g_flat = {p: grads_local[p].reshape(-1).float() for p in paths}
+    h_local = {p: h_worker[p][0].float() for p in paths}
+    delta = {p: comp.compress_input(g_flat[p], h_local[p]) for p in paths}
+    keys = prng.split(key, len(paths))
+    payloads = {p: comp.compress(delta[p], k) for p, k in zip(paths, keys)}
+    dhat_mean = _gathered_mean(payloads, g_flat, n, comp)
+    ghat, new_hw, new_hs = {}, {}, {}
+    for p in paths:
+        # The rank's own estimate, decoded from its payload (bitwise the
+        # transmitted value); memoryless rules ignore it (XLA drops the decode).
+        if comp.carries_state:
+            dhat_own = comp.decode(payloads[p], g_flat[p].numel())
+            new_hw[p] = comp.next_memory(h_local[p], dhat_own, delta[p]).to(cfg.h_dtype)[None]
+        else:
+            new_hw[p] = h_worker[p]
+        hs = h_server[p].float()
+        new_hs[p] = comp.next_server_memory(hs, dhat_mean[p]).to(cfg.h_dtype)
+        ghat[p] = comp.server_direction(hs, dhat_mean[p]).reshape(grads_local[p].shape)
+    return ghat, new_hw, new_hs
+
+
+def _aggregate_bucketed(grads_local, h_worker, h_server, key, cfg, n):
+    """Algorithm-1 round on the WHOLE model as one flat buffer (``:589``,
+    ``part is None and faults is None``, one chunk): ONE compress with the
+    rank's key, its own decode for ``next_memory`` on the rank's ``(1, Dp)``
+    row, ONE fused all-gather, ONE ``decode_sum_apply`` over the ``n``
+    gathered rows, replicated on every rank.  ``ghat`` comes back f32."""
+    layout = bucket_layout(cfg, grads_local)
+    comp = bucketed_compressor(cfg, layout)
+    dp = layout.padded_size
+    h_local = h_worker[0].float()
+    delta = comp.compress_input(layout.flatten(grads_local), h_local)
+    payload = comp.compress(delta, key)
+    # The memory update before the gather, so that the own decode and the
+    # input are freed before the server tail allocates (the values are the
+    # same in either order).
+    if comp.carries_state:
+        new_hw = comp.next_memory(h_local, comp.decode(payload, dp), delta).to(cfg.h_dtype)[None]
+    else:
+        new_hw = h_worker
+    del delta
+    gathered = _gather_fused(payload, n)    # ONE collective
+    del payload
+    ghat_flat, new_hs = comp.decode_sum_apply(gathered, n, dp, h_server.float())
+    return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype)
+
+
+def _allreduce_mean(grads_local, cfg, n):
+    """Identity's round (``prefers_allreduce``, ``:1206-1214``): the
+    gathered mean IS an all-reduce.  f32, as every other round: ONE
+    ``all_reduce(SUM)`` of the flat buffer in the bucketed layout, one per
+    leaf in the per-leaf layout, then ``div_n``.  The sum's order is the
+    backend's (gloo's, NCCL's), as the JAX package's ``pmean`` is XLA's."""
+    if cfg.bucketed:
+        layout = bucket_layout(cfg, grads_local)
+        flat = layout.flatten(grads_local)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        return layout.unflatten(div_n(flat, n), cast=False)
+    out = {}
+    for p, g in grads_local.items():
+        s = g.to(torch.float32, copy=True)
+        dist.all_reduce(s, op=dist.ReduceOp.SUM)
+        out[p] = div_n(s, n)
+    return out
+
+
+def _dispatch_round(grads_local, state, key, cfg, n):
+    """Route the gradient tree through the layout's round (``:1198``);
+    returns ``(ghat, new_hw, new_hs)``.  The per-leaf layout is
+    ``_perleaf_round``'s local branch (``:1242-1251``): its nested
+    fully-manual shard_map, where each inner device encodes its own shard of
+    every leaf, is a GSPMD specialisation with no ``torch.distributed``
+    counterpart, since a rank holds whole leaves."""
+    if cfg.make().prefers_allreduce:
+        return _allreduce_mean(grads_local, cfg, n), state.h_worker, state.h_server
+    agg = _aggregate_bucketed if cfg.bucketed else _aggregate_local
+    return agg(grads_local, state.h_worker, state.h_server, key, cfg, n)
+
+
+def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaState,
+                          key: torch.Tensor, cfg: CompressionConfig):
+    """One DIANA aggregation round across the ranks of the default process
+    group, one worker per rank — the port of
+    ``repro.core.diana.aggregate_shardmap`` (``repro/core/diana.py:891``)
+    for a flat config, with ``torch.distributed`` collectives in place of
+    shard_map's.
+
+    grads_local: this rank's gradient tree ``{path: tensor}`` (g_i^k).
+    state:       :class:`DianaState` with the rank's own ``h_worker`` row
+                 (leading dim 1) and the replicated ``h_server``.
+    key:         already folded with the rank's worker index
+                 (:func:`worker_key`).
+
+    Returns ``(ghat, new_state)``: ``ghat`` equal on every rank, cast back to
+    the gradients' dtypes (``:1102``).  A compression policy (per-group
+    operators) raises ``NotImplementedError``: it is ROADMAP.md queue 1
+    item 4."""
+    if not isinstance(cfg, CompressionConfig):
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: compression policies (per-group operators) are "
+            "ROADMAP.md queue 1 item 4")
+    ghat, new_hw, new_hs = _dispatch_round(grads_local, state, key, cfg,
+                                           dist.get_world_size())
+    ghat = {p: ghat[p].to(grads_local[p].dtype) for p in ghat}
+    return ghat, DianaState(h_worker=new_hw, h_server=new_hs)

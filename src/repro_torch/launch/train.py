@@ -1,65 +1,78 @@
-"""The one-card DIANA trainer (CLI + step builder).
+"""The DIANA trainer (CLI + step builders).
 
 ``--mesh NxM`` reads the JAX CLI's flag as N data-parallel DIANA workers
-(M, the model axis, must be 1).  Until the ``torch.distributed`` round lands,
-the N workers run one after another on one card.  Each step:
+(M, the model axis, must be 1).  Two step builders share the step:
+
+* :func:`build_train_step` — one process runs the N workers in turn on one
+  device, writing their payloads straight into the rows of one stacked
+  buffer (the all-gather's output shape); the one-process mirror of the
+  distributed round, and the CLI's mode without ``WORLD_SIZE``;
+* :func:`build_distributed_step` — one worker per ``torch.distributed``
+  rank, as the JAX trainer's shard_map body (``repro/launch/train.py:404-495``)
+  runs ``aggregate_shardmap``: the CLI's mode under ``torchrun``
+  (``WORLD_SIZE`` set), N must equal the world size, NCCL on
+  ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``).
+
+Each step:
 
 1. the step key is ``fold_in(PRNGKey(0), step)``;
 2. worker ``w`` takes rows ``[w*b/n, (w+1)*b/n)`` of the batch (the JAX
    trainer's ``P(workers)`` batch sharding), computes its loss and gradient,
    and flattens the gradient into the f32 bucket;
-3. it encodes its input, in place in the gradient buffer
-   (``compress_input_``: ``delta = g - h_worker[w]`` for the alpha-memory
-   rule, ``g + h_worker[w]`` for top-k's error feedback), with keys
+3. it encodes its input (``delta = g - h_worker[w]`` for the alpha-memory
+   rule, ``g + h_worker[w]`` for top-k's error feedback) with keys
    ``split(fold_in(step_key, w), n_leaves)`` (``quantize_pack_prng`` for
    the ternary family and ``nat_pack_prng`` for ``natural``, which draw the
    bits in the kernel; a per-segment selection and ``sparse_gather`` for
-   ``randk`` / ``topk_ef``; ``dense_copy`` for ``none``) into its row of the
-   stacked payload buffer, decodes its own payload and updates
-   ``h_worker[w]`` with the operator's rule (``next_memory``; the memoryless
-   operators skip both);
-4. after the n workers, ONE fused decode over the stacked payloads
-   (``unpack_reduce_apply`` / ``nat_decode_sum_apply``; ``randk``'s
-   ``sparse_decode_sum`` and its per-segment server rule; ``topk_ef``'s
-   ``sparse_decode_sum_mean``; ``none``'s ``dense_decode_sum_mean``)
-   updates ``h_server`` and gives ``ghat``,
-   rounded to the leaf dtypes (the distributed path's
-   ``unflatten(cast=True)``);
+   ``randk`` / ``topk_ef``; ``dense_copy`` for ``none`` in turn), decodes
+   its own payload and updates ``h_worker[w]`` with the operator's rule
+   (``next_memory``; the memoryless operators skip both);
+4. the n payloads meet (rows of the stacked buffer in turn; ONE all-gather
+   of the fused payload across ranks, or for ``none`` ONE all-reduce and no
+   kernel), and ONE fused decode over them (``unpack_reduce_apply`` /
+   ``nat_decode_sum_apply``; ``randk``'s ``sparse_decode_sum`` and its
+   per-segment server rule; ``topk_ef``'s ``sparse_decode_sum_mean``;
+   ``none``'s ``dense_decode_sum_mean`` in turn) updates ``h_server`` and
+   gives ``ghat``, rounded to the leaf dtypes;
 5. momentum and the parameter write-back.
 
+The logged loss is the mean over the workers (all-reduced across ranks).
 Entry points run on ``cuda`` and raise without a GPU unless the caller asks
 for the CPU (``--device cpu``), where the kernels' plain versions run.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --compression natural \\
         --mesh 4x1 --steps 3 --batch 8 --seq 4096
-    python -m repro_torch.launch.train --arch llama3.2-1b --compression randk \\
-        --comp-k 1048576 --mesh 4x1 --steps 3 --batch 8 --seq 4096
-    python -m repro_torch.launch.train --arch llama3.2-1b --compression none \\
-        --mesh 4x1 --steps 3 --batch 8 --seq 4096
+    torchrun --nproc-per-node 1 -m repro_torch.launch.train --arch llama3.2-1b \\
+        --mesh 1x1 --steps 3 --batch 2 --seq 4096
+    OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch llama3.2-1b --reduced --device cpu --mesh 4x1 --steps 2 --batch 4 --seq 32
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ShapeConfig, get_config, get_shape, reduced
 from repro_torch.core import prng
 from repro_torch.core.bucket import bucketed_compressor
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import available_methods
-from repro_torch.core.diana import bucket_layout, worker_key
+from repro_torch.core.diana import aggregate_distributed, bucket_layout, worker_key
+from repro_torch.core.numerics import div_n
 from repro_torch.data.pipeline import make_lm_batch
 from repro_torch.models.transformer import init_model, train_loss
-from repro_torch.optim.diana_optimizer import DianaOptimizer, DianaState
+from repro_torch.optim.diana_optimizer import DianaOptimizer
 from repro_torch.optim.optimizers import constant_schedule, momentum, sgd
 
 __all__ = ["resolve_device", "make_optimizer", "init_train_state", "build_train_step",
-           "parse_mesh", "main"]
+           "build_distributed_step", "init_distributed", "parse_mesh", "main"]
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:
@@ -78,9 +91,8 @@ def parse_mesh(mesh: Optional[str]) -> int:
     dims = [int(x) for x in mesh.split("x")]
     if any(d < 1 for d in dims) or math.prod(dims[1:]) != 1:
         raise NotImplementedError(
-            f"--mesh {mesh}: only data-parallel workers (NxM with M = 1) run on one "
-            "card; the model axis comes with the torch.distributed round "
-            "(ROADMAP.md queue 1)")
+            f"--mesh {mesh}: only data-parallel workers (NxM with M = 1) are ported; "
+            "the model axis is ROADMAP.md queue 1 item 11")
     return dims[0]
 
 
@@ -102,17 +114,32 @@ def init_train_state(cfg, opt: DianaOptimizer, n_workers: int, device, seed: int
     return params, opt.init(params, n_workers)
 
 
+def _worker_batch(batch, w: int, n_workers: int):
+    """Worker ``w``'s rows ``[w*b/n, (w+1)*b/n)`` of the global batch."""
+    b = batch["tokens"].shape[0]
+    if b % n_workers:
+        raise ValueError(f"global batch {b} does not split over {n_workers} workers")
+    rows = b // n_workers
+    return {k: v[w * rows:(w + 1) * rows] for k, v in batch.items()}
+
+
+def _finish(opt: DianaOptimizer, params, opt_state, ghat, loss):
+    """Step 5 and the metrics: momentum and the write-back (the DIANA state
+    is already updated in place)."""
+    with torch.no_grad():
+        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in ghat.values()))
+    new_opt = opt.apply_direction(params, ghat, opt_state, opt_state.diana)
+    return params, new_opt, {"loss": loss, "ghat_norm": gnorm, "step": new_opt.step}
+
+
 def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
     """Returns ``step(params, opt_state, batch, key) -> (params, opt_state,
-    metrics)``.  ``params`` (``{path: nn.Parameter}``) and the optimizer
-    state are updated in place; ``batch`` holds int tensors on ``device``."""
+    metrics)`` running the ``n_workers`` workers in turn.  ``params``
+    (``{path: nn.Parameter}``) and the optimizer state are updated in place;
+    ``batch`` holds int tensors on ``device``."""
     device = torch.device(device)
 
     def step(params, opt_state, batch, key):
-        b = batch["tokens"].shape[0]
-        if b % n_workers:
-            raise ValueError(f"global batch {b} does not split over {n_workers} workers")
-        rows = b // n_workers
         layout = bucket_layout(opt.compression, params)
         comp = bucketed_compressor(opt.compression, layout)
         dp = layout.padded_size
@@ -126,8 +153,7 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
         gathered = comp.gathered(n_workers, device)
         losses = []
         for w in range(n_workers):
-            shard = {k: v[w * rows:(w + 1) * rows] for k, v in batch.items()}
-            loss = train_loss(params, shard, cfg)
+            loss = train_loss(params, _worker_batch(batch, w, n_workers), cfg)
             grads = torch.autograd.grad(loss, leaves)
             layout.flatten(dict(zip(layout.paths, grads)), out=g_flat)
             del grads  # this worker's gradient is freed before the next backward
@@ -149,17 +175,69 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
                 hs.copy_(new_hs)  # the server memory stays one buffer
             del new_hs
             ghat = layout.unflatten(ghat_flat, cast=True)
-            gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in ghat.values()))
-        new_opt = opt.apply_direction(params, ghat, opt_state, DianaState(hw, hs))
-        metrics = {"loss": torch.stack(losses).mean(), "ghat_norm": gnorm,
-                   "step": new_opt.step}
-        return params, new_opt, metrics
+        return _finish(opt, params, opt_state, ghat, torch.stack(losses).mean())
 
     return step
 
 
+def build_distributed_step(cfg, opt: DianaOptimizer):
+    """Returns ``step(params, opt_state, batch, key)`` as
+    :func:`build_train_step`'s, where this process is worker ``r``, its rank
+    in the default process group, of ``n`` = the world size: it
+    takes rows ``[r*b/n, (r+1)*b/n)`` of the global batch, encodes with
+    ``fold_in(key, r)`` (``repro/launch/train.py:459``) and runs
+    :func:`~repro_torch.core.diana.aggregate_distributed`.  ``opt_state``
+    holds the rank's own ``(1, Dp)`` ``h_worker`` row (``opt.init(params,
+    1)``) and the replicated ``h_server``, updated in place; the logged loss
+    is the all-reduced mean (``:486``).  Given the same batch and keys, the
+    parameters and memories equal :func:`build_train_step`'s with ``n``
+    workers bit for bit (``none``: to the backend's all-reduce order)."""
+    rank, n_workers = dist.get_rank(), dist.get_world_size()
+
+    def step(params, opt_state, batch, key):
+        paths = list(params)
+        loss = train_loss(params, _worker_batch(batch, rank, n_workers), cfg)
+        grads = dict(zip(paths, torch.autograd.grad(loss, [params[p] for p in paths])))
+        with torch.no_grad():
+            ghat, new = aggregate_distributed(grads, opt_state.diana, worker_key(key, rank),
+                                              opt.compression)
+            del grads
+            for held, fresh in zip(opt_state.diana, new):
+                if fresh is not held:
+                    held.copy_(fresh)  # each memory stays one buffer
+            del new
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM)
+            loss = div_n(loss, n_workers)
+        return _finish(opt, params, opt_state, ghat, loss)
+
+    return step
+
+
+def init_distributed(device: str, n_workers: int) -> torch.device:
+    """Join the ``torchrun`` world (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``
+    and the rendezvous in the environment) as one worker per rank: NCCL
+    bound to ``cuda:LOCAL_RANK``, or gloo with ``device='cpu'``.  Nothing
+    falls back: without a card, or when NCCL fails to start, it raises.
+    Returns the rank's device."""
+    world = int(os.environ["WORLD_SIZE"])
+    if n_workers != world:
+        raise ValueError(f"--mesh {n_workers}x1 asks for {n_workers} workers, but torchrun "
+                         f"started {world} ranks: one worker per rank")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        if dev.type == "cuda":
+            dist.init_process_group("nccl", device_id=dev)
+        else:
+            dist.init_process_group("gloo")
+    return dev
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="DIANA trainer (PyTorch/CUDA port, one card)")
+    ap = argparse.ArgumentParser(description="DIANA trainer (PyTorch/CUDA port)")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=20)
@@ -170,7 +248,8 @@ def main(argv=None):
                     help="coordinates kept per leaf by rand-k / top-k (default: the "
                          "config's comp_k, 64)")
     ap.add_argument("--mesh", default=None,
-                    help="NxM: N data-parallel workers, run in turn on one card (M = 1)")
+                    help="NxM: N data-parallel workers (M = 1), run in turn on one device, "
+                         "or one per rank under torchrun (N = the world size)")
     ap.add_argument("--reduced", action="store_true", help="toy config for CPU runs")
     ap.add_argument("--batch", type=int, default=None, help="override global batch")
     ap.add_argument("--seq", type=int, default=None, help="override sequence length")
@@ -179,7 +258,6 @@ def main(argv=None):
 
     from dataclasses import replace
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -192,19 +270,33 @@ def main(argv=None):
         shape = ShapeConfig(shape.name, args.seq or shape.seq_len,
                             args.batch or shape.global_batch, shape.kind)
     n_workers = parse_mesh(args.mesh)
-
+    distributed = "WORLD_SIZE" in os.environ
     opt = make_optimizer(cfg, lr=args.lr, inner=args.inner)
-    params, opt_state = init_train_state(cfg, opt, n_workers, device)
-    step_fn = build_train_step(cfg, opt, n_workers, device)
+    if distributed:
+        device = init_distributed(args.device, n_workers)
+        params, opt_state = init_train_state(cfg, opt, 1, device)
+        step_fn = build_distributed_step(cfg, opt)
+        log = dist.get_rank() == 0
+    else:
+        device = resolve_device(args.device)
+        params, opt_state = init_train_state(cfg, opt, n_workers, device)
+        step_fn = build_train_step(cfg, opt, n_workers, device)
+        log = True
     key = prng.PRNGKey(0)
-    for step in range(args.steps):
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in make_lm_batch(cfg, shape, step).items()}
-        t0 = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch, prng.fold_in(key, step))
-        loss = float(metrics["loss"])
-        print(f"step {step:4d} loss {loss:8.4f} ghat {float(metrics['ghat_norm']):9.4f} "
-              f"({time.perf_counter() - t0:5.2f}s)")
+    try:
+        for step in range(args.steps):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in make_lm_batch(cfg, shape, step).items()}
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 prng.fold_in(key, step))
+            loss = float(metrics["loss"])
+            if log:
+                print(f"step {step:4d} loss {loss:8.4f} ghat "
+                      f"{float(metrics['ghat_norm']):9.4f} ({time.perf_counter() - t0:5.2f}s)")
+    finally:
+        if distributed and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 
 Per step (Algorithm 1):
     1. per-worker grads g_i              (the trainer)
-    2. ghat and the h memories           (the bucketed DIANA round)
+    2. ghat and the h memories           (the bucketed DIANA round: the
+                                          in-turn round or
+                                          ``core.diana.aggregate_distributed``)
     3. v = inner optimizer on ghat       (momentum beta -> paper's v^k)
     4. x = x + update, written back in the parameter dtype
 
@@ -17,18 +19,11 @@ from typing import Any, Callable, Mapping, NamedTuple, Optional
 import torch
 
 from repro_torch.core.compression import CompressionConfig
-from repro_torch.core.diana import bucket_layout
+from repro_torch.core.diana import DianaState, init_state
 
 from .optimizers import Optimizer, constant_schedule, momentum
 
 __all__ = ["DianaOptimizer", "DianaOptState", "DianaState"]
-
-
-class DianaState(NamedTuple):
-    """The bucketed DIANA memories: ``h_worker`` (n, Dp), ``h_server`` (Dp,)."""
-
-    h_worker: torch.Tensor
-    h_server: torch.Tensor
 
 
 class DianaOptState(NamedTuple):
@@ -46,19 +41,17 @@ class DianaOptimizer:
         self.compression = compression or CompressionConfig(bucketed=True)
         if not self.compression.bucketed:
             raise NotImplementedError(
-                "the trainer runs the bucketed layout; the per-leaf round is "
-                "repro_torch.core.diana.reference_step")
+                "the trainer runs the bucketed layout; the per-leaf rounds are "
+                "repro_torch.core.diana.reference_step and aggregate_distributed, and "
+                "the per-leaf trainer is ROADMAP.md queue 1 item 1b")
         self.inner = inner or momentum()
         self.schedule = schedule or constant_schedule(lr)
 
     def init(self, params: Mapping[str, torch.Tensor], n_workers: int) -> DianaOptState:
-        dev = next(iter(params.values())).device
-        dp = bucket_layout(self.compression, params).padded_size
-        dt = self.compression.h_dtype
-        return DianaOptState(
-            step=0, inner=self.inner.init(params),
-            diana=DianaState(h_worker=torch.zeros((n_workers, dp), dtype=dt, device=dev),
-                             h_server=torch.zeros((dp,), dtype=dt, device=dev)))
+        """Zero state; ``h_worker`` holds ``n_workers`` rows (n in turn, or
+        the rank's own row under ``torch.distributed``)."""
+        return DianaOptState(step=0, inner=self.inner.init(params),
+                             diana=init_state(params, self.compression, n_workers))
 
     @torch.no_grad()
     def apply_direction(self, params: Mapping[str, torch.Tensor],
