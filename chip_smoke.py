@@ -41,6 +41,16 @@ Phases (each prints its lines; any failure exits non-zero):
    integer instructions over the SMs' dispatch rate) and, where one PyTorch call
    computes the same function, that call's time (``index_select``,
    ``Tensor.copy_``, ``sum(0)``, ``mean(0)``; the port never calls them);
+3b. harness kernels: ``quantize_pack_prng`` (p = inf bitwise the plain
+   version; p = 2 bitwise ``quantize_pack`` fed ``threefry_bits``, within
+   its tolerance of the plain version) and ``unpack_reduce`` / ``_mean`` /
+   ``_apply`` (n = 1, 4, 10, bitwise) at the convex harness's shapes:
+   blocks of 8, 16 and 64 over a leaf of d = 24 or 112 (1 to 14 rows);
+3c. convex: the paper's convex harness (``repro_torch.benchmarks.common``)
+   on the card: f*, law (a) batch DIANA, laws (b) and (c) in the stochastic
+   regime (DIANA, VR-DIANA, QSGD), bidirectional DIANA, with the JAX
+   suite's thresholds, and 200 steps on the mushrooms-scale problem at
+   n = 10; each run's launches exact per step, its gap and us per step;
 4. reference: two training steps of ``reduced(llama3.2-1b)`` (f32) on the
    card through the kernels, against the same steps with every kernel
    swapped for its plain version (bitwise: losses, parameters, memories),
@@ -92,7 +102,14 @@ Phases (each prints its lines; any failure exits non-zero):
    sparse decodes; ``none`` no kernel: its round is one all-reduce); the
    all-gather timed with CUDA events and its bytes printed (at world 1 a
    device copy of the payload, not a wire);
-15. the full depth: the distributed ``diana`` path on all 16 layers,
+15. vr / downlink: the same world of one and the in-turn trainer at n = 1,
+   2 steps each at 8 layers, for ``diana --vr``, ``diana --down-method
+   diana`` and ``diana --vr --down-method topk_ef --down-k 2^20``:
+   losses, parameters, both memories, the (snapshot, mu) rows and
+   ``h_down`` bitwise; launches exact per step (VR none of its own, a diana
+   downlink 1 quantize_pack_prng + 1 unpack_reduce, a top-k EF downlink 1
+   sparse_gather + 1 sparse_decode_sum);
+16. the full depth: the distributed ``diana`` path on all 16 layers,
    world of one, 3 steps: finite losses, step times and peak memory.
 
 Each timed step starts from a Python collection (outside its time); its
@@ -193,6 +210,10 @@ def main() -> None:
         from repro_torch.core.compressors.ternary import TernaryCompressor
         from repro_torch.core.compressors.topk_ef import TopKEFCompressor
         from repro_torch.core.diana import bucket_layout, worker_key
+        from repro_torch.core.vr import resolve_vr_p
+        from repro_torch.benchmarks.common import (fstar_logreg, run_logreg,
+                                                   run_logreg_stochastic, stoch_problem)
+        from repro_torch.configs.diana_paper import LogRegProblem
         from repro_torch.data.pipeline import make_lm_batch
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.sparse import COARSE
@@ -695,6 +716,135 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # ------------------------------- the kernels at the convex harness's shapes
+    # The convex harness encodes one leaf x of d = 24 (stoch_problem) or 112
+    # (LogRegProblem) per worker, in blocks of 8, 16 or 64: 1-14 rows per
+    # launch, 2-16 float4 groups per row; the server decodes n = 1 (a
+    # worker's own decode), 4 or 10 payloads.
+    for hb in (8, 16, 64):
+        lines = []
+        for hd in (24, 112):
+            hm = -(-hd // hb)
+            xs = torch.zeros((10, hm * hb), device=dev)
+            xs[:, :hd] = torch.randn((10, hd), generator=gen, device=dev)
+            xs[0, :4] = torch.tensor([0.0, -0.0, 1e-40, 3.4028235e38], device=dev)
+            xs[1] = 0.0
+            hkeys = prng.split(prng.PRNGKey(100 + hb + hd), 10)
+            hpays, agree = [], 1.0
+            for w in range(10):
+                blocks = xs[w].reshape(hm, hb)
+                kp, ks = ops.quantize_pack_prng_op(blocks, hkeys[w:w + 1], (hm,), p=math.inf)
+                pp, ps_ = ref.ref_quantize_pack_prng(blocks, hkeys[w:w + 1], (hm,), math.inf)
+                if not (torch.equal(kp, pp) and torch.equal(ks, ps_)):
+                    fail(f"quantize_pack_prng (p=inf, B={hb}, d={hd}) differs from the plain "
+                         "version")
+                hpays.append((kp, ks))
+                hbits = ops.segment_bits_op(hkeys[w:w + 1], [hm * hb], dev).reshape(hm, hb)
+                k2, s2 = ops.quantize_pack_prng_op(blocks, hkeys[w:w + 1], (hm,), p=2.0)
+                b2, bs2 = ops.quantize_pack_op(blocks, hbits, p=2.0)
+                p2, ps2 = ref.ref_quantize_pack_prng(blocks, hkeys[w:w + 1], (hm,), 2.0)
+                if not (torch.equal(k2, b2) and torch.equal(s2, bs2)):
+                    fail(f"quantize_pack_prng (p=2, B={hb}) differs from quantize_pack fed "
+                         "threefry_bits")
+                codes_eq = float((torch.stack([(k2 >> t) & 3 for t in (0, 2, 4, 6)])
+                                  == torch.stack([(p2 >> t) & 3 for t in (0, 2, 4, 6)]))
+                                 .float().mean())
+                agree = min(agree, codes_eq)
+                if ulps(s2, ps2) > 4 or codes_eq < 0.9999:
+                    fail(f"quantize_pack_prng (p=2, B={hb}, d={hd}) outside its tolerance")
+            packed = torch.stack([k for k, _ in hpays])
+            scales = torch.stack([s_ for _, s_ in hpays])
+            hh = torch.randn(hd, generator=gen, device=dev)
+            for hn in (1, 4, 10):
+                pk, sc = packed[:hn], scales[:hn]
+                check_equal(f"unpack_reduce (B={hb}, d={hd}, n={hn})",
+                            ops.unpack_reduce_op(pk, sc), ref.ref_unpack_reduce(pk, sc))
+                check_equal(f"unpack_reduce_mean (B={hb}, d={hd}, n={hn})",
+                            ops.unpack_reduce_mean_op(pk, sc), ref.ref_unpack_reduce_mean(pk, sc))
+                check_equal(f"unpack_reduce_apply (B={hb}, d={hd}, n={hn})",
+                            ops.unpack_reduce_apply_op(pk, sc, hh, alpha=alpha),
+                            ref.ref_unpack_reduce_apply(pk, sc, hh, alpha, hn))
+            blocks = xs[2].reshape(hm, hb)
+            us = {"quantize_pack_prng": time_ms(lambda: ops.quantize_pack_prng_op(
+                      blocks, hkeys[2:3], (hm,), p=math.inf), 20) * 1e3,
+                  "unpack_reduce n=1": time_ms(lambda: ops.unpack_reduce_op(
+                      packed[:1], scales[:1]), 20) * 1e3,
+                  "unpack_reduce_apply n=10": time_ms(lambda: ops.unpack_reduce_apply_op(
+                      packed, scales, hh, alpha=alpha), 20) * 1e3}
+            lines.append(f"d {hd} ({hm} rows): p=2 codes equal on {agree * 100:.4f}%; "
+                         + ", ".join(f"{k} {v:.1f} us" for k, v in us.items()))
+        print(f"harness kernels B={hb}: quantize_pack_prng p=inf bitwise the plain version "
+              f"(p=2 bitwise quantize_pack fed threefry_bits, scales within 4 ulp of the plain "
+              f"version), unpack_reduce / _mean / _apply at n = 1, 4, 10 bitwise; "
+              + "; ".join(lines))
+    del xs, packed, scales, hh, hpays
+
+    # ---------------------------------------------------------- the convex harness
+    # The paper's laws on the card through the port's harness (per leaf,
+    # one leaf x), with the JAX suite's thresholds
+    # (tests/test_convergence_laws.py:83-105, tests/test_downlink.py).
+    def convex(label, fn, per_step, steps):
+        """One harness run with the launch counts reset just before and read
+        just after: exactly ``per_step`` launches on each of ``steps`` steps."""
+        torch.cuda.synchronize()
+        build.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        want = {k: v * steps for k, v in per_step.items()}
+        print(f"convex: {label}: final loss {r['final_loss']!r}, {r['us_per_step']:.1f} us per "
+              f"step; launches {counts}")
+        if counts != want:
+            fail(f"convex {label}: launches {counts}, expected {want}")
+        return r
+
+    prob = stoch_problem()
+    nw = prob.n_workers
+    ternary = {"quantize_pack_prng": nw, "unpack_reduce": nw, "unpack_reduce_apply": 1}
+    fstar = convex(f"f* (none, {prob.dim}-d, n {nw}, 400 steps)",
+                   lambda: {"final_loss": fstar_logreg(prob, 400),
+                            "us_per_step": float("nan")},
+                   {"dense_copy": nw, "dense_decode_sum_mean": 1}, 400)["final_loss"]
+    gaps = {}
+    for label, fn, per_step, steps in (
+            ("batch", lambda: run_logreg("diana", math.inf, steps=200, gamma=1.0, block=8,
+                                         problem=prob), ternary, 200),
+            ("bidir", lambda: run_logreg("diana", math.inf, steps=200, gamma=1.0, block=8,
+                                         problem=prob, down_method="diana"),
+             {"quantize_pack_prng": nw + 1, "unpack_reduce": nw + 1, "unpack_reduce_apply": 1},
+             200),
+            ("diana", lambda: run_logreg_stochastic("diana", math.inf, steps=300, gamma=0.5,
+                                                    block=8, problem=prob), ternary, 301),
+            ("vr", lambda: run_logreg_stochastic("diana", math.inf, steps=300, gamma=0.5,
+                                                 block=8, problem=prob, vr=True), ternary, 301),
+            ("qsgd", lambda: run_logreg_stochastic("qsgd", 2.0, steps=300, gamma=0.5, block=8,
+                                                   problem=prob),
+             {"quantize_pack_prng": nw, "unpack_reduce": nw, "unpack_reduce_mean": 1}, 301)):
+        r = convex(label, fn, per_step, steps)
+        gaps[label] = max(r["final_loss"] - fstar, 1e-7)
+    print(f"convex: stoch_problem ({prob.dim}-d, n {nw}, B 8): f* {fstar!r}; gaps {gaps}")
+    laws = {"(a) batch DIANA gap < 1e-5": gaps["batch"] < 1e-5,
+            "(b) VR-DIANA >= 10x below DIANA's floor": gaps["diana"] > 1e-3
+            and gaps["diana"] >= 10.0 * gaps["vr"] and gaps["vr"] < 1e-4,
+            "(c) QSGD stalls": gaps["qsgd"] > 1e-3 and gaps["qsgd"] >= 0.5 * gaps["diana"]
+            and gaps["qsgd"] >= 10.0 * gaps["vr"],
+            "bidirectional DIANA gap < 1e-5": gaps["bidir"] < 1e-5}
+    print(f"convex: laws {laws}")
+    if not all(laws.values()):
+        fail(f"convex: a law does not hold on the card: {laws}, gaps {gaps}")
+    paper = LogRegProblem()
+    r10 = convex(f"{paper.name} ({paper.n_samples} x {paper.dim}, n {paper.n_workers}, B 64, "
+                 "200 steps)",
+                 lambda: run_logreg("diana", math.inf, steps=200, gamma=1.0, block=64,
+                                    problem=paper),
+                 {"quantize_pack_prng": paper.n_workers, "unpack_reduce": paper.n_workers,
+                  "unpack_reduce_apply": 1}, 200)
+    first, last = r10["losses"][0][1], r10["final_loss"]
+    print(f"convex: {paper.name}: loss {first!r} after step 0, {last!r} after 200 steps")
+    if not (math.isfinite(last) and last < first):
+        fail(f"convex: the n = 10 run did not descend ({first} -> {last})")
+    build.reset_launches()
+
     # ------------------------------------------- reference on a small input
     rcfg = reduced(get_config("llama3.2-1b"))
     rshape = ShapeConfig("smoke", 64, 4, "train")
@@ -1025,6 +1175,16 @@ def main() -> None:
         "none": {},
     }
 
+    def state_leaves(x):
+        """The tensors of a DIANA state (memories, VR slot, h_down) in a fixed order."""
+        if x is None:
+            return []
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in state_leaves(x[k])]
+        return [t for f in x for t in state_leaves(f)]
+
     def dist_run(pcfg, steps, label, step_builder):
         """``steps`` steps of one worker from the path's initial state;
         returns losses, params, DIANA state, step times, peak, launches."""
@@ -1070,7 +1230,7 @@ def main() -> None:
             dcredit.setdefault(name, (n, f"distributed {method} (world 1, 8 layers, 2 steps)"))
         # To the host, so that the in-turn run's memory lines hold only its own.
         d_params = {k: v.detach().cpu() for k, v in d_params.items()}
-        d_diana = [t.cpu() for t in d_diana]
+        d_diana = [t.cpu() for t in state_leaves(d_diana)]
         torch.cuda.empty_cache()
         if method == "none":
             if wire:
@@ -1086,13 +1246,55 @@ def main() -> None:
             lambda c, o: build_train_step(c, o, 1, dev))
         same = (d_loss == t_loss
                 and all(torch.equal(d_params[k], t_params[k].cpu()) for k in t_params)
-                and all(torch.equal(d, t.cpu()) for d, t in zip(d_diana, t_diana)))
+                and all(torch.equal(d, t.cpu()) for d, t in zip(d_diana, state_leaves(t_diana))))
         print(f"distributed {method}: losses, parameters, h_worker and h_server bitwise the "
               f"in-turn trainer's at n = 1: {same}")
         if not same:
             fail(f"distributed {method}: the world-of-one trainer differs from the in-turn "
                  "trainer at n = 1")
         del d_params, d_diana, t_params, t_diana
+        torch.cuda.empty_cache()
+    # VR-DIANA and the compressed downlink: the world of one over NCCL
+    # against the in-turn trainer at n = 1, at full width.  VR adds a second
+    # forward and backward at the worker's snapshot, no launch; a diana
+    # downlink one encode and one decode of the (Dp,) bucket per step, a
+    # top-k EF downlink one sparse_gather and one sparse_decode_sum.
+    vr_p = resolve_vr_p(None, dshape.global_batch)
+    extra_cases = (
+        ("vr", "diana --vr", dict(vr=True, vr_p=vr_p), {}),
+        ("downlink", "diana --down-method diana", dict(comp_down_method="diana"),
+         {"quantize_pack_prng": 1, "unpack_reduce": 1}),
+        ("downlink", f"diana --vr --down-method topk_ef --down-k {COMP_K}",
+         dict(vr=True, vr_p=vr_p, comp_down_method="topk_ef", comp_down_k=COMP_K),
+         {"sparse_gather": 1, "sparse_decode_sum": 1}))
+
+    for tag, flags, fields, down in extra_cases:
+        pcfg = replace(cfg, compression="diana", **fields)
+        d_loss, d_params, d_diana, counts, wire = dist_run(
+            pcfg, 2, f"{tag}: distributed {flags}", build_distributed_step)
+        want = {k: 2 * (per_step["diana"].get(k, 0) + down.get(k, 0))
+                for k in set(per_step["diana"]) | set(down)}
+        if counts != want:
+            fail(f"{tag}: distributed {flags}: launches {counts}, expected {want}")
+        d_params = {k: v.detach().cpu() for k, v in d_params.items()}
+        d_leaves = [t.cpu() for t in state_leaves(d_diana)]
+        del d_diana
+        torch.cuda.empty_cache()
+        t_loss, t_params, t_diana, t_counts, _ = dist_run(
+            pcfg, 2, f"{tag}: in turn {flags} (n = 1)",
+            lambda c, o: build_train_step(c, o, 1, dev))
+        t_leaves = state_leaves(t_diana)
+        same = (d_loss == t_loss and t_counts == counts
+                and all(torch.equal(d_params[k], t_params[k].cpu()) for k in t_params)
+                and len(d_leaves) == len(t_leaves)
+                and all(torch.equal(d, t.cpu()) for d, t in zip(d_leaves, t_leaves)))
+        print(f"{tag}: {flags}: losses, parameters, h_worker, h_server"
+              f"{', vr (snapshot, mu)' if pcfg.vr else ''}"
+              f"{', h_down' if pcfg.comp_down_method else ''} ({len(t_leaves)} state tensors) "
+              f"bitwise the in-turn trainer's at n = 1: {same}")
+        if not same:
+            fail(f"{tag}: {flags}: the world-of-one trainer differs from the in-turn trainer")
+        del d_params, d_leaves, t_params, t_diana, t_leaves
         torch.cuda.empty_cache()
     # The model's full depth: 16 layers, the distributed diana path.
     fcfg = get_config("llama3.2-1b")

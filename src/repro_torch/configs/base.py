@@ -52,6 +52,10 @@ class ModelConfig:
     comp_k: int = 64               # kept coordinates per leaf for rand-k / top-k
     comp_bucketed: bool = True     # whole-model flat-buffer aggregation
     h_dtype: torch.dtype = torch.float32
+    vr: bool = False               # VR-DIANA: L-SVRG control variates (core.vr)
+    vr_p: Optional[float] = None   # snapshot-refresh probability (None: 1/m)
+    comp_down_method: Optional[str] = None  # downlink operator (None: exact broadcast)
+    comp_down_k: Optional[int] = None       # sparse downlink budget (None: comp_k)
 
     @property
     def resolved_head_dim(self) -> int:

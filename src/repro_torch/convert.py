@@ -3,7 +3,8 @@
 ``params_from_jax`` turns the JAX parameter tree (a nested dict of numpy
 arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into the port's
 ``{path: nn.Parameter}`` tree; ``state_from_jax`` does the same for a
-``repro.core.diana.ReferenceState`` (``h_worker``, ``h_server``, ``v``).
+``repro.core.diana.ReferenceState`` (``h_worker``, ``h_server``, ``v``, and
+the VR slot's ``snapshot`` / ``mu`` and ``h_down`` when present).
 Arrays are copied bit for bit; parameters take ``cfg.param_dtype``.
 """
 
@@ -17,6 +18,7 @@ import torch.nn as nn
 
 from repro_torch.core.diana import ReferenceState
 from repro_torch.core.tree import flatten_nested
+from repro_torch.core.vr import VRState
 
 __all__ = ["params_from_jax", "state_from_jax", "tensor_from_numpy"]
 
@@ -37,6 +39,8 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg, device) -> Dict[str, nn.Par
 
 
 def _tree(x, device):
+    if x is None:
+        return None
     if isinstance(x, Mapping):
         return {p: tensor_from_numpy(a, device) for p, a in flatten_nested(x).items()}
     return tensor_from_numpy(x, device)
@@ -44,6 +48,10 @@ def _tree(x, device):
 
 def state_from_jax(ref_state, device) -> ReferenceState:
     """``ReferenceState`` (numpy leaves, bucketed or per-leaf) -> the port's."""
+    vr = ref_state.vr
+    if vr is not None:
+        vr = VRState(snapshot=_tree(vr.snapshot, device), mu=_tree(vr.mu, device))
     return ReferenceState(h_worker=_tree(ref_state.h_worker, device),
                           h_server=_tree(ref_state.h_server, device),
-                          v=_tree(ref_state.v, device))
+                          v=_tree(ref_state.v, device), vr=vr,
+                          h_down=_tree(ref_state.h_down, device))

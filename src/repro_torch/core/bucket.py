@@ -8,7 +8,8 @@
   one compress, one payload and one fused decode per worker set.
 * :func:`fuse_payload` / :func:`unfuse_payload` — the wire object: every
   populated payload field byte-cast into ONE uint8 buffer, so the worker
-  all-gather is one collective (``repro/core/bucket.py:291-343``).
+  all-gather is one collective (``repro/core/bucket.py:291-343``);
+  :func:`wire_roundtrip` puts the downlink's payload through it.
 
 Bitwise contract (as in ``repro.core.bucket``): the bucketed round equals the
 per-leaf round — same per-segment PRNG draws, same per-block scales, same
@@ -29,7 +30,7 @@ from . import tree as T
 from .compressors.base import Compressor, Payload
 
 __all__ = ["BucketLayout", "BucketedCompressor", "bucketed_compressor", "payload_recipe",
-           "fuse_payload", "unfuse_payload"]
+           "fuse_payload", "unfuse_payload", "wire_roundtrip"]
 
 
 @dataclass(frozen=True)
@@ -202,3 +203,14 @@ def unfuse_payload(buf: torch.Tensor, recipe) -> Payload:
         start += width
         fields[fi] = part.view(dt).reshape(*batch, *shape)
     return Payload(*fields)
+
+
+def wire_roundtrip(pay: Payload) -> Payload:
+    """A payload through its one-buffer wire object and back
+    (``repro/core/bucket.py:316``): the compressed downlink's broadcast in
+    the bucketed layout.  The byte casts are exact, so the fields come back
+    bitwise; a single-field payload already is one wire object and passes
+    as it is."""
+    if sum(f is not None for f in pay) <= 1:
+        return pay
+    return unfuse_payload(fuse_payload(pay), payload_recipe(pay))

@@ -1,16 +1,16 @@
 """Compression configuration — a frozen, hashable factory over the registry.
 
 The port's copy of ``repro.core.compression.CompressionConfig`` with the
-fields the flat (uniform, uplink-only) round reads.  VR, the downlink,
-participation and the chunked/hierarchical schedules are later slices
-(ROADMAP.md queue 1).
+fields the flat (uniform) round reads, VR-DIANA's and the compressed
+downlink's included.  Participation and the chunked/hierarchical schedules
+are later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -33,7 +33,15 @@ class CompressionConfig:
     k:          kept coordinates per leaf for rand-k / top-k
     h_dtype:    dtype of the DIANA memories
     bucketed:   aggregate the whole model as ONE flat buffer (bitwise the
-                per-leaf layout; the flag selects the execution layout)"""
+                per-leaf layout; the flag selects the execution layout)
+    vr:         VR-DIANA (arXiv:1904.05115): a per-worker L-SVRG control
+                variate under the compressed differences (:mod:`.vr`)
+    vr_p:       its snapshot-refresh probability (None: the caller resolves
+                the paper's 1/m with :func:`.vr.resolve_vr_p`)
+    down_method: the downlink (server -> worker) operator for ``ghat``, with
+                its own memory ``h_down``; None keeps the broadcast exact
+    down_k:     kept coordinates of a sparse downlink (None: ``k``)
+    down_bucketed: the downlink's layout (None: follows ``bucketed``)"""
 
     method: str = "diana"
     p: float = math.inf
@@ -42,15 +50,36 @@ class CompressionConfig:
     k: int = 64
     h_dtype: torch.dtype = torch.float32
     bucketed: bool = False
+    vr: bool = False
+    vr_p: Optional[float] = None
+    down_method: Optional[str] = None
+    down_k: Optional[int] = None
+    down_bucketed: Optional[bool] = None
 
     def __post_init__(self):
         canonical_name(self.method)  # raises on unknown methods
+        if self.down_method is not None:
+            canonical_name(self.down_method)
         if self.block_size % 4:
             raise ValueError("block_size must be a multiple of 4 for 2-bit packing")
+        if self.vr_p is not None and not 0.0 < self.vr_p <= 1.0:
+            raise ValueError(f"vr_p must be in (0, 1], got {self.vr_p}")
 
     def make(self):
         """The configured compressor (memoized: compressors are stateless)."""
         return _make_cached(self)
+
+    def down_config(self) -> Optional["CompressionConfig"]:
+        """The downlink operator's config, or None: ``down_method`` through
+        the same factory, ``down_k`` / ``down_bucketed`` defaulting to the
+        uplink's ``k`` / layout, and never VR (a worker-side transform)."""
+        if self.down_method is None:
+            return None
+        return replace(self, method=self.down_method,
+                       k=self.k if self.down_k is None else self.down_k,
+                       bucketed=self.bucketed if self.down_bucketed is None
+                       else self.down_bucketed,
+                       down_method=None, down_k=None, down_bucketed=None, vr=False, vr_p=None)
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,15 +28,25 @@ one all-reduce instead.  Given the same keys it is bitwise
 :func:`reference_step`'s round, as the JAX package's distributed round is its
 reference's (``tests/test_torch_distributed.py``).
 
+VR-DIANA (``cfg.vr``, :mod:`repro_torch.core.vr`) control-variates the
+gradients against each worker's (snapshot, mu) before any layout decision
+and refreshes the snapshots on each worker's coin; the compressed downlink
+(``cfg.down_method``, :func:`downlink_round`) passes the f32 ``ghat``
+through the downlink operator with its own memory ``h_down``, drawing from
+``fold_in(key, DOWN_FOLD)`` (the step key before any worker fold).  Both
+reach every path above with the same draws and the same arithmetic, so the
+bitwise contracts extend to them (``tests/test_torch_vr.py``,
+``tests/test_torch_downlink.py``).
+
 Trees are ``{path: tensor}`` dicts (:mod:`repro_torch.core.tree`); stacked
-per-worker grads carry a leading worker axis on every leaf.  VR, the
-downlink, policies, participation and the chunked/hierarchical schedules are
-later slices (ROADMAP.md queue 1).
+per-worker grads carry a leading worker axis on every leaf.  Policies,
+participation and the chunked/hierarchical schedules are later slices
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple
+from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -44,15 +54,17 @@ import torch.distributed as dist
 from . import prng
 from . import tree as T
 from .bucket import (BucketLayout, bucketed_compressor, fuse_payload, payload_recipe,
-                     unfuse_payload)
+                     unfuse_payload, wire_roundtrip)
 from .compression import CompressionConfig
 from .compressors.base import Payload
 from .numerics import div_n, fma32
+from .vr import control_variate, init_vr, reference_coins, refresh, vr_coin
 
 __all__ = [
     "DOWN_FOLD", "GROUP_FOLD", "CHUNK_FOLD",
     "ReferenceState", "reference_init", "reference_step", "bucket_layout",
-    "worker_key", "DianaState", "init_state", "aggregate_distributed",
+    "worker_key", "DianaState", "init_state", "init_downlink", "downlink_round",
+    "aggregate_distributed",
 ]
 
 # The JAX package's fold constants (repro/core/diana.py:79-98): the downlink
@@ -68,16 +80,23 @@ class DianaState(NamedTuple):
     worker it runs — ``(rows, Dp)`` bucketed or ``{path: (rows, d_leaf)}``
     per leaf; under ``torch.distributed`` the rank's own row, as shard_map's
     ``P(worker)`` gives it — and the replicated ``h_server``, ``(Dp,)`` or
-    ``{path: (d_leaf,)}``."""
+    ``{path: (d_leaf,)}``.  ``vr`` (a :class:`~repro_torch.core.vr.VRState`
+    with the same rows, or None) and ``h_down`` (the replicated downlink
+    memory in the downlink's layout, or None) are there when the config
+    asks for them."""
 
     h_worker: Any
     h_server: Any
+    vr: Any = None
+    h_down: Any = None
 
 
 class ReferenceState(NamedTuple):
     h_worker: Any  # (n, Dp) bucketed, or {path: (n, d_leaf)} per leaf
     h_server: Any  # (Dp,) bucketed, or {path: (d_leaf,)} per leaf
     v: Any         # momentum buffer {path: f32 tensor shaped like the param}
+    vr: Any = None      # VRState (cfg.vr), as DianaState.vr
+    h_down: Any = None  # downlink memory (cfg.down_method), as DianaState.h_down
 
 
 def bucket_layout(cfg: CompressionConfig, tree: Mapping[str, torch.Tensor]) -> BucketLayout:
@@ -85,37 +104,49 @@ def bucket_layout(cfg: CompressionConfig, tree: Mapping[str, torch.Tensor]) -> B
     return BucketLayout.for_tree(tree, align=cfg.make().bucket_align())
 
 
-def init_state(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
-               n_workers: int) -> DianaState:
-    """Zero memories in ``cfg.h_dtype`` for ``n_workers`` rows (1 on a rank)."""
+def _zero_memories(params, cfg: CompressionConfig, n_workers: int, dt: torch.dtype):
+    """``(h_worker, h_server)`` zeros in ``cfg``'s layout."""
     dev = next(iter(params.values())).device
-    dt = cfg.h_dtype
     if cfg.bucketed:
         dp = bucket_layout(cfg, params).padded_size
-        return DianaState(h_worker=torch.zeros((n_workers, dp), dtype=dt, device=dev),
-                          h_server=torch.zeros((dp,), dtype=dt, device=dev))
-    return DianaState(
-        h_worker={p: torch.zeros((n_workers, x.numel()), dtype=dt, device=dev)
-                  for p, x in params.items()},
-        h_server={p: torch.zeros((x.numel(),), dtype=dt, device=dev) for p, x in params.items()})
+        return (torch.zeros((n_workers, dp), dtype=dt, device=dev),
+                torch.zeros((dp,), dtype=dt, device=dev))
+    return ({p: torch.zeros((n_workers, x.numel()), dtype=dt, device=dev)
+             for p, x in params.items()},
+            {p: torch.zeros((x.numel(),), dtype=dt, device=dev) for p, x in params.items()})
+
+
+def init_downlink(params: Mapping[str, torch.Tensor], cfg: CompressionConfig, dtype=None):
+    """``h_down^0 = 0`` in the downlink operator's own layout, one replicated
+    copy (``repro/core/diana.py:235``); None without a downlink."""
+    dcfg = cfg.down_config()
+    if dcfg is None:
+        return None
+    return _zero_memories(params, dcfg, 1, cfg.h_dtype if dtype is None else dtype)[1]
+
+
+def init_state(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
+               n_workers: int) -> DianaState:
+    """Zero memories in ``cfg.h_dtype`` for ``n_workers`` rows (1 on a rank);
+    the VR slot (``w_i^0 = x^0``, zero ``mu``) and ``h_down^0 = 0`` when the
+    config asks for them."""
+    h_w, h_s = _zero_memories(params, cfg, n_workers, cfg.h_dtype)
+    return DianaState(h_worker=h_w, h_server=h_s,
+                      vr=init_vr(params, n_workers) if cfg.vr else None,
+                      h_down=init_downlink(params, cfg))
 
 
 def reference_init(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
                    n_workers: int) -> ReferenceState:
-    """``h_i^0 = 0``, ``h^0 = 0``, ``v^0 = 0`` (f32)."""
+    """``h_i^0 = 0``, ``h^0 = 0``, ``v^0 = 0`` (f32), and the VR slot and
+    ``h_down`` (f32) as :func:`init_state`."""
     dev = next(iter(params.values())).device
-    v = {p: torch.zeros(x.shape, dtype=torch.float32, device=dev) for p, x in params.items()}
-    if cfg.bucketed:
-        dp = bucket_layout(cfg, params).padded_size
-        return ReferenceState(
-            h_worker=torch.zeros((n_workers, dp), dtype=torch.float32, device=dev),
-            h_server=torch.zeros((dp,), dtype=torch.float32, device=dev), v=v)
+    h_w, h_s = _zero_memories(params, cfg, n_workers, torch.float32)
     return ReferenceState(
-        h_worker={p: torch.zeros((n_workers, x.numel()), dtype=torch.float32, device=dev)
-                  for p, x in params.items()},
-        h_server={p: torch.zeros((x.numel(),), dtype=torch.float32, device=dev)
-                  for p, x in params.items()},
-        v=v)
+        h_worker=h_w, h_server=h_s,
+        v={p: torch.zeros(x.shape, dtype=torch.float32, device=dev) for p, x in params.items()},
+        vr=init_vr(params, n_workers) if cfg.vr else None,
+        h_down=init_downlink(params, cfg, torch.float32))
 
 
 def worker_key(key: torch.Tensor, w: int) -> torch.Tensor:
@@ -123,21 +154,100 @@ def worker_key(key: torch.Tensor, w: int) -> torch.Tensor:
     return prng.fold_in(key, w)
 
 
+def _vr_check(cfg: CompressionConfig, vr_aux, params) -> None:
+    if cfg.vr_p is None:
+        raise ValueError("VR aggregation needs a concrete cfg.vr_p "
+                         "(repro_torch.core.vr.resolve_vr_p)")
+    if vr_aux is None or params is None:
+        raise ValueError("VR aggregation needs vr_aux=(grads_at_snapshot, mu_candidate) "
+                         "and the current parameters")
+
+
 def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: ReferenceState,
-                   key: torch.Tensor, cfg: CompressionConfig, *, beta: float = 0.0):
+                   key: torch.Tensor, cfg: CompressionConfig, *, beta: float = 0.0,
+                   vr_aux=None, params=None, vr_force_refresh: bool = False):
     """Aggregate stacked per-worker grads ``{path: (n, *shape)}`` exactly as
-    Algorithm 1; returns ``(v, new_state)`` with ``v = beta * v + ghat``."""
+    Algorithm 1; returns ``(v, new_state)`` with ``v = beta * v + ghat``.
+
+    With ``state.vr`` (``cfg.vr``) the round is VR-DIANA
+    (``repro/core/diana.py:1419-1438``): the grads are control-variated
+    against each worker's (snapshot, mu) first, ``vr_aux = (grads at the
+    snapshots, mu candidates)`` stacked like the grads and ``params`` the
+    current iterate, and the rows whose coin (or ``vr_force_refresh``) is set
+    refresh.  With ``state.h_down`` (``cfg.down_method``) ``ghat`` passes
+    through :func:`downlink_round` before the momentum."""
+    new_vr = state.vr
+    if state.vr is not None:
+        _vr_check(cfg, vr_aux, params)
+        g_snap, mu_cand = vr_aux
+        grads_per_worker = control_variate(grads_per_worker, g_snap, state.vr.mu)
+        n = next(iter(grads_per_worker.values())).shape[0]
+        coins = reference_coins(key, cfg.vr_p, n) | bool(vr_force_refresh)
+        new_vr = refresh(state.vr, coins, params, mu_cand)
     agg = _reference_agg_bucketed if cfg.bucketed else _reference_agg_perleaf
     ghat, new_hw, new_hs = agg(grads_per_worker, state.h_worker, state.h_server, key, cfg)
-    v = _reference_finish(ghat, state.v, beta)
-    return v, ReferenceState(h_worker=new_hw, h_server=new_hs, v=v)
+    new_h_down = None
+    if state.h_down is not None:
+        # _reference_finish's downlink (:1605-1626): the distributed path's
+        # downlink_round and key, its memory in f32
+        ghat, new_h_down = downlink_round(ghat, state.h_down, prng.fold_in(key, DOWN_FOLD),
+                                          cfg, h_dtype=torch.float32)
+    # The momentum accumulate as one FMA: XLA contracts it so for most
+    # leaves (beta = 0 makes the choice moot).
+    v = {p: fma32(beta, state.v[p], ghat[p]) for p in ghat}
+    return v, ReferenceState(h_worker=new_hw, h_server=new_hs, v=v, vr=new_vr,
+                             h_down=new_h_down)
 
 
-def _reference_finish(ghat: Dict[str, torch.Tensor], v: Dict[str, torch.Tensor],
-                      beta: float) -> Dict[str, torch.Tensor]:
-    """Momentum accumulate ``v = beta * v + ghat`` as one FMA (XLA contracts
-    it so for most leaves; beta = 0 makes the choice moot)."""
-    return {p: fma32(beta, v[p], ghat[p]) for p in ghat}
+# ---------------------------------------------------------------------------
+# Downlink: the compressed server broadcast
+# ---------------------------------------------------------------------------
+
+def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Tensor,
+                   cfg: CompressionConfig, *, h_dtype=None):
+    """Pass the aggregated direction ``ghat`` (f32 leaves) through the
+    DOWNLINK operator (``repro/core/diana.py:802-888``): the server encodes
+    ``delta = compress_input(ghat, h_down)``, every receiver decodes the
+    payload, takes ``server_direction(h_down, dhat)`` and advances the
+    shared memory with ``next_memory``.  ``ghat``, ``h_down`` and
+    ``down_key`` are the same on every worker, so the broadcast needs no
+    collective: each rank runs the same replicated round.
+
+    The layout is the downlink's own (``cfg.down_config().bucketed``): ONE
+    compress of the flat buffer keyed ``down_key``, its payload through
+    :func:`~repro_torch.core.bucket.wire_roundtrip`; or per leaf, leaf ``i``
+    keyed ``split(down_key, n_leaves)[i]``, payloads unfused.  ``down_key``
+    is the step key folded with :data:`DOWN_FOLD` before any worker fold.
+
+    Returns ``(ghat_hat, new_h_down)``, ``ghat_hat`` shaped and typed like
+    ``ghat`` and the memory in ``h_dtype`` (default ``cfg.h_dtype``)."""
+    dcfg = cfg.down_config()
+    if dcfg is None:
+        raise ValueError("downlink_round needs cfg.down_method")
+    h_dtype = cfg.h_dtype if h_dtype is None else h_dtype
+    if dcfg.bucketed:
+        layout = bucket_layout(dcfg, ghat)
+        comp = bucketed_compressor(dcfg, layout)
+        h = h_down.float()
+        # compress_input computed in the freshly flattened buffer (the same
+        # bits as g - h, or g + h for error feedback)
+        delta = comp.compress_input_(layout.flatten(ghat), h)
+        pay = wire_roundtrip(comp.compress(delta, down_key))
+        dhat = comp.decode(pay, layout.padded_size)
+        del pay
+        new_h = comp.next_memory(h, dhat, delta).to(h_dtype)
+        del delta
+        return layout.unflatten(comp.server_direction(h, dhat), cast=True), new_h
+    comp = dcfg.make()
+    paths = T.paths(ghat)
+    ghat_hat, new_h = {}, {}
+    for p, k in zip(paths, prng.split(down_key, len(paths))):
+        g, h = ghat[p].reshape(-1).float(), h_down[p].float()
+        delta = comp.compress_input(g, h)
+        dhat = comp.decode(comp.compress(delta, k), g.numel())
+        ghat_hat[p] = comp.server_direction(h, dhat).reshape(ghat[p].shape).to(ghat[p].dtype)
+        new_h[p] = comp.next_memory(h, dhat, delta).to(h_dtype)
+    return ghat_hat, new_h
 
 
 def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg):
@@ -326,7 +436,9 @@ def _dispatch_round(grads_local, state, key, cfg, n):
 
 
 def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaState,
-                          key: torch.Tensor, cfg: CompressionConfig):
+                          key: torch.Tensor, cfg: CompressionConfig, *, vr_aux=None,
+                          params_local=None, vr_force_refresh: bool = False,
+                          down_key: Optional[torch.Tensor] = None):
     """One DIANA aggregation round across the ranks of the default process
     group, one worker per rank — the port of
     ``repro.core.diana.aggregate_shardmap`` (``repro/core/diana.py:891``)
@@ -339,6 +451,15 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
     key:         already folded with the rank's worker index
                  (:func:`worker_key`).
 
+    With ``state.vr`` (``cfg.vr``, ``:1033-1057``) the rank feeds the
+    control-variated ``g - g_snap + mu_own`` to the round: ``vr_aux =
+    (grads at the rank's snapshot on the same batch, mu candidate)``, both
+    parameter-shaped, and ``params_local`` the current iterate; its own coin
+    ``vr_coin(key, cfg.vr_p)``, OR-ed with ``vr_force_refresh``, refreshes
+    its row.  With ``state.h_down`` (``cfg.down_method``, ``:1074-1081``)
+    the f32 ``ghat`` passes through :func:`downlink_round` keyed ``down_key``
+    = ``fold_in(step_key, DOWN_FOLD)``, folded BEFORE the worker fold.
+
     Returns ``(ghat, new_state)``: ``ghat`` equal on every rank, cast back to
     the gradients' dtypes (``:1102``).  A compression policy (per-group
     operators) raises ``NotImplementedError``: it is ROADMAP.md queue 1
@@ -347,7 +468,25 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
         raise NotImplementedError(
             f"{type(cfg).__name__}: compression policies (per-group operators) are "
             "ROADMAP.md queue 1 item 4")
-    ghat, new_hw, new_hs = _dispatch_round(grads_local, state, key, cfg,
-                                           dist.get_world_size())
+    grads_in, coin = grads_local, False
+    if state.vr is not None:
+        _vr_check(cfg, vr_aux, params_local)
+        mu_own = {p: m[0] for p, m in state.vr.mu.items()}
+        grads_in = control_variate(grads_local, vr_aux[0], mu_own)
+        coin = vr_coin(key, cfg.vr_p) or bool(vr_force_refresh)
+    if state.h_down is not None and down_key is None:
+        raise ValueError("bidirectional aggregation needs down_key = fold_in(step_key, "
+                         "DOWN_FOLD), folded before the worker fold")
+    ghat, new_hw, new_hs = _dispatch_round(grads_in, state, key, cfg, dist.get_world_size())
+    del grads_in
+    new_vr = state.vr
+    if state.vr is not None:
+        # After the round (the values do not depend on the order): the
+        # refreshed rows are not held across the round's transients.
+        new_vr = refresh(state.vr, [coin], params_local,
+                         {p: g.unsqueeze(0) for p, g in vr_aux[1].items()})
+    new_h_down = state.h_down
+    if state.h_down is not None:
+        ghat, new_h_down = downlink_round(ghat, state.h_down, down_key, cfg)
     ghat = {p: ghat[p].to(grads_local[p].dtype) for p in ghat}
-    return ghat, DianaState(h_worker=new_hw, h_server=new_hs)
+    return ghat, DianaState(h_worker=new_hw, h_server=new_hs, vr=new_vr, h_down=new_h_down)

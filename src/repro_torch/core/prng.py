@@ -13,6 +13,13 @@ functions follow ``jax/_src/prng.py`` (jax 0.9.0, ``jax_threefry_partitionable
   over the flat index ``i`` (counter mode: a batched draw over several keys
   is the per-key draws, bit for bit).
 
+On top of ``bits``, three draws of ``jax/_src/random.py`` (float32 and int32,
+JAX's defaults without x64): :func:`uniform` (``_uniform``: the top 23 bits
+as the mantissa of a float in [1, 2), minus 1), :func:`bernoulli`
+(``uniform < p``) and :func:`randint` (``_randint``: two 32-bit draws from
+``split(key)``, folded into the span with a multiplier).  The VR coins and
+the convex harness's minibatch indices come from them.
+
 Keys are int64 CPU tensors of shape ``(..., 2)`` holding uint32 words.  Torch
 has no uint32 arithmetic on the CPU, so words live in int64 and every add is
 masked with ``& 0xFFFFFFFF``.  Drawn bits come back as int32 tensors holding
@@ -29,7 +36,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["MASK", "PRNGKey", "fold_in", "split", "bits", "threefry2x32",
-           "key_words", "to_int32"]
+           "key_words", "to_int32", "uniform", "bernoulli", "randint"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -96,3 +103,38 @@ def bits(key: torch.Tensor, shape: Sequence[int], device=None) -> torch.Tensor:
     idx = torch.arange(n, dtype=torch.int64, device=device)
     x0, x1 = threefry2x32(k0, k1, idx >> 32, idx & MASK)
     return to_int32(x0 ^ x1).reshape(tuple(shape))
+
+
+def _words(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``bits(key, shape)`` as int64 uint32 words."""
+    return bits(key, shape).to(torch.int64) & MASK
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32 in [0, 1)): the word's top
+    23 bits OR ``0x3F800000`` read as a float in [1, 2), minus 1.0 (exact).
+    Not :func:`repro_torch.core.quantization.uniform_from_bits`, the
+    quantizers' ``(bits >> 8) * 2^-24``."""
+    w = (_words(key, shape) >> 9) | 0x3F800000
+    return to_int32(w).view(torch.float32) - 1.0
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < float32(p)``."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 values, as
+    int64): ``higher, lower = bits(split(key)[0]), bits(split(key)[1])``,
+    ``span = maxval - minval`` (1 when empty), ``mult = (2^16 % span)^2 %
+    span`` and ``minval + ((higher % span) * mult + lower % span) % span``,
+    every product and sum wrapped to 32 bits as uint32 arithmetic wraps."""
+    if not (-2**31 <= minval and maxval <= 2**31 - 1):
+        raise ValueError(f"randint: [{minval}, {maxval}) is outside int32")
+    k1, k2 = split(key, 2)
+    hi, lo = _words(k1, shape), _words(k2, shape)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = (((2**16 % span) ** 2) & MASK) % span
+    off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    return minval + off % span

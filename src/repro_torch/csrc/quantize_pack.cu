@@ -30,7 +30,13 @@
 //
 // Design: one warp per row, a grid of 512-thread blocks sized to the SMs'
 // resident warps walking the rows, no block-wide barrier; lane l owns the
-// row's float4 groups i*32 + l (the warp's loads and stores coalesce).
+// row's float4 groups i*32 + l (the warp's loads and stores coalesce).  B is
+// any multiple of 4: where B/4 is not a multiple of 32 (the kTail kernels)
+// the lanes below (B/4) % 32 own one group more, the row's tail, last in
+// their order (for B < 128 only those lanes own a group; the others hold 0,
+// which changes no sum or max).  The convex harness's blocks of 8-64 take
+// that path: a row of 2-16 groups on 32 lanes, where the launch is the
+// cost; a B that is a multiple of 128 runs the kernels without the tail.
 // Pass 1 loads the lane's groups, 8 float4 in flight, and reduces the norm:
 // the lane's values in order, then a butterfly of shuffles, whose result
 // every lane holds bitwise (p = inf is a max, equal to the plain version
@@ -229,13 +235,13 @@ __device__ __forceinline__ void code_groups(const float4* src, const Row& rb, ui
 }
 
 // One row: pass 1 the norm (and the stage), pass 2 the bits and the codes.
-template <class Bits, bool kStaged>
+template <class Bits, bool kStaged, bool kTail>
 __device__ __forceinline__ void quantize_row(const float* __restrict__ delta, const Bits& bits,
                                              uint8_t* __restrict__ packed,
                                              float* __restrict__ scales, long long row, int B,
                                              int kind, float p, float inv_p, int lane,
                                              float4* stage) {
-  const int G = B / 128;  // groups per lane
+  const int G = B / 128 + (kTail && lane < (B / 4) % 32);  // this lane's groups
   const float4* x4 = reinterpret_cast<const float4*>(delta + row * B) + lane;
   float acc;
   switch (kind) {
@@ -270,7 +276,7 @@ __device__ __forceinline__ void quantize_row(const float* __restrict__ delta, co
   if (lane == 0) scales[row] = scale;
 }
 
-template <class Bits, bool kStaged>
+template <class Bits, bool kStaged, bool kTail>
 __device__ __forceinline__ void quantize_rows(const float* __restrict__ delta, const Bits& bits,
                                               uint8_t* __restrict__ packed,
                                               float* __restrict__ scales, long long m, int B,
@@ -281,27 +287,28 @@ __device__ __forceinline__ void quantize_rows(const float* __restrict__ delta, c
   const long long warps = (long long)gridDim.x * kWarps;
   for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); row < m;
        row += warps) {
-    quantize_row<Bits, kStaged>(delta, bits, packed, scales, row, B, kind, p, inv_p, lane,
-                                stage);
+    quantize_row<Bits, kStaged, kTail>(delta, bits, packed, scales, row, B, kind, p, inv_p,
+                                       lane, stage);
   }
 }
 
-template <bool kStaged>
+template <bool kStaged, bool kTail>
 __global__ void __launch_bounds__(kThreads)
     quantize_pack_kernel(const float* __restrict__ delta, const uint32_t* __restrict__ bits,
                          uint8_t* __restrict__ packed, float* __restrict__ scales, long long m,
                          int B, int kind, float p, float inv_p) {
-  quantize_rows<PredrawnBits, kStaged>(delta, PredrawnBits{bits}, packed, scales, m, B, kind,
-                                       p, inv_p);
+  quantize_rows<PredrawnBits, kStaged, kTail>(delta, PredrawnBits{bits}, packed, scales, m, B,
+                                              kind, p, inv_p);
 }
 
+template <bool kTail>
 __global__ void __launch_bounds__(kThreads)
     quantize_pack_prng_kernel(const float* __restrict__ delta, uint8_t* __restrict__ packed,
                               float* __restrict__ scales, long long m, int B, int kind,
                               float p, float inv_p,
                               const __grid_constant__ threefry::KeyTable table) {
-  quantize_rows<ThreefryBits, false>(delta, ThreefryBits{&table}, packed, scales, m, B, kind,
-                                     p, inv_p);
+  quantize_rows<ThreefryBits, false, kTail>(delta, ThreefryBits{&table}, packed, scales, m, B,
+                                            kind, p, inv_p);
 }
 
 // The grid: one warp per row, at most as many warps as the SMs hold at once
@@ -335,7 +342,10 @@ extern "C" int quantize_pack(const void* delta, const void* bits, void* packed, 
   const long long stage = (long long)kWarps * B * sizeof(float);
   const bool staged = stage <= kMaxStage;
   const int smem = staged ? (int)stage : 0;
-  auto* kernel = staged ? quantize_pack_kernel<true> : quantize_pack_kernel<false>;
+  auto* kernel = B % 128 ? (staged ? quantize_pack_kernel<true, true>
+                                   : quantize_pack_kernel<false, true>)
+                         : (staged ? quantize_pack_kernel<true, false>
+                                   : quantize_pack_kernel<false, false>);
   unsigned blocks = 0;
   if (int rc = grid_for(kernel, m, smem, &blocks)) return rc;
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
@@ -358,9 +368,10 @@ extern "C" int quantize_pack_prng(const void* delta, void* packed, void* scales,
                             nseg)) {
     return (int)cudaErrorInvalidValue;
   }
+  auto* kernel = B % 128 ? quantize_pack_prng_kernel<true> : quantize_pack_prng_kernel<false>;
   unsigned blocks = 0;
-  if (int rc = grid_for(quantize_pack_prng_kernel, m, 0, &blocks)) return rc;
-  quantize_pack_prng_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  if (int rc = grid_for(kernel, m, 0, &blocks)) return rc;
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)delta, (uint8_t*)packed, (float*)scales, m, B, kind, p, inv_p, table);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,17 @@
-"""Synthetic LM token stream (numpy only; the port's copy of
-``repro.data.pipeline``'s ``LMStream`` / ``make_lm_batch``).
+"""Synthetic data, numpy only: the port's copy of ``repro.data.pipeline``'s
+LM stream (``LMStream`` / ``make_lm_batch``) and convex problems
+(``logreg_data`` / ``logistic_loss_and_grad``).
 
-A deterministic synthetic language with learnable structure — an order-1
-affine-mod grammar plus noise — so losses genuinely decrease; each worker
-has its own grammar coefficients (heterogeneous local data).
+The LM stream is a deterministic synthetic language with learnable
+structure (an order-1 affine-mod grammar plus noise), so losses genuinely
+decrease; each worker has its own grammar coefficients (heterogeneous local
+data).  The convex data are the same numpy draws as the JAX package's, so the
+arrays are identical.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict
 
@@ -15,7 +19,7 @@ import numpy as np
 
 from repro_torch.configs.shapes import input_shapes
 
-__all__ = ["LMStream", "make_lm_batch"]
+__all__ = ["LMStream", "make_lm_batch", "logreg_data", "logistic_loss_and_grad"]
 
 
 @dataclass
@@ -55,3 +59,41 @@ def make_lm_batch(cfg, shape, step: int, seed: int = 0,
     if "labels" in shapes:
         out["labels"] = np.roll(out["tokens"], -1, axis=1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Convex problems (paper Sec. 6 / M.2)
+# ---------------------------------------------------------------------------
+
+def logreg_data(problem):
+    """Synthetic binary classification split across heterogeneous workers
+    (a :class:`~repro_torch.configs.diana_paper.LogRegProblem`).
+
+    Each worker's feature distribution is shifted and scaled differently (no
+    similarity between the D_i: the paper's setting).  Returns features
+    ``(n_workers, m, dim)`` f32 and labels ``(n_workers, m)`` in {-1, +1}."""
+    rng = np.random.default_rng(problem.seed)
+    n, d, w = problem.n_samples, problem.dim, problem.n_workers
+    m = n // w
+    true_w = rng.standard_normal(d) / math.sqrt(d)
+    feats, labels = [], []
+    for i in range(w):
+        shift = 0.5 * rng.standard_normal(d) * (i / max(w - 1, 1))
+        scale = 1.0 + 0.5 * (i / max(w - 1, 1))
+        X = rng.standard_normal((m, d)) * scale + shift
+        X /= np.linalg.norm(X, axis=1, keepdims=True).clip(1e-8)   # row-normalised
+        logits = X @ true_w + 0.1 * rng.standard_normal(m)
+        y = np.where(logits > 0, 1.0, -1.0)
+        feats.append(X)
+        labels.append(y)
+    return np.stack(feats).astype(np.float32), np.stack(labels).astype(np.float32)
+
+
+def logistic_loss_and_grad(w, X, y, l2: float):
+    """One worker's regularised logistic loss and gradient (numpy):
+    ``mean log(1 + exp(-y x.w)) + l2/2 ||w||^2``."""
+    z = y * (X @ w)
+    loss = np.mean(np.log1p(np.exp(-z))) + 0.5 * l2 * float(w @ w)
+    sig = 1.0 / (1.0 + np.exp(z))
+    grad = -(X * (y * sig)[:, None]).mean(0) + l2 * w
+    return loss, grad

@@ -6,7 +6,9 @@ Replaces ``src/repro/kernels/quantize_pack.py:quantize_pack`` and
 ``:177``) with ``csrc/quantize_pack.cu``: one warp per quantization row
 reduces the row's ``||.||_p`` scale, then each lane turns groups of 4
 consecutive coordinates (16-byte loads of delta, and pre-drawn bits or
-threefry words computed in registers) into packed bytes.
+threefry words computed in registers) into packed bytes.  Any block size
+that is a multiple of 4 (the 2-bit packing's unit): the trainer's 2048 and
+the convex harness's 8-64 alike.
 
 The in-kernel generator is counter-mode threefry2x32, the JAX package's
 ``jax.random.bits``: segment ``i`` of the rows draws
@@ -60,8 +62,8 @@ def _check_delta(delta: torch.Tensor, name: str) -> torch.Tensor:
     if delta.dim() != 2 or delta.dtype != torch.float32:
         raise ValueError(f"{name}: delta must be (m, B) float32, got {tuple(delta.shape)} "
                          f"{delta.dtype}")
-    if delta.shape[1] % 128:
-        raise ValueError(f"block size {delta.shape[1]} must be a multiple of 128")
+    if delta.shape[1] % 4 or delta.shape[1] == 0:
+        raise ValueError(f"block size {delta.shape[1]} must be a positive multiple of 4")
     delta = delta.contiguous()
     if delta.data_ptr() % 16:
         raise ValueError(f"{name}: delta must be 16-byte aligned")

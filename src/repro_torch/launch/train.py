@@ -36,6 +36,15 @@ Each step:
    gives ``ghat``, rounded to the leaf dtypes;
 5. momentum and the parameter write-back.
 
+``--vr`` (VR-DIANA) adds a second forward and backward per worker, at the
+worker's snapshot on the same batch: the worker encodes the control variate
+``g - g_snap + mu_w`` instead of ``g``, and its coin (forced at step 0)
+refreshes its snapshot to the parameters and ``mu_w`` to ``g``
+(``repro/launch/train.py:413-428``).  ``--down-method`` compresses the f32
+``ghat`` once more on the server's side (its own memory ``h_down``, the key
+``fold_in(step_key, DOWN_FOLD)``) before step 5: one more encode and one
+decode per step.
+
 The logged loss is the mean over the workers (all-reduced across ranks).
 Entry points run on ``cuda`` and raise without a GPU unless the caller asks
 for the CPU (``--device cpu``), where the kernels' plain versions run.
@@ -64,7 +73,9 @@ from repro_torch.core import prng
 from repro_torch.core.bucket import bucketed_compressor
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import available_methods
-from repro_torch.core.diana import aggregate_distributed, bucket_layout, worker_key
+from repro_torch.core.diana import (DOWN_FOLD, aggregate_distributed, bucket_layout,
+                                    downlink_round, worker_key)
+from repro_torch.core.vr import control_variate, reference_coins, resolve_vr_p
 from repro_torch.core.numerics import div_n
 from repro_torch.data.pipeline import make_lm_batch
 from repro_torch.models.transformer import init_model, train_loss
@@ -103,7 +114,8 @@ def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: floa
         raise NotImplementedError(f"inner optimizer {inner!r} is not ported yet")
     comp = compression or CompressionConfig(
         method=cfg.compression, p=cfg.comp_p, block_size=cfg.comp_block, k=cfg.comp_k,
-        h_dtype=cfg.h_dtype, bucketed=cfg.comp_bucketed)
+        h_dtype=cfg.h_dtype, bucketed=cfg.comp_bucketed, vr=cfg.vr, vr_p=cfg.vr_p,
+        down_method=cfg.comp_down_method, down_k=cfg.comp_down_k)
     return DianaOptimizer(comp, momentum(beta) if inner == "momentum" else sgd(),
                           schedule=constant_schedule(lr))
 
@@ -132,6 +144,29 @@ def _finish(opt: DianaOptimizer, params, opt_state, ghat, loss):
     return params, new_opt, {"loss": loss, "ghat_norm": gnorm, "step": new_opt.step}
 
 
+def _snapshot_grads(cfg, snapshot, w: int, batch):
+    """VR's second backward: the gradient at worker ``w``'s snapshot on the
+    worker's batch (``train_loss`` is functional in its parameters)."""
+    snap = {p: s[w].detach().requires_grad_() for p, s in snapshot.items()}
+    grads = torch.autograd.grad(train_loss(snap, batch, cfg), list(snap.values()))
+    return dict(zip(snap, grads))
+
+
+def _copy_into(held, fresh):
+    """Write a fresh state (tensor, dict or NamedTuple of them) into the held
+    buffers, so that each memory stays one buffer."""
+    if held is None or fresh is held:
+        return
+    if isinstance(held, torch.Tensor):
+        held.copy_(fresh)
+    elif isinstance(held, dict):
+        for p in held:
+            _copy_into(held[p], fresh[p])
+    else:
+        for h, f in zip(held, fresh):
+            _copy_into(h, f)
+
+
 def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
     """Returns ``step(params, opt_state, batch, key) -> (params, opt_state,
     metrics)`` running the ``n_workers`` workers in turn.  ``params``
@@ -144,7 +179,12 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
         comp = bucketed_compressor(opt.compression, layout)
         dp = layout.padded_size
         hw, hs = opt_state.diana.h_worker, opt_state.diana.h_server
+        vr = opt_state.diana.vr
         leaves = [params[p] for p in layout.paths]
+        if vr is not None:
+            # reference_coins: worker w's coin is vr_coin(fold_in(key, w))
+            coins = (reference_coins(key, opt.compression.vr_p, n_workers)
+                     | (opt_state.step == 0)).tolist()
         g_flat = torch.empty(dp, dtype=torch.float32, device=device)
         # The workers' payloads go straight into their rows of one stacked
         # buffer (the all-gather's output shape): no per-worker payloads to
@@ -153,9 +193,22 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
         gathered = comp.gathered(n_workers, device)
         losses = []
         for w in range(n_workers):
-            loss = train_loss(params, _worker_batch(batch, w, n_workers), cfg)
-            grads = torch.autograd.grad(loss, leaves)
-            layout.flatten(dict(zip(layout.paths, grads)), out=g_flat)
+            wbatch = _worker_batch(batch, w, n_workers)
+            loss = train_loss(params, wbatch, cfg)
+            grads = dict(zip(layout.paths, torch.autograd.grad(loss, leaves)))
+            if vr is not None:
+                g_snap = _snapshot_grads(cfg, vr.snapshot, w, wbatch)
+                with torch.no_grad():
+                    k = control_variate(grads, g_snap, {p: m[w] for p, m in vr.mu.items()})
+                    del g_snap
+                    layout.flatten(k, out=g_flat)
+                    del k
+                    if coins[w]:   # refresh: w_w <- x, mu_w <- the minibatch gradient
+                        for p in layout.paths:
+                            vr.snapshot[p][w].copy_(params[p])
+                            vr.mu[p][w].copy_(grads[p])
+            else:
+                layout.flatten(grads, out=g_flat)
             del grads  # this worker's gradient is freed before the next backward
             losses.append(loss.detach())
             with torch.no_grad():
@@ -174,7 +227,17 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
             if new_hs is not hs:
                 hs.copy_(new_hs)  # the server memory stays one buffer
             del new_hs
-            ghat = layout.unflatten(ghat_flat, cast=True)
+            h_down = opt_state.diana.h_down
+            if h_down is not None:
+                # the compressed broadcast of the f32 ghat, before the cast
+                ghat, new_h_down = downlink_round(layout.unflatten(ghat_flat, cast=False),
+                                                  h_down, prng.fold_in(key, DOWN_FOLD),
+                                                  opt.compression)
+                del ghat_flat
+                _copy_into(h_down, new_h_down)
+                ghat = {p: ghat[p].to(params[p].dtype) for p in layout.paths}
+            else:
+                ghat = layout.unflatten(ghat_flat, cast=True)
         return _finish(opt, params, opt_state, ghat, torch.stack(losses).mean())
 
     return step
@@ -196,15 +259,21 @@ def build_distributed_step(cfg, opt: DianaOptimizer):
 
     def step(params, opt_state, batch, key):
         paths = list(params)
-        loss = train_loss(params, _worker_batch(batch, rank, n_workers), cfg)
+        wbatch = _worker_batch(batch, rank, n_workers)
+        loss = train_loss(params, wbatch, cfg)
         grads = dict(zip(paths, torch.autograd.grad(loss, [params[p] for p in paths])))
+        extra = {}
+        if opt_state.diana.vr is not None:
+            extra.update(vr_aux=(_snapshot_grads(cfg, opt_state.diana.vr.snapshot, 0, wbatch),
+                                 grads),
+                         params_local=params, vr_force_refresh=opt_state.step == 0)
+        if opt_state.diana.h_down is not None:
+            extra["down_key"] = prng.fold_in(key, DOWN_FOLD)   # before the worker fold
         with torch.no_grad():
             ghat, new = aggregate_distributed(grads, opt_state.diana, worker_key(key, rank),
-                                              opt.compression)
-            del grads
-            for held, fresh in zip(opt_state.diana, new):
-                if fresh is not held:
-                    held.copy_(fresh)  # each memory stays one buffer
+                                              opt.compression, **extra)
+            del grads, extra
+            _copy_into(opt_state.diana, new)  # each memory stays one buffer
             del new
             loss = loss.detach().clone()
             dist.all_reduce(loss, op=dist.ReduceOp.SUM)
@@ -247,6 +316,17 @@ def main(argv=None):
     ap.add_argument("--comp-k", type=int, default=None,
                     help="coordinates kept per leaf by rand-k / top-k (default: the "
                          "config's comp_k, 64)")
+    ap.add_argument("--down-method", default=None, choices=[None, *available_methods()],
+                    help="compress the server broadcast too (bidirectional DIANA), with "
+                         "its own memory h_down; default keeps it exact")
+    ap.add_argument("--down-k", type=int, default=None,
+                    help="coordinates kept by a sparse downlink (default: --comp-k)")
+    ap.add_argument("--vr", action="store_true",
+                    help="VR-DIANA: L-SVRG control variates under the compressed "
+                         "differences (a second backward per worker at its snapshot)")
+    ap.add_argument("--vr-p", type=float, default=None,
+                    help="snapshot-refresh probability (default 1/m, m the per-worker "
+                         "batch)")
     ap.add_argument("--mesh", default=None,
                     help="NxM: N data-parallel workers (M = 1), run in turn on one device, "
                          "or one per rank under torchrun (N = the world size)")
@@ -269,7 +349,14 @@ def main(argv=None):
     if args.batch or args.seq:
         shape = ShapeConfig(shape.name, args.seq or shape.seq_len,
                             args.batch or shape.global_batch, shape.kind)
+    if args.down_method:
+        cfg = replace(cfg, comp_down_method=args.down_method)
+    if args.down_k:
+        cfg = replace(cfg, comp_down_k=args.down_k)
     n_workers = parse_mesh(args.mesh)
+    if args.vr:
+        m_local = max(1, shape.global_batch // n_workers)
+        cfg = replace(cfg, vr=True, vr_p=resolve_vr_p(args.vr_p, m_local))
     distributed = "WORLD_SIZE" in os.environ
     opt = make_optimizer(cfg, lr=args.lr, inner=args.inner)
     if distributed:

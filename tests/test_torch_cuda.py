@@ -80,9 +80,9 @@ def test_unpack_reduce_family(dev, n, m, d_short):
 
 
 def test_wrappers_reject_bad_inputs(dev):
-    delta = torch.zeros((4, 100), device=dev)
+    delta = torch.zeros((4, 102), device=dev)     # a block the 2-bit packing cannot split
     with pytest.raises(ValueError):
-        ops.quantize_pack_op(delta, torch.zeros((4, 100), dtype=torch.int32, device=dev),
+        ops.quantize_pack_op(delta, torch.zeros((4, 102), dtype=torch.int32, device=dev),
                              p=math.inf)
     with pytest.raises(ValueError):
         ops.unpack_reduce_op(torch.zeros((2, 3, 8), dtype=torch.uint8, device=dev),
@@ -383,14 +383,17 @@ _MANY_ROWS = (1700, 0, 1, 3000, 0, 299, 2)      # 5002 rows: more than the grid'
 @pytest.mark.parametrize("seg_rows,b", [((13,), 128), ((1, 1, 5, 1, 3, 2), 128),
                                         ((1,), 2048), ((3, 0, 40, 1), 2048),
                                         ((2, 0, 9, 1), 4096), (_MANY_ROWS, 128),
-                                        (_MANY_ROWS, 2048), (_MANY_ROWS, 4096)])
+                                        (_MANY_ROWS, 2048), (_MANY_ROWS, 4096),
+                                        ((3,), 8), ((14,), 8), ((2,), 16), ((1, 1), 64),
+                                        ((4, 0, 3), 100), ((5, 2), 200), (_MANY_ROWS, 8)])
 def test_quantize_pack_prng(dev, p, seg_rows, b):
     """Bitwise the bits kernel fed ``threefry_bits`` per segment (every p: the
     same reduction order), and the plain version (p = inf; else as
     ``quantize_pack``'s tolerance).  B = 2048 stages the pre-drawn rows in
     shared memory, 4096 does not; a few rows leave most of the grid's warps
     idle, 5002 rows make every warp walk several; empty segments and
-    boundaries between rows."""
+    boundaries between rows; blocks below 128 (the convex harness's 8-64,
+    lanes without a group) and blocks with a tail of groups (100, 200)."""
     m = sum(seg_rows)
     g = torch.Generator(device=dev).manual_seed(m + b)
     delta = torch.randn((m, b), generator=g, device=dev)
@@ -542,8 +545,8 @@ def test_prng_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         ops.quantize_pack_prng_op(torch.zeros((3, 128), device=dev), keys[:2], (1, 1),
                                   p=math.inf)
-    with pytest.raises(ValueError):           # block not a multiple of 128
-        ops.quantize_pack_prng_op(torch.zeros((3, 100), device=dev), keys[:1], (3,),
+    with pytest.raises(ValueError):           # block not a multiple of 4
+        ops.quantize_pack_prng_op(torch.zeros((3, 102), device=dev), keys[:1], (3,),
                                   p=math.inf)
 
 

@@ -26,6 +26,14 @@ trainer, on 4 gloo ranks of CPU processes.
   memories bitwise; ``none`` step by step from the same state, each
   parameter within what its all-reduce order can move it.
 * The wire format against the JAX package's ``fuse_payload`` bytes.
+* VR-DIANA and the compressed downlink together (``vr=True``, ``vr_p =
+  0.5``, each operator as its own downlink), on inputs on the 1/64 grid
+  (``tests/test_torch_vr.py``): ``aggregate_distributed`` against
+  ``aggregate_shardmap`` (driven as in ``tests/test_downlink.py:287``) over
+  two rounds, in both layouts, bit for bit in ghat, every rank's
+  ``h_worker`` row, ``h_server``, ``h_down`` and the rank's (snapshot, mu)
+  row, all five operators; and the distributed trainer with ``--vr`` /
+  ``--down-method`` against the in-turn ``--mesh 4x1`` trainer.
 """
 
 import contextlib
@@ -49,8 +57,10 @@ from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.core import prng
 from repro_torch.core.bucket import fuse_payload, payload_recipe, unfuse_payload
 from repro_torch.core.compression import CompressionConfig
-from repro_torch.core.diana import (aggregate_distributed, bucket_layout, bucketed_compressor,
-                                    init_state, reference_init, reference_step, worker_key)
+from repro_torch.core.diana import (DOWN_FOLD, aggregate_distributed, bucket_layout,
+                                    bucketed_compressor, init_state, reference_init,
+                                    reference_step, worker_key)
+from repro_torch.core.vr import VRState
 from repro_torch.data.pipeline import make_lm_batch
 from repro_torch.launch import train
 from repro_torch.models.transformer import init_model, train_loss
@@ -67,6 +77,11 @@ EXP2_RTOL = 4.1e-6  # XLA CPU exp2 at integer arguments (tests/test_torch_natura
 F32_EPS = 2.0 ** -23
 TRAIN_METHODS = ("diana", "natural", "randk", "topk_ef", "none")
 TRAIN_SHAPE = ShapeConfig("t", 16, 4, "train")
+# The trainer's VR and downlink configurations (``--vr --vr-p 0.5``,
+# ``--down-method ...``), each on the ``diana`` uplink.
+TRAIN_VR_DOWN = {"vr": dict(vr=True, vr_p=0.5), "down-diana": dict(comp_down_method="diana"),
+                 "vr+down-topk_ef": dict(vr=True, vr_p=0.5, comp_down_method="topk_ef",
+                                         comp_down_k=512)}
 
 
 def _train_config():
@@ -123,6 +138,7 @@ def leaves(prefix, t, out):
     else:
         out[prefix] = np.asarray(t)
 
+
 out = {}
 for method, kw in CASES.items():
     for layout in ("bucketed", "perleaf"):
@@ -153,8 +169,70 @@ for method, kw in CASES.items():
             out[f"natural/codes/perleaf/{p}"] = np.stack([np.asarray(pcomp.compress(
                 g[w][p].reshape(-1), jax.random.split(jax.random.fold_in(k0, w), 2)[i]).packed)
                 for w in range(n)])
+# VR-DIANA with each operator as its own downlink (tests/test_downlink.py:287)
+from repro.core import VRState
+from repro.core.diana import DOWN_FOLD
+vdata = np.load(sys.argv[3])
+vparams = {p: jnp.asarray(vdata[f"params/{p}"]) for p in params}
+tmap = jax.tree_util.tree_map
+
+def vr_fn(cfg, st):
+    def body(g_st, snap_st, mu_st, gsnap_st, mucand_st, h_w, h_s, h_d, k):
+        own = lambda t: tmap(lambda x: x[0], t)
+        stl = DianaState(h_w, h_s, VRState(snapshot=snap_st, mu=mu_st), h_d)
+        wkey = jax.random.fold_in(k, jax.lax.axis_index("data"))
+        ghat, ns = aggregate_shardmap(
+            own(g_st), stl, wkey, cfg, axis_names=("data",), n_workers=n,
+            vr_aux=(own(gsnap_st), own(mucand_st)), params_local=vparams,
+            down_key=jax.random.fold_in(k, DOWN_FOLD))
+        return ghat, ns.h_worker, ns.h_server, ns.h_down, ns.vr.snapshot, ns.vr.mu
+    sh = lambda t: tmap(lambda _: P("data"), t)
+    rep = lambda t: tmap(lambda _: P(), t)
+    hd = tmap(lambda _: P(), st.h_down)
+    return shard_map(body, mesh=mesh,
+        in_specs=(sh(params), sh(params), sh(params), sh(params), sh(params),
+                  tmap(lambda _: P("data"), st.h_worker), rep(st.h_server), hd, P()),
+        out_specs=(rep(params), tmap(lambda _: P("data"), st.h_worker), rep(st.h_server),
+                   hd, sh(params), sh(params)),
+        axis_names={"data"}, check_vma=False)
+
+for method, kw in CASES.items():
+    for layout in ("bucketed", "perleaf"):
+        cfg = CompressionConfig(method=method, p=math.inf, bucketed=layout == "bucketed",
+                                vr=True, vr_p=0.5, down_method=method, down_k=kw.get("k"), **kw)
+        st = init_state(vparams, cfg, n)
+        hw, hs, hd = st.h_worker, st.h_server, st.h_down
+        snap = {p: jnp.asarray(vdata[f"snap/{p}"]) for p in params}
+        mu = {p: jnp.asarray(vdata[f"mu/{p}"]) for p in params}
+        f = jax.jit(vr_fn(cfg, st))
+        for r in range(%(rounds)d):
+            tree = lambda name: {p: jnp.asarray(vdata[f"{name}/{p}{r}"]) for p in params}
+            ghat, hw, hs, hd, snap, mu = f(tree("g"), snap, mu, tree("gsnap"), tree("mucand"),
+                                           hw, hs, hd, jax.random.fold_in(key, r))
+            tag = f"vrdown/{method}/{layout}/{r}"
+            for name, t in (("ghat", ghat), ("hw", hw), ("hs", hs), ("hd", hd),
+                            ("snap", snap), ("mu", mu)):
+                leaves(f"{tag}/{name}", t, out)
 np.savez(outp, **out)
 """
+
+
+def _vr_inputs():
+    """VR and downlink rounds: parameters, snapshots and mu, and each round's
+    gradients, gradients at the snapshots and mu candidates, on the 1/64
+    grid (numpy-seeded)."""
+    rng = np.random.default_rng(11)
+
+    def grid(shape):
+        return (np.round(rng.standard_normal(shape) * 64) / 64).astype(np.float32)
+    data = {}
+    for p, s in SHAPES.items():
+        data[f"params/{p}"] = grid(s)
+        data[f"snap/{p}"], data[f"mu/{p}"] = grid((N, *s)), grid((N, *s))
+        for r in range(ROUNDS):
+            for name in ("g", "gsnap", "mucand"):
+                data[f"{name}/{p}{r}"] = grid((N, *s))
+    return data
 
 
 def _inputs():
@@ -299,7 +377,50 @@ def _rank_main(rank, tmp, store):
                     _save(out, f"{method}/{layout}/{r}/ref",
                           (("ghat", ghat), ("hw", ref.h_worker), ("hs", ref.h_server)))
 
+    vdata = np.load(tmp / "vr_inputs.npz")
+    vparams = {p: torch.from_numpy(vdata[f"params/{p}"]) for p in SHAPES}
+    for method in CASES:
+        for layout in LAYOUTS:
+            cfg = replace(_config(method, layout), vr=True, vr_p=0.5, down_method=method,
+                          down_k=CASES[method].get("k"))
+            state = init_state(vparams, cfg, 1)
+            state = state._replace(vr=VRState(
+                snapshot={p: torch.from_numpy(vdata[f"snap/{p}"][rank:rank + 1]) for p in SHAPES},
+                mu={p: torch.from_numpy(vdata[f"mu/{p}"][rank:rank + 1]) for p in SHAPES}))
+            for r in range(ROUNDS):
+                row = {name: {p: torch.from_numpy(vdata[f"{name}/{p}{r}"][rank]) for p in SHAPES}
+                       for name in ("g", "gsnap", "mucand")}
+                kr = prng.fold_in(key, r)
+                ghat, state = aggregate_distributed(
+                    row["g"], state, worker_key(kr, rank), cfg,
+                    vr_aux=(row["gsnap"], row["mucand"]), params_local=vparams,
+                    down_key=prng.fold_in(kr, DOWN_FOLD))
+                _save(out, f"vrdown/{method}/{layout}/{r}",
+                      (("ghat", ghat), ("hw", state.h_worker), ("hs", state.h_server),
+                       ("hd", state.h_down), ("snap", state.vr.snapshot), ("mu", state.vr.mu)))
+
     base = _train_config()
+    for name, extra in TRAIN_VR_DOWN.items():
+        cfg = replace(base, compression="diana", comp_k=4096, **extra)
+        params0 = init_model(cfg, "cpu", seed=1)
+        opt = train.make_optimizer(cfg, lr=3e-4)
+        t_loss, t_params, t_diana = _trainer_states(
+            cfg, params0, 2, train.build_train_step(cfg, opt, N, "cpu"), opt.init(params0, N))
+        d_loss, d_params, d_diana = _trainer_states(
+            cfg, params0, 2, train.build_distributed_step(cfg, opt), opt.init(params0, 1))
+        rows = {"h_worker": (d_diana.h_worker[0], t_diana.h_worker[rank]),
+                "h_server": (d_diana.h_server, t_diana.h_server)}
+        if d_diana.h_down is not None:
+            rows["h_down"] = (d_diana.h_down, t_diana.h_down)
+        if d_diana.vr is not None:
+            for p in t_params:
+                rows[f"snapshot/{p}"] = (d_diana.vr.snapshot[p][0], t_diana.vr.snapshot[p][rank])
+                rows[f"mu/{p}"] = (d_diana.vr.mu[p][0], t_diana.vr.mu[p][rank])
+        summary["train"][name] = {
+            "params": all(torch.equal(d_params[p], t_params[p]) for p in t_params),
+            **{k: bool(torch.equal(a, b)) for k, (a, b) in rows.items()},
+            "losses": [d_loss, t_loss], "param_digest": _digest(d_params),
+        }
     for method in TRAIN_METHODS:
         cfg = replace(base, compression=method, comp_k=4096)
         params0 = init_model(cfg, "cpu", seed=1)
@@ -350,11 +471,12 @@ def runs(tmp_path_factory):
     """The JAX subprocess and the 4 gloo ranks, run side by side."""
     tmp = tmp_path_factory.mktemp("dist")
     np.savez(tmp / "inputs.npz", **_inputs())
+    np.savez(tmp / "vr_inputs.npz", **_vr_inputs())
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     script = JAX_SCRIPT % dict(cases=CASES, seed=SEED_KEY, rounds=ROUNDS)
     jproc = subprocess.Popen([sys.executable, "-c", script, str(tmp / "inputs.npz"),
-                              str(tmp / "jax.npz")], env=env, stdout=subprocess.PIPE,
+                              str(tmp / "jax.npz"), str(tmp / "vr_inputs.npz")], env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True)
     try:
         _spawn(tmp)
@@ -523,6 +645,44 @@ def test_distributed_trainer_equals_in_turn_trainer(runs, method):
     assert len(digests) == 1  # the same parameters on every rank
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("method", list(CASES))
+def test_vr_downlink_round_bitwise_equals_aggregate_shardmap(runs, method, layout):
+    """VR and the downlink: ghat, h_server and h_down on every rank, and each
+    rank's h_worker, snapshot and mu rows, equal the JAX package's
+    distributed round bit for bit, over two rounds (the refreshed rows and
+    h_down carried into the second)."""
+    jax_out, ranks, _ = runs
+    for r in range(ROUNDS):
+        tag = f"vrdown/{method}/{layout}/{r}"
+        keys = [k for name in ("ghat", "hs", "hd") for k in _keys(jax_out, f"{tag}/{name}")]
+        assert keys and any("/hd" in k for k in keys)
+        for k in keys:
+            for rank in range(N):
+                assert _same_bits(ranks[rank][k], jax_out[k]), (k, rank)
+        rows = [k for name in ("hw", "snap", "mu") for k in _keys(jax_out, f"{tag}/{name}")]
+        assert len(rows) >= 5
+        for k in rows:
+            for rank in range(N):
+                assert _same_bits(ranks[rank][k][0], jax_out[k][rank]), (k, rank)
+
+
+@pytest.mark.parametrize("name", list(TRAIN_VR_DOWN))
+def test_distributed_trainer_vr_downlink_equals_in_turn(runs, name):
+    """``--vr`` and ``--down-method``: 4 ranks x 1 worker against the in-turn
+    trainer's 4 workers, 2 steps (step 0 forces the refresh, step 1 draws
+    the coins): parameters, h_worker, h_server, h_down and each rank's
+    (snapshot, mu) row bit for bit."""
+    _, _, summaries = runs
+    for s in summaries:
+        got = s["train"][name]
+        flags = {k: v for k, v in got.items() if isinstance(v, bool)}
+        assert all(flags.values()) and len(flags) >= 3, got
+        for d, t in zip(*got["losses"]):
+            assert math.isclose(d, t, rel_tol=1e-6) and math.isfinite(d)
+    assert len({s["train"][name]["param_digest"] for s in summaries}) == 1
+
+
 def test_trainer_cli_runs_one_worker_per_rank(runs):
     """``main`` under a torchrun-like environment: rank 0 logs one step."""
     _, _, summaries = runs
@@ -607,18 +767,17 @@ def test_world_of_one_trainer_bitwise_in_turn(world_of_one, one_thread, method):
     assert torch.equal(d_diana.h_server, t_diana.h_server)
 
 
-def test_policy_vr_and_chunked_configs_refused(world_of_one):
+def test_policy_and_chunked_configs_refused(world_of_one):
     """A compression policy raises NotImplementedError naming its ROADMAP.md
-    queue 1 item; VR and the chunked wire cannot even be asked for, since
-    the port's ``CompressionConfig`` has no field for them yet."""
+    queue 1 item; the chunked wire cannot even be asked for, since the
+    port's ``CompressionConfig`` has no field for it yet."""
     cfg = _config("diana", "bucketed")
     grads = {p: torch.ones(s) for p, s in SHAPES.items()}
     state = init_state(grads, cfg, 1)
     with pytest.raises(NotImplementedError, match="item 4"):
         aggregate_distributed(grads, state, prng.PRNGKey(0), object())
-    for later in (dict(vr=True), dict(chunk_bytes=256)):
-        with pytest.raises(TypeError, match=next(iter(later))):
-            replace(cfg, **later)
+    with pytest.raises(TypeError, match="chunk_bytes"):
+        replace(cfg, chunk_bytes=256)
     aggregate_distributed(grads, state, prng.PRNGKey(0), cfg)
 
 
