@@ -54,8 +54,11 @@ Phases (each prints its lines; any failure exits non-zero):
 4. reference: two training steps of ``reduced(llama3.2-1b)`` (f32) on the
    card through the kernels, against the same steps with every kernel
    swapped for its plain version (bitwise: losses, parameters, memories),
-   for ``diana``, ``natural``, ``randk``, ``topk_ef`` and ``none``, and the
-   step-0 loss against its float64 evaluation (rel 1e-5);
+   for ``diana``, ``natural``, ``randk``, ``topk_ef`` and ``none``, each
+   bucketed and ``--per-leaf-agg`` (the kernels at one leaf's shapes,
+   uint16 sparse indices included), and ``--comp-policy default`` (three
+   groups side by side), and the step-0 loss against its float64
+   evaluation (rel 1e-5);
 5. the main path: the trainer's ``build_train_step`` on llama3.2-1b at full width
    (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256, bf16, remat full),
    cut to 8 of 16 layers and a global batch of 8 at seq 4096, 4 workers,
@@ -91,6 +94,24 @@ Phases (each prints its lines; any failure exits non-zero):
 13. the dense-sum round: ``BucketedCompressor(IdentityCompressor(),
    layout).decode_sum`` over a gathered (4, Dp) payload of 4 workers: one
    ``dense_decode_sum``, bitwise its plain version;
+13a. per-leaf: the in-turn trainer with ``--per-leaf-agg`` on the 8-layer
+   full-width slice, 4 workers, batch 8 x 4096, 2 steps, for ``diana``,
+   ``natural``, ``randk``, ``topk_ef`` and ``none``, bitwise (losses,
+   parameters, every leaf's ``h_worker`` rows and ``h_server`` against its
+   stretch of the bucket) the bucketed trainer's 2 steps from the same
+   state, batches and keys, which stay on the card meanwhile (a memoryless
+   operator's memories, zero on both sides, are checked zero instead);
+   launches exact per step: each kernel once per leaf and worker, the
+   server's once per leaf (12 leaves);
+13b. policy: llama3.2-1b's curated ``--comp-policy default`` on the same
+   slice and batch, in turn at n = 4, 2 steps: its three groups (identity
+   on the norm scales, top-k EF k = 256 on ``embed`` and ``lm_head``,
+   ternary on the rest) with their sizes and the uplink's wire bits per
+   coordinate (``policy_bits_per_dim``), one worker's top-k selection over
+   the top-k group timed alone, launches exact per step: ``dense_copy`` /
+   ``dense_decode_sum_mean``, ``sparse_gather`` / ``sparse_decode_sum`` /
+   ``sparse_decode_sum_mean`` and ``quantize_pack_prng`` /
+   ``unpack_reduce`` / ``unpack_reduce_apply`` in one step;
 14. distributed: the ``torch.distributed`` round through the trainer's
    ``build_distributed_step`` in a world of one over NCCL, in this process
    (a ``HashStore``; NCCL puts no two ranks on one GPU): for ``diana``,
@@ -109,13 +130,18 @@ Phases (each prints its lines; any failure exits non-zero):
    ``h_down`` bitwise; launches exact per step (VR none of its own, a diana
    downlink 1 quantize_pack_prng + 1 unpack_reduce, a top-k EF downlink 1
    sparse_gather + 1 sparse_decode_sum);
+15b. policy in a world of one: ``--comp-policy default`` through
+   ``build_distributed_step`` (the identity group one all-reduce, each
+   other group one all-gather), 2 steps at a batch of 2 x 4096, bitwise
+   the in-turn trainer at n = 1 (every group's memories);
 16. the full depth: the distributed ``diana`` path on all 16 layers,
    world of one, 3 steps: finite losses, step times and peak memory.
 
 Each timed step starts from a Python collection (outside its time); its
 line gives the time of the collections inside it and the caching
 allocator's device allocations, frees and retries.  Each kernel is credited
-with the launches of the path or round that runs it.
+with the launches of the path or round that runs it (``launches``), and
+with those of every other path that ran it (``paths``: path -> launches).
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -194,6 +220,18 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
 
 
+def state_leaves(x):
+    """The tensors of a DIANA state (memories, VR slot, h_down; bucketed,
+    per leaf or grouped) in a fixed order."""
+    if x is None:
+        return []
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in state_leaves(x[k])]
+    return [t for f in x for t in state_leaves(f)]
+
+
 def main() -> None:
     # ---------------------------------------------------------------- device
     if not torch.cuda.is_available():
@@ -209,7 +247,8 @@ def main() -> None:
         from repro_torch.core.compressors.randk import RandKCompressor, uniform_subset
         from repro_torch.core.compressors.ternary import TernaryCompressor
         from repro_torch.core.compressors.topk_ef import TopKEFCompressor
-        from repro_torch.core.diana import bucket_layout, worker_key
+        from repro_torch.core.diana import GROUP_FOLD, bucket_layout, worker_key
+        from repro_torch.core.policy import grouped_bucket_layout, policy_bits_per_dim
         from repro_torch.core.vr import resolve_vr_p
         from repro_torch.benchmarks.common import (fstar_logreg, run_logreg,
                                                    run_logreg_stochastic, stoch_problem)
@@ -852,9 +891,10 @@ def main() -> None:
     rbatches = [{k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(rcfg, rshape, s).items()}
                 for s in range(2)]
 
-    def train_small(method):
+    def train_small(method, bucketed, policy):
         params = {k: torch.nn.Parameter(v.detach().to(dev, copy=True)) for k, v in init.items()}
-        opt = make_optimizer(replace(rcfg, compression=method, comp_k=4096))
+        opt = make_optimizer(replace(rcfg, compression=method, comp_k=4096,
+                                     comp_bucketed=bucketed), policy=policy)
         st = opt.init(params, 2)
         fn = build_train_step(rcfg, opt, 2, dev)
         losses = []
@@ -867,31 +907,46 @@ def main() -> None:
     with torch.no_grad():
         loss64 = float(train_loss({k: v.to(dev, torch.float64) for k, v in init.items()},
                                   rbatches[0], f64))
-    for method in ("diana", "natural", "randk", "topk_ef", "none"):
-        k_loss, k_params, k_diana = train_small(method)
+    methods = ("diana", "natural", "randk", "topk_ef", "none")
+    for method, bucketed, policy in ([(m, True, None) for m in methods]
+                                     + [(m, False, None) for m in methods]
+                                     + [("diana", True, "default")]):
+        label = method + ("" if bucketed else " --per-leaf-agg") + (
+            "" if policy is None else f" --comp-policy {policy}")
+        build.reset_launches()
+        k_loss, k_params, k_diana = train_small(method, bucketed, policy)
+        kcounts = dict(build.LAUNCHES)
         on_card = ops._on_card
         ops._on_card = lambda t: False      # the same steps, every kernel -> its plain version
         try:
-            p_loss, p_params, p_diana = train_small(method)
+            p_loss, p_params, p_diana = train_small(method, bucketed, policy)
         finally:
             ops._on_card = on_card
+        k_leaves, p_leaves = state_leaves(k_diana), state_leaves(p_diana)
         same = (k_loss == p_loss
                 and all(torch.equal(k_params[k], p_params[k]) for k in k_params)
-                and torch.equal(k_diana.h_worker, p_diana.h_worker)
-                and torch.equal(k_diana.h_server, p_diana.h_server))
-        print(f"reference: reduced llama3.2-1b, {method}, 2 workers, 2 steps on the card: "
+                and len(k_leaves) == len(p_leaves)
+                and all(torch.equal(a, b) for a, b in zip(k_leaves, p_leaves)))
+        print(f"reference: reduced llama3.2-1b, {label}, 2 workers, 2 steps on the card: "
               f"losses {k_loss} with the kernels, {p_loss} with the plain versions (states "
-              f"bitwise equal: {same}); step-0 loss in float64 {loss64}")
+              f"bitwise equal: {same}, {len(k_leaves)} state tensors); kernel launches "
+              f"{kcounts}; step-0 loss in float64 {loss64}")
         if not same:
-            fail(f"the {method} training steps through the kernels differ from the plain "
+            fail(f"the {label} training steps through the kernels differ from the plain "
                  "versions")
         if not math.isclose(k_loss[0], loss64, rel_tol=1e-5):
             fail("the float32 training loss disagrees with its float64 evaluation")
-    del k_params, p_params, k_diana, p_diana, rbatches
+    del k_params, p_params, k_diana, p_diana, k_leaves, p_leaves, rbatches
     build.reset_launches()
 
     # --------------------------------------------------------- the main path
     credit = {}   # kernel name -> (launches, the path or round that ran it)
+    paths_run = {}   # kernel name -> {every other path that ran it: launches}
+
+    def also(path, counts):
+        """Credit every kernel of ``counts`` with its launches on ``path``."""
+        for name, n in counts.items():
+            paths_run.setdefault(name, {})[path] = n
 
     def expect(label, counts, want, path, names):
         """Exactly the launches ``want`` in ``counts``; credit the kernels
@@ -1145,6 +1200,129 @@ def main() -> None:
         fail("dense sum: the identity decode_sum is not the plain sum of the rows")
     del x, ig, isum
 
+    # ------------------------------------------------------ the per-leaf layout
+    # The in-turn trainer with --per-leaf-agg against the bucketed trainer,
+    # 2 steps each from the same state, batches and keys.  The bucketed
+    # run's parameters and memories stay on the card (22.5 GB at n = 4)
+    # while the per-leaf run takes its steps.
+    def inturn_run(pcfg, steps, label, policy=None):
+        """``steps`` in-turn steps at n = 4 on batch 8 x 4096 from the
+        path's initial state; returns losses, params, optimizer state,
+        launches."""
+        shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
+        opt = make_optimizer(pcfg, policy=policy)
+        params, opt_state = init_train_state(pcfg, opt, WORKERS, dev)
+        step_fn = build_train_step(pcfg, opt, WORKERS, dev)
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in make_lm_batch(pcfg, shape, s).items()} for s in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        build.reset_launches()
+        times, losses = [], []
+        for s in range(steps):
+            gc.collect()
+            t0 = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batches[s],
+                                             prng.fold_in(prng.PRNGKey(0), s))
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) and 0 < x < 20 for x in losses):
+            fail(f"{label}: non-finite or implausible losses {losses}")
+        print(f"{label}: {pcfg.n_layers} layers, batch {BATCH} x seq {SEQ}, {WORKERS} "
+              f"workers: losses {losses}; step times {times} s; peak memory {peak} B (held "
+              f"before the steps: params, state, batches and what the phase keeps {held} B); "
+              f"launches {counts}")
+        del batches, step_fn
+        return losses, params, opt_state, counts
+
+    n_leaves = layout.n_leaves
+    perleaf_step = {
+        "diana": {"quantize_pack_prng": WORKERS * n_leaves, "unpack_reduce": WORKERS * n_leaves,
+                  "unpack_reduce_apply": n_leaves},
+        "natural": {"nat_pack_prng": WORKERS * n_leaves, "nat_decode_sum": WORKERS * n_leaves,
+                    "nat_decode_sum_apply": n_leaves},
+        "randk": {"threefry_bits": WORKERS * n_leaves, "sparse_gather": WORKERS * n_leaves,
+                  "sparse_decode_sum": (WORKERS + 1) * n_leaves},
+        "topk_ef": {"sparse_gather": WORKERS * n_leaves, "sparse_decode_sum": WORKERS * n_leaves,
+                    "sparse_decode_sum_mean": n_leaves},
+        "none": {"dense_copy": WORKERS * n_leaves, "dense_decode_sum_mean": n_leaves},
+    }
+    for method in ("diana", "natural", "randk", "topk_ef", "none"):
+        pcfg = replace(cfg, compression=method, comp_k=COMP_K)
+        b_loss, b_params, b_state, _ = inturn_run(pcfg, 2, f"per-leaf: bucketed {method}")
+        b_diana, pcomp = b_state.diana, make_optimizer(pcfg).compression
+        stateful = pcomp.make().carries_state
+        if not stateful and (b_diana.h_worker.any() or b_diana.h_server.any()):
+            fail(f"per-leaf: the memoryless bucketed {method} run wrote its memories")
+        kept = ({k: v.detach() for k, v in b_params.items()},
+                b_diana.h_worker if stateful else None, b_diana.h_server if stateful else None)
+        blayout = bucket_layout(pcomp, kept[0])
+        del b_params, b_state, b_diana
+        torch.cuda.empty_cache()
+        l_loss, l_params, l_state, counts = inturn_run(
+            replace(pcfg, comp_bucketed=False), 2, f"per-leaf: {method} --per-leaf-agg")
+        want = {k: 2 * v for k, v in perleaf_step[method].items()}
+        if counts != want:
+            fail(f"per-leaf {method}: launches {counts}, expected {want}")
+        also(f"per-leaf {method} (8 layers, 4 workers, 2 steps)", counts)
+        b_params, b_hw, b_hs = kept
+        l_hw, l_hs = l_state.diana.h_worker, l_state.diana.h_server
+        same = (l_loss == b_loss and all(torch.equal(l_params[k], b_params[k]) for k in b_params))
+        for p, off, size in zip(blayout.paths, blayout.offsets, blayout.sizes):
+            if stateful:
+                same = (same and torch.equal(l_hw[p], b_hw[:, off:off + size])
+                        and torch.equal(l_hs[p], b_hs[off:off + size]))
+            else:
+                same = same and not (l_hw[p].any() or l_hs[p].any())
+        print(f"per-leaf: {method}: losses, parameters and each leaf's h_worker rows and "
+              f"h_server ({'against the bucket' if stateful else 'zero, memoryless'}) bitwise "
+              f"the bucketed trainer's: {same}")
+        if not same:
+            fail(f"per-leaf {method}: the per-leaf trainer differs from the bucketed trainer")
+        del kept, b_params, b_hw, b_hs, l_params, l_state, l_hw, l_hs
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- the policy
+    # llama3.2-1b's curated --comp-policy default: three groups in one step.
+    pol_opt = make_optimizer(cfg, policy="default")
+    glayout = grouped_bucket_layout(pol_opt.policy, meta)
+    print(f"policy: --comp-policy default = {cfg.comp_policy!r}: groups "
+          + ", ".join(f"{g} {l.n_leaves} leaves {l.size} coordinates (Dp {l.padded_size})"
+                      for g, l in zip(glayout.names, glayout.layouts))
+          + f"; uplink wire {policy_bits_per_dim(pol_opt.policy, glayout)!r} bits per "
+          f"coordinate (policy_bits_per_dim)")
+    ti = glayout.names.index("g01_topk_ef")
+    tcomp, tlay = TopKEFCompressor(256), glayout.layouts[ti]
+    g = torch.randn(tlay.padded_size, generator=gen, device=dev) * 1e-3
+    tkeys = prng.split(prng.fold_in(worker_key(prng.PRNGKey(7), 0), GROUP_FOLD + ti),
+                       tlay.n_leaves)
+
+    def select_topk():
+        for key, off, d in zip(tkeys, tlay.offsets, tlay.sizes):
+            tcomp._select(g[off:off + d], tcomp._k(d), key)
+    print(f"policy: one worker's top-k selection over the top-k group ({tlay.size} keys, "
+          f"k 256 per leaf): {time_ms(select_topk, 3):.3f} ms")
+    del g, tkeys, pol_opt
+    torch.cuda.empty_cache()
+    policy_step = {"dense_copy": WORKERS, "dense_decode_sum_mean": 1,
+                   "sparse_gather": WORKERS, "sparse_decode_sum": WORKERS,
+                   "sparse_decode_sum_mean": 1, "quantize_pack_prng": WORKERS,
+                   "unpack_reduce": WORKERS, "unpack_reduce_apply": 1}
+    _, p_params, p_state, counts = inturn_run(cfg, 2, "policy: in turn --comp-policy default",
+                                              policy="default")
+    want = {k: 2 * v for k, v in policy_step.items()}
+    if counts != want:
+        fail(f"policy: launches {counts}, expected {want}")
+    also("policy default (8 layers, 4 workers, 2 steps)", counts)
+    if sorted(p_state.diana.h_worker) != list(glayout.names):
+        fail(f"policy: state groups {sorted(p_state.diana.h_worker)}")
+    del p_params, p_state
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ the distributed path
     # A world of one over NCCL in this process: the round's all-gather (or
     # all-reduce) runs on the card; NCCL puts no two ranks on one GPU.
@@ -1175,20 +1353,10 @@ def main() -> None:
         "none": {},
     }
 
-    def state_leaves(x):
-        """The tensors of a DIANA state (memories, VR slot, h_down) in a fixed order."""
-        if x is None:
-            return []
-        if isinstance(x, torch.Tensor):
-            return [x]
-        if isinstance(x, dict):
-            return [t for k in sorted(x) for t in state_leaves(x[k])]
-        return [t for f in x for t in state_leaves(f)]
-
-    def dist_run(pcfg, steps, label, step_builder):
+    def dist_run(pcfg, steps, label, step_builder, policy=None):
         """``steps`` steps of one worker from the path's initial state;
         returns losses, params, DIANA state, step times, peak, launches."""
-        opt = make_optimizer(pcfg)
+        opt = make_optimizer(pcfg, policy=policy)
         params, opt_state = init_train_state(pcfg, opt, 1, dev)
         step_fn = step_builder(pcfg, opt)
         batches = [{k: torch.from_numpy(v).to(dev)
@@ -1296,6 +1464,54 @@ def main() -> None:
             fail(f"{tag}: {flags}: the world-of-one trainer differs from the in-turn trainer")
         del d_params, d_leaves, t_params, t_diana, t_leaves
         torch.cuda.empty_cache()
+    # The curated policy in the world of one: the identity group's
+    # all-reduce, one all-gather per other group, against the in-turn
+    # trainer at n = 1 (its identity group dense_copy + the mean of one).
+    reduces = []
+    nccl_reduce = dist.all_reduce
+
+    def counted_reduce(*args, **kw):
+        reduces.append(args[0].numel())
+        return nccl_reduce(*args, **kw)
+    dist.all_reduce = counted_reduce
+    d_loss, d_params, d_diana, counts, wire = dist_run(
+        cfg, 2, "policy: distributed --comp-policy default", build_distributed_step,
+        policy="default")
+    dist.all_reduce = nccl_reduce
+    pol_dist = {"sparse_gather": 1, "sparse_decode_sum": 1, "sparse_decode_sum_mean": 1,
+                "quantize_pack_prng": 1, "unpack_reduce": 1, "unpack_reduce_apply": 1}
+    want = {k: 2 * v for k, v in pol_dist.items()}
+    if counts != want:
+        fail(f"policy: distributed launches {counts}, expected {want}")
+    also("policy default, distributed (world 1, 8 layers, 2 steps)", counts)
+    # two all-gathers (top-k and ternary groups) and, besides the loss's,
+    # one all-reduce of the identity group's buffer per step
+    ident = glayout.layouts[glayout.names.index("g00_identity")].padded_size
+    if len(wire) != 4 or reduces.count(ident) != 2:
+        fail(f"policy: distributed: {len(wire)} all-gathers and all-reduces of "
+             f"{reduces} elements in 2 steps, expected 4 and two of {ident}")
+    print(f"policy: distributed: all_gather_into_tensor {[b for _, b in wire[:2]]} B per "
+          f"step, {[round(ms, 4) for ms, _ in wire]} ms; all_reduce of {ident} f32 per step "
+          f"(the identity group)")
+    d_params = {k: v.detach().cpu() for k, v in d_params.items()}
+    d_leaves = [t.cpu() for t in state_leaves(d_diana)]
+    del d_diana
+    torch.cuda.empty_cache()
+    t_loss, t_params, t_diana, t_counts, _ = dist_run(
+        cfg, 2, "policy: in turn --comp-policy default (n = 1)",
+        lambda c, o: build_train_step(c, o, 1, dev), policy="default")
+    t_leaves = state_leaves(t_diana)
+    same = (d_loss == t_loss
+            and all(torch.equal(d_params[k], t_params[k].cpu()) for k in t_params)
+            and len(d_leaves) == len(t_leaves)
+            and all(torch.equal(d, t.cpu()) for d, t in zip(d_leaves, t_leaves)))
+    print(f"policy: distributed --comp-policy default: losses, parameters and every group's "
+          f"h_worker and h_server ({len(t_leaves)} state tensors) bitwise the in-turn "
+          f"trainer's at n = 1: {same}")
+    if not same:
+        fail("policy: the world-of-one grouped trainer differs from the in-turn trainer")
+    del d_params, d_leaves, t_params, t_diana, t_leaves
+    torch.cuda.empty_cache()
     # The model's full depth: 16 layers, the distributed diana path.
     fcfg = get_config("llama3.2-1b")
     f_loss, f_params, f_diana, counts, wire = dist_run(
@@ -1315,6 +1531,7 @@ def main() -> None:
         r["launches"], r["path"] = credit.get(r["name"], (0, None))
         if r["name"] in dcredit:
             r["distributed_launches"], r["distributed_path"] = dcredit[r["name"]]
+        r["paths"] = paths_run.get(r["name"], {})
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         fail(f"kernels never launched on their path: {missing}")

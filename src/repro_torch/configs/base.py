@@ -56,6 +56,8 @@ class ModelConfig:
     vr_p: Optional[float] = None   # snapshot-refresh probability (None: 1/m)
     comp_down_method: Optional[str] = None  # downlink operator (None: exact broadcast)
     comp_down_k: Optional[int] = None       # sparse downlink budget (None: comp_k)
+    comp_policy: Optional[str] = None       # curated per-group policy (inline rules),
+                                            # opt-in: --comp-policy default
 
     @property
     def resolved_head_dim(self) -> int:

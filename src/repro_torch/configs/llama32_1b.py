@@ -22,4 +22,10 @@ def config() -> ModelConfig:
         vocab=128256,
         act="swiglu",
         rope_theta=500_000.0,
+        # The curated policy (--comp-policy default): norm scales exact,
+        # the token-sparse embedding and LM head top-k with error feedback,
+        # the dense bulk the paper's ternary operator.
+        comp_policy=("scale$|bias=identity,"
+                     "^embed$|^lm_head$=topk_ef:k=256,"
+                     "*=diana"),
     )

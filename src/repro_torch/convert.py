@@ -4,7 +4,8 @@
 arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into the port's
 ``{path: nn.Parameter}`` tree; ``state_from_jax`` does the same for a
 ``repro.core.diana.ReferenceState`` (``h_worker``, ``h_server``, ``v``, and
-the VR slot's ``snapshot`` / ``mu`` and ``h_down`` when present).
+the VR slot's ``snapshot`` / ``mu`` and ``h_down`` when present), flat or
+grouped (dicts keyed by group name, a list of arrays for a per-leaf group).
 Arrays are copied bit for bit; parameters take ``cfg.param_dtype``.
 """
 
@@ -38,11 +39,18 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg, device) -> Dict[str, nn.Par
             for p, a in flatten_nested(np_tree).items()}
 
 
+def _leaf(a, device):
+    """An array, or a per-leaf group's list of arrays."""
+    if isinstance(a, (list, tuple)):
+        return [tensor_from_numpy(x, device) for x in a]
+    return tensor_from_numpy(a, device)
+
+
 def _tree(x, device):
     if x is None:
         return None
     if isinstance(x, Mapping):
-        return {p: tensor_from_numpy(a, device) for p, a in flatten_nested(x).items()}
+        return {p: _leaf(a, device) for p, a in flatten_nested(x).items()}
     return tensor_from_numpy(x, device)
 
 

@@ -6,6 +6,9 @@
 * :class:`BucketedCompressor` — the ordinary compressor interface over that
   buffer, delegating to the operator's ``*_bucketed`` hooks, so a round is
   one compress, one payload and one fused decode per worker set.
+* :class:`GroupedBucketLayout` — one :class:`BucketLayout` per group of a
+  compression policy (:mod:`repro_torch.core.policy`), each aligned to its
+  own operator: a grouped round fuses each group, not the whole model.
 * :func:`fuse_payload` / :func:`unfuse_payload` — the wire object: every
   populated payload field byte-cast into ONE uint8 buffer, so the worker
   all-gather is one collective (``repro/core/bucket.py:291-343``);
@@ -13,8 +16,8 @@
 
 Bitwise contract (as in ``repro.core.bucket``): the bucketed round equals the
 per-leaf round — same per-segment PRNG draws, same per-block scales, same
-f32 recurrences.  The chunked schedule, grouped layouts and wire checksums
-are later slices (ROADMAP.md queue 1).
+f32 recurrences.  The chunked schedule and wire checksums are later slices
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ import torch
 from . import tree as T
 from .compressors.base import Compressor, Payload
 
-__all__ = ["BucketLayout", "BucketedCompressor", "bucketed_compressor", "payload_recipe",
-           "fuse_payload", "unfuse_payload", "wire_roundtrip"]
+__all__ = ["BucketLayout", "GroupedBucketLayout", "BucketedCompressor", "bucketed_compressor",
+           "payload_recipe", "fuse_payload", "unfuse_payload", "wire_roundtrip"]
 
 
 @dataclass(frozen=True)
@@ -101,6 +104,33 @@ class BucketLayout:
     def split_padded(self, flat: torch.Tensor):
         """The per-leaf padded segment views of the flat buffer."""
         return [flat[off:off + ps] for off, ps in zip(self.offsets, self.padded_sizes)]
+
+
+@dataclass(frozen=True)
+class GroupedBucketLayout:
+    """One :class:`BucketLayout` per compression-policy group
+    (``repro/core/bucket.py:254``): ``names`` are the group names (the keys
+    of a grouped state), ``rule_ids`` each group's rule."""
+
+    names: Tuple[str, ...]
+    rule_ids: Tuple[int, ...]
+    layouts: Tuple[BucketLayout, ...]
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.layouts)
+
+    @property
+    def size(self) -> int:
+        return sum(l.size for l in self.layouts)
+
+    @property
+    def padded_size(self) -> int:
+        return sum(l.padded_size for l in self.layouts)
+
+    @property
+    def n_leaves(self) -> int:
+        return sum(l.n_leaves for l in self.layouts)
 
 
 class BucketedCompressor(Compressor):

@@ -38,10 +38,23 @@ reach every path above with the same draws and the same arithmetic, so the
 bitwise contracts extend to them (``tests/test_torch_vr.py``,
 ``tests/test_torch_downlink.py``).
 
+Every entry point takes a flat :class:`CompressionConfig` or a
+:class:`~repro_torch.core.policy.CompressionPolicy`.  A uniform policy runs
+the flat code path above, draw for draw (``_split_spec``).  A grouped policy
+runs one sub-round per group of its partition, each in the group's own
+layout (one ``(n, Dp_g)`` buffer, or one memory per leaf), group ``g``
+drawing from ``fold_in(worker_key, GROUP_FOLD + g)`` and its downlink from
+``fold_in(fold_in(key, DOWN_FOLD), GROUP_FOLD + g)``; the grouped state is
+a dict keyed by group name, holding a tensor for a bucketed group and a list
+of per-leaf tensors (in the group's leaf order) for a per-leaf one.  VR
+stays model-wide, applied before the grouping.  Distributed, identity
+groups take the all-reduce, bucketed groups one fused all-gather each, and
+per-leaf groups the per-leaf round (DESIGN.md §Policy).
+
 Trees are ``{path: tensor}`` dicts (:mod:`repro_torch.core.tree`); stacked
-per-worker grads carry a leading worker axis on every leaf.  Policies,
-participation and the chunked/hierarchical schedules are later slices
-(ROADMAP.md queue 1).
+per-worker grads carry a leading worker axis on every leaf.  Participation
+and the chunked/hierarchical schedules are later slices (ROADMAP.md queue
+1).
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ from .bucket import (BucketLayout, bucketed_compressor, fuse_payload, payload_re
 from .compression import CompressionConfig
 from .compressors.base import Payload
 from .numerics import div_n, fma32
+from .policy import CompressionPolicy, partition_for
 from .vr import control_variate, init_vr, reference_coins, refresh, vr_coin
 
 __all__ = [
@@ -68,8 +82,9 @@ __all__ = [
 ]
 
 # The JAX package's fold constants (repro/core/diana.py:79-98): the downlink
-# stream, per-group streams of grouped policies, and the chunked wire's
-# in-kernel-PRNG chunk streams.  Kept here so later slices draw the same bits.
+# stream, per-group streams of grouped policies (folded after the worker
+# fold, and never by a uniform policy), and the chunked wire's
+# in-kernel-PRNG chunk streams (a later slice).
 DOWN_FOLD = 0x444E  # 'DN'
 GROUP_FOLD = 0x4750  # 'GP'
 CHUNK_FOLD = 0x434B  # 'CK'
@@ -104,49 +119,95 @@ def bucket_layout(cfg: CompressionConfig, tree: Mapping[str, torch.Tensor]) -> B
     return BucketLayout.for_tree(tree, align=cfg.make().bucket_align())
 
 
-def _zero_memories(params, cfg: CompressionConfig, n_workers: int, dt: torch.dtype):
-    """``(h_worker, h_server)`` zeros in ``cfg``'s layout."""
+def _split_spec(spec):
+    """``(policy, flat_cfg)``, exactly one of them set (``repro/core/diana.py
+    :101``): a uniform policy collapses to its flat config (the flat code
+    path, draw for draw); a grouped policy stays itself."""
+    if isinstance(spec, CompressionPolicy):
+        if spec.is_uniform:
+            return None, spec.flat_config()
+        return spec, None
+    if isinstance(spec, CompressionConfig):
+        return None, spec
+    raise TypeError(f"expected a CompressionConfig or CompressionPolicy, got "
+                    f"{type(spec).__name__}")
+
+
+def _zero_memories(params, cfg: CompressionConfig, n_workers: int, dt: torch.dtype,
+                   as_list: bool = False):
+    """``(h_worker, h_server)`` zeros in ``cfg``'s layout; per leaf, dicts
+    by path, or lists in leaf order with ``as_list`` (a group's state)."""
     dev = next(iter(params.values())).device
     if cfg.bucketed:
         dp = bucket_layout(cfg, params).padded_size
         return (torch.zeros((n_workers, dp), dtype=dt, device=dev),
                 torch.zeros((dp,), dtype=dt, device=dev))
-    return ({p: torch.zeros((n_workers, x.numel()), dtype=dt, device=dev)
-             for p, x in params.items()},
-            {p: torch.zeros((x.numel(),), dtype=dt, device=dev) for p, x in params.items()})
+    paths = T.paths(params)
+    h_w = {p: torch.zeros((n_workers, params[p].numel()), dtype=dt, device=dev) for p in paths}
+    h_s = {p: torch.zeros((params[p].numel(),), dtype=dt, device=dev) for p in paths}
+    if as_list:
+        return list(h_w.values()), list(h_s.values())
+    return h_w, h_s
 
 
-def init_downlink(params: Mapping[str, torch.Tensor], cfg: CompressionConfig, dtype=None):
+def init_downlink(params: Mapping[str, torch.Tensor], cfg: CompressionConfig, dtype=None,
+                  dcfg: Optional[CompressionConfig] = None, as_list: bool = False):
     """``h_down^0 = 0`` in the downlink operator's own layout, one replicated
-    copy (``repro/core/diana.py:235``); None without a downlink."""
-    dcfg = cfg.down_config()
+    copy (``repro/core/diana.py:235``); None without a downlink.  ``dcfg``
+    overrides ``cfg.down_config()`` (a policy rule's downlink)."""
+    dcfg = cfg.down_config() if dcfg is None else dcfg
     if dcfg is None:
         return None
-    return _zero_memories(params, dcfg, 1, cfg.h_dtype if dtype is None else dtype)[1]
+    return _zero_memories(params, dcfg, 1, cfg.h_dtype if dtype is None else dtype,
+                          as_list)[1]
 
 
-def init_state(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
-               n_workers: int) -> DianaState:
-    """Zero memories in ``cfg.h_dtype`` for ``n_workers`` rows (1 on a rank);
-    the VR slot (``w_i^0 = x^0``, zero ``mu``) and ``h_down^0 = 0`` when the
-    config asks for them."""
+def _init_grouped(params, policy: CompressionPolicy, n_workers: int, dtype=None):
+    """A grouped policy's memories (``repro/core/diana.py:249``): dicts keyed
+    by group name, each in its group's layout, a ``(n, Dp_g)`` / ``(Dp_g,)``
+    pair for a bucketed group and lists of per-leaf memories otherwise;
+    ``h_down`` per group with a downlink rule (None when no rule has one)."""
+    part = partition_for(policy, params)
+    dtype = policy.h_dtype if dtype is None else dtype
+    h_w, h_s, h_d = {}, {}, {}
+    for gname, leaves, cfg_g, dcfg in zip(part.group_names, part.split(params), part.configs,
+                                          part.down_configs):
+        h_w[gname], h_s[gname] = _zero_memories(leaves, cfg_g, n_workers, dtype, as_list=True)
+        if dcfg is not None:
+            h_d[gname] = init_downlink(leaves, cfg_g, dtype, dcfg, as_list=True)
+    return h_w, h_s, (h_d or None)
+
+
+def init_state(params: Mapping[str, torch.Tensor], cfg, n_workers: int) -> DianaState:
+    """Zero memories in the config's ``h_dtype`` for ``n_workers`` rows (1 on
+    a rank); the VR slot (``w_i^0 = x^0``, zero ``mu``) and ``h_down^0 = 0``
+    when the config asks for them.  ``cfg`` is a flat config or a policy."""
+    policy, cfg = _split_spec(cfg)
+    if policy is not None:
+        h_w, h_s, h_down = _init_grouped(params, policy, n_workers)
+        return DianaState(h_worker=h_w, h_server=h_s,
+                          vr=init_vr(params, n_workers) if policy.vr else None, h_down=h_down)
     h_w, h_s = _zero_memories(params, cfg, n_workers, cfg.h_dtype)
     return DianaState(h_worker=h_w, h_server=h_s,
                       vr=init_vr(params, n_workers) if cfg.vr else None,
                       h_down=init_downlink(params, cfg))
 
 
-def reference_init(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
-                   n_workers: int) -> ReferenceState:
+def reference_init(params: Mapping[str, torch.Tensor], cfg, n_workers: int) -> ReferenceState:
     """``h_i^0 = 0``, ``h^0 = 0``, ``v^0 = 0`` (f32), and the VR slot and
     ``h_down`` (f32) as :func:`init_state`."""
+    policy, cfg = _split_spec(cfg)
     dev = next(iter(params.values())).device
+    v = {p: torch.zeros(x.shape, dtype=torch.float32, device=dev) for p, x in params.items()}
+    if policy is not None:
+        h_w, h_s, h_down = _init_grouped(params, policy, n_workers, torch.float32)
+        return ReferenceState(h_worker=h_w, h_server=h_s, v=v,
+                              vr=init_vr(params, n_workers) if policy.vr else None,
+                              h_down=h_down)
     h_w, h_s = _zero_memories(params, cfg, n_workers, torch.float32)
-    return ReferenceState(
-        h_worker=h_w, h_server=h_s,
-        v={p: torch.zeros(x.shape, dtype=torch.float32, device=dev) for p, x in params.items()},
-        vr=init_vr(params, n_workers) if cfg.vr else None,
-        h_down=init_downlink(params, cfg, torch.float32))
+    return ReferenceState(h_worker=h_w, h_server=h_s, v=v,
+                          vr=init_vr(params, n_workers) if cfg.vr else None,
+                          h_down=init_downlink(params, cfg, torch.float32))
 
 
 def worker_key(key: torch.Tensor, w: int) -> torch.Tensor:
@@ -154,9 +215,17 @@ def worker_key(key: torch.Tensor, w: int) -> torch.Tensor:
     return prng.fold_in(key, w)
 
 
-def _vr_check(cfg: CompressionConfig, vr_aux, params) -> None:
-    if cfg.vr_p is None:
-        raise ValueError("VR aggregation needs a concrete cfg.vr_p "
+def _worker_key(key: torch.Tensor, w: int, gfold: Optional[int]) -> torch.Tensor:
+    """``fold_in(key, w)``, then a grouped policy's group fold (``:1515``):
+    the distributed side folds the worker at the caller, the group in
+    :func:`_aggregate_grouped`."""
+    k = worker_key(key, w)
+    return k if gfold is None else prng.fold_in(k, gfold)
+
+
+def _vr_check(vr_p, vr_aux, params) -> None:
+    if vr_p is None:
+        raise ValueError("VR aggregation needs a concrete vr_p "
                          "(repro_torch.core.vr.resolve_vr_p)")
     if vr_aux is None or params is None:
         raise ValueError("VR aggregation needs vr_aux=(grads_at_snapshot, mu_candidate) "
@@ -164,34 +233,41 @@ def _vr_check(cfg: CompressionConfig, vr_aux, params) -> None:
 
 
 def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: ReferenceState,
-                   key: torch.Tensor, cfg: CompressionConfig, *, beta: float = 0.0,
+                   key: torch.Tensor, cfg, *, beta: float = 0.0,
                    vr_aux=None, params=None, vr_force_refresh: bool = False):
     """Aggregate stacked per-worker grads ``{path: (n, *shape)}`` exactly as
     Algorithm 1; returns ``(v, new_state)`` with ``v = beta * v + ghat``.
 
-    With ``state.vr`` (``cfg.vr``) the round is VR-DIANA
+    With ``state.vr`` (the config's ``vr``) the round is VR-DIANA
     (``repro/core/diana.py:1419-1438``): the grads are control-variated
     against each worker's (snapshot, mu) first, ``vr_aux = (grads at the
     snapshots, mu candidates)`` stacked like the grads and ``params`` the
     current iterate, and the rows whose coin (or ``vr_force_refresh``) is set
-    refresh.  With ``state.h_down`` (``cfg.down_method``) ``ghat`` passes
-    through :func:`downlink_round` before the momentum."""
+    refresh.  With ``state.h_down`` (a downlink) ``ghat`` passes through
+    :func:`downlink_round` before the momentum.  A grouped policy runs
+    :func:`_reference_grouped`."""
+    policy, cfg = _split_spec(cfg)
     new_vr = state.vr
     if state.vr is not None:
-        _vr_check(cfg, vr_aux, params)
+        vr_p = policy.vr_p if policy is not None else cfg.vr_p
+        _vr_check(vr_p, vr_aux, params)
         g_snap, mu_cand = vr_aux
         grads_per_worker = control_variate(grads_per_worker, g_snap, state.vr.mu)
         n = next(iter(grads_per_worker.values())).shape[0]
-        coins = reference_coins(key, cfg.vr_p, n) | bool(vr_force_refresh)
+        coins = reference_coins(key, vr_p, n) | bool(vr_force_refresh)
         new_vr = refresh(state.vr, coins, params, mu_cand)
-    agg = _reference_agg_bucketed if cfg.bucketed else _reference_agg_perleaf
-    ghat, new_hw, new_hs = agg(grads_per_worker, state.h_worker, state.h_server, key, cfg)
-    new_h_down = None
-    if state.h_down is not None:
-        # _reference_finish's downlink (:1605-1626): the distributed path's
-        # downlink_round and key, its memory in f32
-        ghat, new_h_down = downlink_round(ghat, state.h_down, prng.fold_in(key, DOWN_FOLD),
-                                          cfg, h_dtype=torch.float32)
+    if policy is not None:
+        ghat, new_hw, new_hs, new_h_down = _reference_grouped(grads_per_worker, state, key,
+                                                              policy)
+    else:
+        agg = _reference_agg_bucketed if cfg.bucketed else _reference_agg_perleaf
+        ghat, new_hw, new_hs = agg(grads_per_worker, state.h_worker, state.h_server, key, cfg)
+        new_h_down = None
+        if state.h_down is not None:
+            # _reference_finish's downlink (:1605-1626): the distributed path's
+            # downlink_round and key, its memory in f32
+            ghat, new_h_down = downlink_round(ghat, state.h_down, prng.fold_in(key, DOWN_FOLD),
+                                              cfg, h_dtype=torch.float32)
     # The momentum accumulate as one FMA: XLA contracts it so for most
     # leaves (beta = 0 makes the choice moot).
     v = {p: fma32(beta, state.v[p], ghat[p]) for p in ghat}
@@ -199,12 +275,53 @@ def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: Referenc
                              h_down=new_h_down)
 
 
+def _reference_grouped(grads_per_worker, state, key, policy: CompressionPolicy):
+    """The grouped reference round (``repro/core/diana.py:1474``): per
+    group, the group's own layout's round with ``gfold = GROUP_FOLD + g``,
+    then its downlink (when its rule has one) keyed
+    ``fold_in(fold_in(key, DOWN_FOLD), GROUP_FOLD + g)``; returns ``(ghat,
+    h_worker, h_server, h_down)``, the memories keyed by group name."""
+    part = partition_for(policy, grads_per_worker)
+    ghat, new_hw, new_hs, new_hd = [], {}, {}, {}
+    for g, (gname, grads, paths) in enumerate(zip(part.group_names,
+                                                  part.split(grads_per_worker),
+                                                  part.group_paths)):
+        cfg_g, dcfg = part.configs[g], part.down_configs[g]
+        hw, hs = state.h_worker[gname], state.h_server[gname]
+        if cfg_g.bucketed:
+            ghat_g, new_hw[gname], new_hs[gname] = _reference_agg_bucketed(
+                grads, hw, hs, key, cfg_g, gfold=GROUP_FOLD + g)
+        else:
+            ghat_g, hw_d, hs_d = _reference_agg_perleaf(
+                grads, dict(zip(paths, hw)), dict(zip(paths, hs)), key, cfg_g,
+                gfold=GROUP_FOLD + g)
+            new_hw[gname], new_hs[gname] = [hw_d[p] for p in paths], [hs_d[p] for p in paths]
+        if dcfg is not None:
+            ghat_g, new_hd[gname] = _group_downlink(
+                ghat_g, state.h_down[gname], prng.fold_in(prng.fold_in(key, DOWN_FOLD),
+                                                          GROUP_FOLD + g),
+                cfg_g, dcfg, torch.float32)
+        ghat.append(ghat_g)
+    return part.merge(ghat), new_hw, new_hs, (new_hd or None)
+
+
+def _group_downlink(ghat_g, h_down_g, down_key, cfg_g, dcfg, h_dtype):
+    """A group's downlink round; a grouped state's per-leaf downlink memory
+    is a list in the group's leaf order (a flat state's, a dict)."""
+    if dcfg.bucketed or isinstance(h_down_g, Mapping):
+        return downlink_round(ghat_g, h_down_g, down_key, cfg_g, h_dtype=h_dtype, dcfg=dcfg)
+    out, new_h = downlink_round(ghat_g, dict(zip(T.paths(ghat_g), h_down_g)), down_key, cfg_g,
+                                h_dtype=h_dtype, dcfg=dcfg)
+    return out, [new_h[p] for p in T.paths(ghat_g)]
+
+
 # ---------------------------------------------------------------------------
 # Downlink: the compressed server broadcast
 # ---------------------------------------------------------------------------
 
 def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Tensor,
-                   cfg: CompressionConfig, *, h_dtype=None):
+                   cfg: CompressionConfig, *, h_dtype=None,
+                   dcfg: Optional[CompressionConfig] = None):
     """Pass the aggregated direction ``ghat`` (f32 leaves) through the
     DOWNLINK operator (``repro/core/diana.py:802-888``): the server encodes
     ``delta = compress_input(ghat, h_down)``, every receiver decodes the
@@ -220,8 +337,10 @@ def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Ten
     is the step key folded with :data:`DOWN_FOLD` before any worker fold.
 
     Returns ``(ghat_hat, new_h_down)``, ``ghat_hat`` shaped and typed like
-    ``ghat`` and the memory in ``h_dtype`` (default ``cfg.h_dtype``)."""
-    dcfg = cfg.down_config()
+    ``ghat`` and the memory in ``h_dtype`` (default ``cfg.h_dtype``).
+    ``dcfg`` overrides ``cfg.down_config()``: a policy rule's downlink,
+    which may carry its own block size or norm power."""
+    dcfg = cfg.down_config() if dcfg is None else dcfg
     if dcfg is None:
         raise ValueError("downlink_round needs cfg.down_method")
     h_dtype = cfg.h_dtype if h_dtype is None else h_dtype
@@ -250,16 +369,17 @@ def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Ten
     return ghat_hat, new_h
 
 
-def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg):
-    """Per-leaf round: each worker encodes every leaf with its own key, the
-    server runs one fused ``decode_sum_apply`` per leaf."""
+def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg, gfold=None):
+    """Per-leaf round: each worker encodes every leaf with its own key
+    (``split(_worker_key(key, w, gfold), n_leaves)``), the server runs one
+    fused ``decode_sum_apply`` per leaf."""
     comp = cfg.make()
     paths = T.paths(grads_per_worker)
     n = grads_per_worker[paths[0]].shape[0]
     payloads = {p: [] for p in paths}
     new_hw = {p: [] for p in paths}
     for w in range(n):
-        keys = prng.split(worker_key(key, w), len(paths))
+        keys = prng.split(_worker_key(key, w, gfold), len(paths))
         for p, k in zip(paths, keys):
             g = grads_per_worker[p][w].float().reshape(-1)
             h = h_worker[p][w].float()
@@ -276,9 +396,10 @@ def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg):
     return ghat, {p: torch.stack(rows) for p, rows in new_hw.items()}, new_hs
 
 
-def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg):
-    """Bucketed round: each worker ONE compress of the flattened model; ONE
-    fused ``decode_sum_apply`` over the stacked payloads."""
+def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg, gfold=None):
+    """Bucketed round: each worker ONE compress of the flattened model (or
+    policy group) keyed ``_worker_key(key, w, gfold)``; ONE fused
+    ``decode_sum_apply`` over the stacked payloads."""
     layout = bucket_layout(cfg, {p: g[0] for p, g in grads_per_worker.items()})
     comp = bucketed_compressor(cfg, layout)
     dp = layout.padded_size
@@ -287,7 +408,7 @@ def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg):
     for w in range(n):
         flat_g = layout.flatten({p: g[w] for p, g in grads_per_worker.items()})
         delta = comp.compress_input(flat_g, h_worker[w])
-        pay = comp.compress(delta, worker_key(key, w))
+        pay = comp.compress(delta, _worker_key(key, w, gfold))
         payloads.append(pay)
         new_h.append(comp.next_memory(h_worker[w], comp.decode(pay, dp), delta))
     ghat_flat, new_hs = comp.decode_sum_apply(Payload.stack(payloads), n, dp, h_server)
@@ -435,49 +556,85 @@ def _dispatch_round(grads_local, state, key, cfg, n):
     return agg(grads_local, state.h_worker, state.h_server, key, cfg, n)
 
 
+def _aggregate_grouped(grads_local, state, key, policy: CompressionPolicy, n, down_key):
+    """One round of a grouped policy (``repro/core/diana.py:1118``): per
+    group of the partition, the flat path's round for the group's config
+    with the key ``fold_in(key, GROUP_FOLD + g)``: the all-reduce for an
+    identity group, ONE fused all-gather for a bucketed group, the per-leaf
+    round for a per-leaf one; then the group's downlink, keyed
+    ``fold_in(down_key, GROUP_FOLD + g)``.  Returns ``(ghat, h_worker,
+    h_server, h_down)``, the memories keyed by group name."""
+    part = partition_for(policy, grads_local)
+    ghat, new_hw, new_hs, new_hd = [], {}, {}, {}
+    for g, (gname, grads, paths) in enumerate(zip(part.group_names, part.split(grads_local),
+                                                  part.group_paths)):
+        cfg_g, dcfg = part.configs[g], part.down_configs[g]
+        hw, hs = state.h_worker[gname], state.h_server[gname]
+        gkey = prng.fold_in(key, GROUP_FOLD + g)
+        if cfg_g.make().prefers_allreduce:
+            ghat_g = _allreduce_mean(grads, cfg_g, n)
+        elif cfg_g.bucketed:
+            ghat_g, hw, hs = _aggregate_bucketed(grads, hw, hs, gkey, cfg_g, n)
+        else:
+            ghat_g, hw_d, hs_d = _aggregate_local(grads, dict(zip(paths, hw)),
+                                                  dict(zip(paths, hs)), gkey, cfg_g, n)
+            hw, hs = [hw_d[p] for p in paths], [hs_d[p] for p in paths]
+        if dcfg is not None:
+            ghat_g, new_hd[gname] = _group_downlink(
+                ghat_g, state.h_down[gname], prng.fold_in(down_key, GROUP_FOLD + g), cfg_g,
+                dcfg, policy.h_dtype)
+        ghat.append(ghat_g)
+        new_hw[gname], new_hs[gname] = hw, hs
+    return part.merge(ghat), new_hw, new_hs, (new_hd or None)
+
+
 def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaState,
-                          key: torch.Tensor, cfg: CompressionConfig, *, vr_aux=None,
+                          key: torch.Tensor, cfg, *, vr_aux=None,
                           params_local=None, vr_force_refresh: bool = False,
                           down_key: Optional[torch.Tensor] = None):
     """One DIANA aggregation round across the ranks of the default process
     group, one worker per rank — the port of
     ``repro.core.diana.aggregate_shardmap`` (``repro/core/diana.py:891``)
-    for a flat config, with ``torch.distributed`` collectives in place of
-    shard_map's.
+    with ``torch.distributed`` collectives in place of shard_map's.
 
     grads_local: this rank's gradient tree ``{path: tensor}`` (g_i^k).
     state:       :class:`DianaState` with the rank's own ``h_worker`` row
                  (leading dim 1) and the replicated ``h_server``.
     key:         already folded with the rank's worker index
                  (:func:`worker_key`).
+    cfg:         a flat :class:`CompressionConfig`, or a
+                 :class:`~repro_torch.core.policy.CompressionPolicy` (a
+                 grouped one runs :func:`_aggregate_grouped`).
 
-    With ``state.vr`` (``cfg.vr``, ``:1033-1057``) the rank feeds the
-    control-variated ``g - g_snap + mu_own`` to the round: ``vr_aux =
+    With ``state.vr`` (the config's ``vr``, ``:1033-1057``) the rank feeds
+    the control-variated ``g - g_snap + mu_own`` to the round: ``vr_aux =
     (grads at the rank's snapshot on the same batch, mu candidate)``, both
     parameter-shaped, and ``params_local`` the current iterate; its own coin
-    ``vr_coin(key, cfg.vr_p)``, OR-ed with ``vr_force_refresh``, refreshes
-    its row.  With ``state.h_down`` (``cfg.down_method``, ``:1074-1081``)
-    the f32 ``ghat`` passes through :func:`downlink_round` keyed ``down_key``
-    = ``fold_in(step_key, DOWN_FOLD)``, folded BEFORE the worker fold.
+    ``vr_coin(key, vr_p)``, OR-ed with ``vr_force_refresh``, refreshes its
+    row.  With ``state.h_down`` (a downlink, ``:1074-1081``) the f32
+    ``ghat`` passes through :func:`downlink_round` keyed ``down_key`` =
+    ``fold_in(step_key, DOWN_FOLD)``, folded BEFORE the worker fold.
 
     Returns ``(ghat, new_state)``: ``ghat`` equal on every rank, cast back to
-    the gradients' dtypes (``:1102``).  A compression policy (per-group
-    operators) raises ``NotImplementedError``: it is ROADMAP.md queue 1
-    item 4."""
-    if not isinstance(cfg, CompressionConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: compression policies (per-group operators) are "
-            "ROADMAP.md queue 1 item 4")
+    the gradients' dtypes (``:1102``).  Participation and the chunked wire
+    are later slices: their fields do not exist on the configs yet."""
+    policy, cfg = _split_spec(cfg)
     grads_in, coin = grads_local, False
     if state.vr is not None:
-        _vr_check(cfg, vr_aux, params_local)
+        vr_p = policy.vr_p if policy is not None else cfg.vr_p
+        _vr_check(vr_p, vr_aux, params_local)
         mu_own = {p: m[0] for p, m in state.vr.mu.items()}
         grads_in = control_variate(grads_local, vr_aux[0], mu_own)
-        coin = vr_coin(key, cfg.vr_p) or bool(vr_force_refresh)
+        coin = vr_coin(key, vr_p) or bool(vr_force_refresh)
     if state.h_down is not None and down_key is None:
         raise ValueError("bidirectional aggregation needs down_key = fold_in(step_key, "
                          "DOWN_FOLD), folded before the worker fold")
-    ghat, new_hw, new_hs = _dispatch_round(grads_in, state, key, cfg, dist.get_world_size())
+    n = dist.get_world_size()
+    if policy is not None:
+        ghat, new_hw, new_hs, new_h_down = _aggregate_grouped(grads_in, state, key, policy, n,
+                                                              down_key)
+    else:
+        ghat, new_hw, new_hs = _dispatch_round(grads_in, state, key, cfg, n)
     del grads_in
     new_vr = state.vr
     if state.vr is not None:
@@ -485,8 +642,9 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
         # refreshed rows are not held across the round's transients.
         new_vr = refresh(state.vr, [coin], params_local,
                          {p: g.unsqueeze(0) for p, g in vr_aux[1].items()})
-    new_h_down = state.h_down
-    if state.h_down is not None:
-        ghat, new_h_down = downlink_round(ghat, state.h_down, down_key, cfg)
+    if policy is None:
+        new_h_down = state.h_down
+        if state.h_down is not None:
+            ghat, new_h_down = downlink_round(ghat, state.h_down, down_key, cfg)
     ghat = {p: ghat[p].to(grads_local[p].dtype) for p in ghat}
     return ghat, DianaState(h_worker=new_hw, h_server=new_hs, vr=new_vr, h_down=new_h_down)

@@ -45,11 +45,22 @@ refreshes its snapshot to the parameters and ``mu_w`` to ``g``
 ``fold_in(step_key, DOWN_FOLD)``) before step 5: one more encode and one
 decode per step.
 
+``--per-leaf-agg`` runs steps 2-4 leaf by leaf (each worker encodes every
+leaf with its own key ``split(fold_in(step_key, w), n_leaves)[i]``; one
+decode per leaf).  ``--comp-policy`` runs them once per policy group, each
+in its group's layout with the key ``fold_in(fold_in(step_key, w),
+GROUP_FOLD + g)``: llama3.2-1b's curated policy (``default``) keeps the norm
+scales exact (``dense_copy`` / ``dense_decode_sum_mean`` in turn, one
+all-reduce across ranks), top-k's the embedding and the LM head and
+ternary-quantizes the rest.
+
 The logged loss is the mean over the workers (all-reduced across ranks).
 Entry points run on ``cuda`` and raise without a GPU unless the caller asks
 for the CPU (``--device cpu``), where the kernels' plain versions run.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --compression natural \\
+        --mesh 4x1 --steps 3 --batch 8 --seq 4096
+    python -m repro_torch.launch.train --arch llama3.2-1b --comp-policy default \\
         --mesh 4x1 --steps 3 --batch 8 --seq 4096
     torchrun --nproc-per-node 1 -m repro_torch.launch.train --arch llama3.2-1b \\
         --mesh 1x1 --steps 3 --batch 2 --seq 4096
@@ -70,20 +81,24 @@ import torch.distributed as dist
 
 from repro_torch.configs import ShapeConfig, get_config, get_shape, reduced
 from repro_torch.core import prng
+from repro_torch.core import tree as T
 from repro_torch.core.bucket import bucketed_compressor
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import available_methods
-from repro_torch.core.diana import (DOWN_FOLD, aggregate_distributed, bucket_layout,
-                                    downlink_round, worker_key)
+from repro_torch.core.compressors.base import Payload
+from repro_torch.core.diana import (DOWN_FOLD, GROUP_FOLD, _group_downlink, _split_spec,
+                                    aggregate_distributed, bucket_layout, worker_key)
+from repro_torch.core.policy import ChannelSpec, CompressionPolicy, load_policy, partition_for
 from repro_torch.core.vr import control_variate, reference_coins, resolve_vr_p
 from repro_torch.core.numerics import div_n
 from repro_torch.data.pipeline import make_lm_batch
-from repro_torch.models.transformer import init_model, train_loss
+from repro_torch.models.transformer import init_model, param_shapes, train_loss
 from repro_torch.optim.diana_optimizer import DianaOptimizer
 from repro_torch.optim.optimizers import constant_schedule, momentum, sgd
 
-__all__ = ["resolve_device", "make_optimizer", "init_train_state", "build_train_step",
-           "build_distributed_step", "init_distributed", "parse_mesh", "main"]
+__all__ = ["resolve_device", "resolve_policy_arg", "make_optimizer", "init_train_state",
+           "build_train_step", "build_distributed_step", "init_distributed", "parse_mesh",
+           "main"]
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:
@@ -107,17 +122,48 @@ def parse_mesh(mesh: Optional[str]) -> int:
     return dims[0]
 
 
+def resolve_policy_arg(cfg, policy) -> CompressionPolicy:
+    """The ``--comp-policy`` surface as a policy (``repro/launch/train.py
+    :116``): a :class:`CompressionPolicy`, a ``.json`` path, inline rules
+    (:func:`~repro_torch.core.policy.parse_rules`), ``"default"`` (the
+    model's curated ``ModelConfig.comp_policy``) or ``"size-adaptive"``
+    (small leaves dense, the rest by the model's flat ``compression``).  The
+    model config gives the model-wide fields (layout, h dtype, VR) unless a
+    JSON document sets them."""
+    if policy == "default":
+        if cfg.comp_policy is None:
+            raise ValueError(f"--comp-policy default: {cfg.name} defines no default policy "
+                             "(ModelConfig.comp_policy is None)")
+        policy = cfg.comp_policy
+    model_wide = dict(bucketed=cfg.comp_bucketed, h_dtype=cfg.h_dtype, vr=cfg.vr,
+                      vr_p=cfg.vr_p)
+    if policy == "size-adaptive":
+        shapes = {p: torch.empty(s, device="meta") for p, s in param_shapes(cfg).items()}
+        return CompressionPolicy.size_adaptive(
+            shapes, large=ChannelSpec(method=cfg.compression, k=cfg.comp_k,
+                                      block_size=cfg.comp_block, p=cfg.comp_p), **model_wide)
+    return load_policy(policy, **model_wide)
+
+
 def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: float = 0.9,
-                   compression: Optional[CompressionConfig] = None) -> DianaOptimizer:
-    """The training optimizer from a model config's flat ``comp_*`` fields."""
+                   compression: Optional[CompressionConfig] = None,
+                   policy=None) -> DianaOptimizer:
+    """The training optimizer: the policy ``policy`` names
+    (:func:`resolve_policy_arg`), else the model config's flat ``comp_*``
+    fields."""
     if inner not in ("momentum", "sgd"):
         raise NotImplementedError(f"inner optimizer {inner!r} is not ported yet")
+    inner_opt = momentum(beta) if inner == "momentum" else sgd()
+    if policy is not None:
+        if compression is not None:
+            raise ValueError("pass either compression= or policy=, not both")
+        return DianaOptimizer(inner=inner_opt, schedule=constant_schedule(lr),
+                              policy=resolve_policy_arg(cfg, policy))
     comp = compression or CompressionConfig(
         method=cfg.compression, p=cfg.comp_p, block_size=cfg.comp_block, k=cfg.comp_k,
         h_dtype=cfg.h_dtype, bucketed=cfg.comp_bucketed, vr=cfg.vr, vr_p=cfg.vr_p,
         down_method=cfg.comp_down_method, down_k=cfg.comp_down_k)
-    return DianaOptimizer(comp, momentum(beta) if inner == "momentum" else sgd(),
-                          schedule=constant_schedule(lr))
+    return DianaOptimizer(comp, inner_opt, schedule=constant_schedule(lr))
 
 
 def init_train_state(cfg, opt: DianaOptimizer, n_workers: int, device, seed: int = 0):
@@ -153,8 +199,8 @@ def _snapshot_grads(cfg, snapshot, w: int, batch):
 
 
 def _copy_into(held, fresh):
-    """Write a fresh state (tensor, dict or NamedTuple of them) into the held
-    buffers, so that each memory stays one buffer."""
+    """Write a fresh state (tensor, dict, list or NamedTuple of them) into
+    the held buffers, so that each memory stays one buffer."""
     if held is None or fresh is held:
         return
     if isinstance(held, torch.Tensor):
@@ -167,78 +213,173 @@ def _copy_into(held, fresh):
             _copy_into(h, f)
 
 
+class _BucketedRound:
+    """One bucketed group's round in turn: each worker's input flattened
+    into one f32 buffer and encoded straight into its row of one stacked
+    payload (the all-gather's output shape), its memory row updated in
+    place; then ONE ``decode_sum_apply`` over the rows."""
+
+    def __init__(self, cfg, params, hw, hs, n_workers, device):
+        self.layout = bucket_layout(cfg, params)
+        self.comp = bucketed_compressor(cfg, self.layout)
+        self.hw, self.hs, self.n = hw, hs, n_workers
+        self.g_flat = torch.empty(self.layout.padded_size, dtype=torch.float32, device=device)
+        self.gathered = self.comp.gathered(n_workers, device)
+
+    def load(self, grads):
+        """Flatten a worker's input tree into the buffer (the caller may
+        then free the tree before the encode)."""
+        self.layout.flatten(grads, out=self.g_flat)
+
+    def encode(self, w, key):
+        comp, hw, dp = self.comp, self.hw, self.layout.padded_size
+        # The worker's input (g - h_w, or g + h_w for error feedback),
+        # computed in place in the gradient buffer.
+        delta = comp.compress_input_(self.g_flat, hw[w])
+        pay = comp.compress(delta, key, out=self.gathered.select(w))
+        if comp.carries_state:
+            # h_w <- h_w + alpha * dhat_w (or delta - dhat_w), into the state row.
+            hw[w].copy_(comp.next_memory(hw[w], comp.decode(pay, dp), delta))
+
+    def finish(self):
+        """``ghat`` as f32 leaves; ``h_server`` updated in place."""
+        self.g_flat = None
+        ghat_flat, new_hs = self.comp.decode_sum_apply(self.gathered, self.n,
+                                                       self.layout.padded_size, self.hs)
+        self.gathered = None
+        _copy_into(self.hs, new_hs)  # the server memory stays one buffer
+        return self.layout.unflatten(ghat_flat, cast=False)
+
+
+class _PerLeafRound:
+    """One per-leaf group's round in turn (``_reference_agg_perleaf``):
+    each worker encodes leaf by leaf, leaf ``i`` keyed ``split(key,
+    n_leaves)[i]``, its memory rows updated in place; the payloads stack
+    per leaf, and ONE ``decode_sum_apply`` per leaf."""
+
+    def __init__(self, cfg, params, hw, hs, n_workers, device):
+        self.comp, self.n = cfg.make(), n_workers
+        self.paths = T.paths(params)
+        self.shapes = {p: params[p].shape for p in self.paths}
+        self.hw, self.hs = hw, hs    # {path: (n, d)}, {path: (d,)}
+        self.payloads = {p: [] for p in self.paths}
+        self.pending = {}
+
+    def load(self, grads):
+        self.pending = dict(grads)
+
+    def encode(self, w, key):
+        comp = self.comp
+        for p, k in zip(self.paths, prng.split(key, len(self.paths))):
+            h = self.hw[p][w]
+            delta = comp.compress_input(self.pending.pop(p).reshape(-1).float(), h)
+            pay = comp.compress(delta, k)
+            if comp.carries_state:
+                h.copy_(comp.next_memory(h, comp.decode(pay, h.numel()), delta))
+            del delta
+            self.payloads[p].append(pay)
+
+    def finish(self):
+        ghat = {}
+        for p in self.paths:
+            stacked = Payload.stack(self.payloads.pop(p))
+            g, new_hs = self.comp.decode_sum_apply(stacked, self.n, self.hs[p].numel(),
+                                                   self.hs[p])
+            del stacked
+            _copy_into(self.hs[p], new_hs)
+            ghat[p] = g.reshape(self.shapes[p])
+        return ghat
+
+
+def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device):
+    """The step's rounds: ``(paths, round, worker-key fold, downlink)`` per
+    group; ONE group for a flat config (its worker keys unfolded), one per
+    policy group otherwise (``fold_in(worker_key, GROUP_FOLD + g)``).  The
+    downlink is None or ``(cfg, dcfg, h_down, down_key)``."""
+    policy, cfg = _split_spec(opt.policy)
+    if policy is None:
+        rnd = (_BucketedRound if cfg.bucketed else _PerLeafRound)(
+            cfg, params, diana.h_worker, diana.h_server, n_workers, device)
+        down = (None if diana.h_down is None
+                else (cfg, cfg.down_config(), diana.h_down, prng.fold_in(key, DOWN_FOLD)))
+        return [(T.paths(params), rnd, None, down)]
+    part = partition_for(policy, params)
+    rounds = []
+    for g, (gname, leaves, paths) in enumerate(zip(part.group_names, part.split(params),
+                                                   part.group_paths)):
+        cfg_g, dcfg = part.configs[g], part.down_configs[g]
+        hw, hs = diana.h_worker[gname], diana.h_server[gname]
+        if cfg_g.bucketed:
+            rnd = _BucketedRound(cfg_g, leaves, hw, hs, n_workers, device)
+        else:
+            rnd = _PerLeafRound(cfg_g, leaves, dict(zip(paths, hw)), dict(zip(paths, hs)),
+                                n_workers, device)
+        down = None
+        if dcfg is not None:
+            down = (cfg_g, dcfg, diana.h_down[gname],
+                    prng.fold_in(prng.fold_in(key, DOWN_FOLD), GROUP_FOLD + g))
+        rounds.append((paths, rnd, GROUP_FOLD + g, down))
+    return rounds
+
+
 def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
     """Returns ``step(params, opt_state, batch, key) -> (params, opt_state,
-    metrics)`` running the ``n_workers`` workers in turn.  ``params``
-    (``{path: nn.Parameter}``) and the optimizer state are updated in place;
-    ``batch`` holds int tensors on ``device``."""
+    metrics)`` running the ``n_workers`` workers in turn, in the policy's
+    layout: the whole model bucketed or per leaf, or one round per policy
+    group.  ``params`` (``{path: nn.Parameter}``) and the optimizer state
+    are updated in place; ``batch`` holds int tensors on ``device``."""
     device = torch.device(device)
 
     def step(params, opt_state, batch, key):
-        layout = bucket_layout(opt.compression, params)
-        comp = bucketed_compressor(opt.compression, layout)
-        dp = layout.padded_size
-        hw, hs = opt_state.diana.h_worker, opt_state.diana.h_server
-        vr = opt_state.diana.vr
-        leaves = [params[p] for p in layout.paths]
+        paths = T.paths(params)
+        diana = opt_state.diana
+        vr = diana.vr
+        leaves = [params[p] for p in paths]
         if vr is not None:
             # reference_coins: worker w's coin is vr_coin(fold_in(key, w))
-            coins = (reference_coins(key, opt.compression.vr_p, n_workers)
+            coins = (reference_coins(key, opt.policy.vr_p, n_workers)
                      | (opt_state.step == 0)).tolist()
-        g_flat = torch.empty(dp, dtype=torch.float32, device=device)
-        # The workers' payloads go straight into their rows of one stacked
-        # buffer (the all-gather's output shape): no per-worker payloads to
-        # stack.  The random bits live only inside each encode, not across
-        # the next worker's backward.
-        gathered = comp.gathered(n_workers, device)
+        # The random bits live only inside each encode, not across the next
+        # worker's backward.
+        rounds = _group_rounds(opt, params, diana, key, n_workers, device)
         losses = []
         for w in range(n_workers):
             wbatch = _worker_batch(batch, w, n_workers)
             loss = train_loss(params, wbatch, cfg)
-            grads = dict(zip(layout.paths, torch.autograd.grad(loss, leaves)))
-            if vr is not None:
-                g_snap = _snapshot_grads(cfg, vr.snapshot, w, wbatch)
-                with torch.no_grad():
-                    k = control_variate(grads, g_snap, {p: m[w] for p, m in vr.mu.items()})
+            grads = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+            losses.append(loss.detach())
+            g_snap = None if vr is None else _snapshot_grads(cfg, vr.snapshot, w, wbatch)
+            with torch.no_grad():
+                x = grads
+                if vr is not None:
+                    x = control_variate(grads, g_snap, {p: m[w] for p, m in vr.mu.items()})
                     del g_snap
-                    layout.flatten(k, out=g_flat)
-                    del k
                     if coins[w]:   # refresh: w_w <- x, mu_w <- the minibatch gradient
-                        for p in layout.paths:
+                        for p in paths:
                             vr.snapshot[p][w].copy_(params[p])
                             vr.mu[p][w].copy_(grads[p])
-            else:
-                layout.flatten(grads, out=g_flat)
-            del grads  # this worker's gradient is freed before the next backward
-            losses.append(loss.detach())
-            with torch.no_grad():
-                # The worker's input (g - h_w, or g + h_w for error feedback),
-                # computed in place in the gradient buffer.
-                delta = comp.compress_input_(g_flat, hw[w])
-                pay = comp.compress(delta, worker_key(key, w), out=gathered.select(w))
-                if comp.carries_state:
-                    # h_w <- h_w + alpha * dhat_w (or delta - dhat_w), written
-                    # into the state row.
-                    hw[w].copy_(comp.next_memory(hw[w], comp.decode(pay, dp), delta))
-        del g_flat
+                for gpaths, rnd, _, _ in rounds:
+                    rnd.load({p: x[p] for p in gpaths})
+                # this worker's gradient is freed before its encode
+                del grads, x
+                wkey = worker_key(key, w)
+                for _, rnd, gfold, _ in rounds:
+                    rnd.encode(w, wkey if gfold is None else prng.fold_in(wkey, gfold))
+        ghat = {}
         with torch.no_grad():
-            ghat_flat, new_hs = comp.decode_sum_apply(gathered, n_workers, dp, hs)
-            del gathered
-            if new_hs is not hs:
-                hs.copy_(new_hs)  # the server memory stays one buffer
-            del new_hs
-            h_down = opt_state.diana.h_down
-            if h_down is not None:
-                # the compressed broadcast of the f32 ghat, before the cast
-                ghat, new_h_down = downlink_round(layout.unflatten(ghat_flat, cast=False),
-                                                  h_down, prng.fold_in(key, DOWN_FOLD),
-                                                  opt.compression)
-                del ghat_flat
-                _copy_into(h_down, new_h_down)
-                ghat = {p: ghat[p].to(params[p].dtype) for p in layout.paths}
-            else:
-                ghat = layout.unflatten(ghat_flat, cast=True)
-        return _finish(opt, params, opt_state, ghat, torch.stack(losses).mean())
+            for _, rnd, _, down in rounds:
+                ghat_g = rnd.finish()
+                if down is not None:
+                    # the compressed broadcast of the f32 ghat, before the cast
+                    gcfg, dcfg, h_down, down_key = down
+                    ghat_g, new_h_down = _group_downlink(ghat_g, h_down, down_key, gcfg, dcfg,
+                                                         gcfg.h_dtype)
+                    _copy_into(h_down, new_h_down)
+                ghat.update({p: g.to(params[p].dtype) for p, g in ghat_g.items()})
+                del ghat_g
+        del rounds
+        return _finish(opt, params, opt_state, {p: ghat[p] for p in paths},
+                       torch.stack(losses).mean())
 
     return step
 
@@ -250,11 +391,13 @@ def build_distributed_step(cfg, opt: DianaOptimizer):
     takes rows ``[r*b/n, (r+1)*b/n)`` of the global batch, encodes with
     ``fold_in(key, r)`` (``repro/launch/train.py:459``) and runs
     :func:`~repro_torch.core.diana.aggregate_distributed`.  ``opt_state``
-    holds the rank's own ``(1, Dp)`` ``h_worker`` row (``opt.init(params,
-    1)``) and the replicated ``h_server``, updated in place; the logged loss
-    is the all-reduced mean (``:486``).  Given the same batch and keys, the
+    holds the rank's own ``h_worker`` row (``opt.init(params, 1)``, in the
+    policy's layout) and the replicated ``h_server``, updated in place; a
+    grouped policy runs its groups inside the round.  The logged loss is
+    the all-reduced mean (``:486``).  Given the same batch and keys, the
     parameters and memories equal :func:`build_train_step`'s with ``n``
-    workers bit for bit (``none``: to the backend's all-reduce order)."""
+    workers bit for bit (``none`` and identity groups: to the backend's
+    all-reduce order)."""
     rank, n_workers = dist.get_rank(), dist.get_world_size()
 
     def step(params, opt_state, batch, key):
@@ -271,7 +414,7 @@ def build_distributed_step(cfg, opt: DianaOptimizer):
             extra["down_key"] = prng.fold_in(key, DOWN_FOLD)   # before the worker fold
         with torch.no_grad():
             ghat, new = aggregate_distributed(grads, opt_state.diana, worker_key(key, rank),
-                                              opt.compression, **extra)
+                                              opt.policy, **extra)
             del grads, extra
             _copy_into(opt_state.diana, new)  # each memory stays one buffer
             del new
@@ -321,6 +464,14 @@ def main(argv=None):
                          "its own memory h_down; default keeps it exact")
     ap.add_argument("--down-k", type=int, default=None,
                     help="coordinates kept by a sparse downlink (default: --comp-k)")
+    ap.add_argument("--comp-policy", default=None,
+                    help="per-parameter-group compression: a policy .json file, inline "
+                         "rules (pattern=method[:opt=v...][/down_method...],...; '*' is the "
+                         "catch-all), 'default' for the model's curated policy, or "
+                         "'size-adaptive'; overrides --compression/--comp-k/--down-*")
+    ap.add_argument("--per-leaf-agg", action="store_true",
+                    help="compress, gather and decode each parameter leaf on its own "
+                         "instead of the whole model (or each policy group) as one buffer")
     ap.add_argument("--vr", action="store_true",
                     help="VR-DIANA: L-SVRG control variates under the compressed "
                          "differences (a second backward per worker at its snapshot)")
@@ -353,12 +504,14 @@ def main(argv=None):
         cfg = replace(cfg, comp_down_method=args.down_method)
     if args.down_k:
         cfg = replace(cfg, comp_down_k=args.down_k)
+    if args.per_leaf_agg:
+        cfg = replace(cfg, comp_bucketed=False)
     n_workers = parse_mesh(args.mesh)
     if args.vr:
         m_local = max(1, shape.global_batch // n_workers)
         cfg = replace(cfg, vr=True, vr_p=resolve_vr_p(args.vr_p, m_local))
     distributed = "WORLD_SIZE" in os.environ
-    opt = make_optimizer(cfg, lr=args.lr, inner=args.inner)
+    opt = make_optimizer(cfg, lr=args.lr, inner=args.inner, policy=args.comp_policy)
     if distributed:
         device = init_distributed(args.device, n_workers)
         params, opt_state = init_train_state(cfg, opt, 1, device)

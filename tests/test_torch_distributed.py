@@ -768,17 +768,34 @@ def test_world_of_one_trainer_bitwise_in_turn(world_of_one, one_thread, method):
 
 
 def test_policy_and_chunked_configs_refused(world_of_one):
-    """A compression policy raises NotImplementedError naming its ROADMAP.md
-    queue 1 item; the chunked wire cannot even be asked for, since the
-    port's ``CompressionConfig`` has no field for it yet."""
-    cfg = _config("diana", "bucketed")
-    grads = {p: torch.ones(s) for p, s in SHAPES.items()}
-    state = init_state(grads, cfg, 1)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        aggregate_distributed(grads, state, prng.PRNGKey(0), object())
+    """A policy runs now: a uniform policy's round is the flat config's bit
+    for bit (its state too, over two rounds, with a downlink); anything
+    else than a config or a policy raises TypeError; and the fields of later
+    slices (participation, the chunked wire) cannot even be asked for,
+    since the port's ``CompressionPolicy`` and ``CompressionConfig`` have no
+    field for them yet."""
+    from repro_torch.core.policy import CompressionPolicy
+
+    cfg = replace(_config("diana", "bucketed"), down_method="topk_ef", down_k=8)
+    pol = CompressionPolicy.uniform(cfg)
+    data = _inputs()
+    s_cfg = init_state({p: torch.zeros(s) for p, s in SHAPES.items()}, cfg, 1)
+    s_pol = init_state({p: torch.zeros(s) for p, s in SHAPES.items()}, pol, 1)
+    for r in range(ROUNDS):
+        grads = {p: torch.from_numpy(data[f"{p}{r}"][0].copy()) for p in SHAPES}
+        key = prng.fold_in(prng.PRNGKey(SEED_KEY), r)
+        extra = dict(down_key=prng.fold_in(key, DOWN_FOLD))
+        g1, s_cfg = aggregate_distributed(grads, s_cfg, worker_key(key, 0), cfg, **extra)
+        g2, s_pol = aggregate_distributed(grads, s_pol, worker_key(key, 0), pol, **extra)
+        assert all(torch.equal(g1[p], g2[p]) for p in SHAPES)
+        for a, b in zip(s_cfg, s_pol):
+            assert (a is None and b is None) or torch.equal(a, b)
+    with pytest.raises(TypeError):
+        aggregate_distributed(grads, s_cfg, prng.PRNGKey(0), object())
+    with pytest.raises(TypeError, match="participation"):
+        CompressionPolicy(participation=0.5)
     with pytest.raises(TypeError, match="chunk_bytes"):
         replace(cfg, chunk_bytes=256)
-    aggregate_distributed(grads, state, prng.PRNGKey(0), cfg)
 
 
 def test_cli_mesh_must_match_the_world(monkeypatch):
