@@ -35,7 +35,8 @@ Phases (each prints its lines; any failure exits non-zero):
    holds.  Dense (identity, alignment 1):
    ``dense_copy`` into the rows of the gathered (4, Dp) buffer,
    ``dense_decode_sum`` (n = 1 and 4) and ``_mean`` (n = 4) bitwise, with
-   -0.0 (in every worker), +-inf, subnormals and FLT_MAX spliced in.  Median
+   -0.0 (in every worker), +-inf, subnormals and FLT_MAX spliced in, and
+   ``dense_copy`` against ``Tensor.copy_`` in 20 interleaved calls.  Median
    time (CUDA events) of kernel and plain version, the bound (bytes over HBM
    bandwidth, or operations over the peak rate; for the threefry cipher its
    integer instructions over the SMs' dispatch rate) and, where one PyTorch call
@@ -134,6 +135,24 @@ Phases (each prints its lines; any failure exits non-zero):
    ``build_distributed_step`` (the identity group one all-reduce, each
    other group one all-gather), 2 steps at a batch of 2 x 4096, bitwise
    the in-turn trainer at n = 1 (every group's memories);
+15c. elastic: ``--participation-q 0.6 --participation-dropout 0.1
+   --min-workers 3`` (the step keys' masks at n = 4: 1011, 1111, then a
+   degraded 0101) with ``--faults corrupt:step=1,worker=0``, in turn at n =
+   4 on the 8-layer slice, 3 steps of ``diana``: each step's mask, ``ok``
+   and wire verdicts, and bitwise: the non-participant's row zero after
+   step 0, the corrupted worker's row unchanged at step 1, ``h_server``
+   unchanged and ghat zero on the degraded step; launches exact (the own
+   decode of the advancing rows, one ``unpack_reduce`` server sum per
+   step); the checksum of one worker's wire timed against its byte bound;
+   steps 0-1 again with worker 0's churn leave at step 1 in place of the
+   fault, parameters, momentum and memories bitwise the fault run's after
+   step 1; ``none`` under participation, 2 steps: its masked server sum
+   is ``dense_decode_sum``, one per step; the world of one over NCCL with
+   participation and the corrupted wire (the checksummed wire crosses the
+   all-gather), bitwise in turn at n = 1; and the five operators on the
+   reduced model at n = 4, bucketed with the fault plan and per leaf, 3
+   steps through the kernels bitwise the same steps through the plain
+   versions;
 16. the full depth: the distributed ``diana`` path on all 16 layers,
    world of one, 3 steps: finite losses, step times and peak memory.
 
@@ -240,7 +259,7 @@ def main() -> None:
     try:
         from repro_torch.configs import ShapeConfig, get_config, reduced
         from repro_torch.core import prng
-        from repro_torch.core.bucket import BucketedCompressor
+        from repro_torch.core.bucket import BucketedCompressor, checksum_words
         from repro_torch.core.compression import CompressionConfig
         from repro_torch.core.compressors.identity import IdentityCompressor
         from repro_torch.core.compressors.natural import NaturalCompressor
@@ -248,6 +267,7 @@ def main() -> None:
         from repro_torch.core.compressors.ternary import TernaryCompressor
         from repro_torch.core.compressors.topk_ef import TopKEFCompressor
         from repro_torch.core.diana import GROUP_FOLD, bucket_layout, worker_key
+        from repro_torch.core.participation import ChurnEvent, ParticipationSpec, parse_faults
         from repro_torch.core.policy import grouped_bucket_layout, policy_bits_per_dim
         from repro_torch.core.vr import resolve_vr_p
         from repro_torch.benchmarks.common import (fstar_logreg, run_logreg,
@@ -725,6 +745,15 @@ def main() -> None:
            time_ms(lambda: ref.ref_dense_copy(x), 3),
            8.0 * idp, 0.0, "bitwise, into a row of the gathered buffer",
            time_ms(lambda: row.copy_(x), 10))
+    # dense_copy against Tensor.copy_ interleaved: one call of each in turn,
+    # 20 times, so that both read the card in the same state.
+    alt = {"dense_copy": [], "copy_": []}
+    for _ in range(20):
+        alt["dense_copy"].append(time_ms(lambda: ops.dense_copy_op(x, out=row), 1, 0))
+        alt["copy_"].append(time_ms(lambda: row.copy_(x), 1, 0))
+    print("kernel dense_copy vs Tensor.copy_, 20 interleaved calls each: "
+          + "; ".join(f"{k} median {statistics.median(v):.4f} ms, min {min(v):.4f}, "
+                      f"max {max(v):.4f}" for k, v in alt.items()))
     ig.values[1].copy_(x * 2)
     vals = ig.values
     one = vals[:1]
@@ -1205,14 +1234,16 @@ def main() -> None:
     # 2 steps each from the same state, batches and keys.  The bucketed
     # run's parameters and memories stay on the card (22.5 GB at n = 4)
     # while the per-leaf run takes its steps.
-    def inturn_run(pcfg, steps, label, policy=None):
+    def inturn_run(pcfg, steps, label, policy=None, participation=None, faults=None,
+                   keep=None):
         """``steps`` in-turn steps at n = 4 on batch 8 x 4096 from the
         path's initial state; returns losses, params, optimizer state,
-        launches."""
+        launches.  ``keep(s, params, opt_state, metrics)`` runs after each
+        step, outside its time."""
         shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
-        opt = make_optimizer(pcfg, policy=policy)
+        opt = make_optimizer(pcfg, policy=policy, participation=participation)
         params, opt_state = init_train_state(pcfg, opt, WORKERS, dev)
-        step_fn = build_train_step(pcfg, opt, WORKERS, dev)
+        step_fn = build_train_step(pcfg, opt, WORKERS, dev, faults)
         batches = [{k: torch.from_numpy(v).to(dev)
                     for k, v in make_lm_batch(pcfg, shape, s).items()} for s in range(steps)]
         torch.cuda.synchronize()
@@ -1228,6 +1259,8 @@ def main() -> None:
             losses.append(float(met["loss"]))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            if keep is not None:
+                keep(s, params, opt_state, met)
         counts = dict(build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         if not all(math.isfinite(x) and 0 < x < 20 for x in losses):
@@ -1353,10 +1386,10 @@ def main() -> None:
         "none": {},
     }
 
-    def dist_run(pcfg, steps, label, step_builder, policy=None):
+    def dist_run(pcfg, steps, label, step_builder, policy=None, participation=None):
         """``steps`` steps of one worker from the path's initial state;
         returns losses, params, DIANA state, step times, peak, launches."""
-        opt = make_optimizer(pcfg, policy=policy)
+        opt = make_optimizer(pcfg, policy=policy, participation=participation)
         params, opt_state = init_train_state(pcfg, opt, 1, dev)
         step_fn = step_builder(pcfg, opt)
         batches = [{k: torch.from_numpy(v).to(dev)
@@ -1512,6 +1545,201 @@ def main() -> None:
         fail("policy: the world-of-one grouped trainer differs from the in-turn trainer")
     del d_params, d_leaves, t_params, t_diana, t_leaves
     torch.cuda.empty_cache()
+    # ------------------------------------------------------------ elastic
+    # Elastic participation and the checksummed wire.  The knobs give the
+    # step keys fold_in(PRNGKey(0), s) at n = 4 the masks 1011, 1111, 0101
+    # (min_workers 3: the third step is degraded), and the fault plan
+    # corrupts worker 0's wire at step 1: a non-participant, a checksum
+    # exclusion and a degraded step in three steps.
+    espec = ParticipationSpec(q=0.6, dropout=0.1, min_workers=3)
+    eflags = "--participation-q 0.6 --participation-dropout 0.1 --min-workers 3"
+    efaults = parse_faults("corrupt:step=1,worker=0")
+
+    def elastic_launches(mets, per_worker, server):
+        """The launches an elastic in-turn run makes: ``per_worker`` for
+        every worker each step, the own decode (``server``'s kernel) for each
+        worker whose row advances, one server sum per step."""
+        want = {}
+        for m in mets:
+            adv = sum(bool(m["mask"][w]) and m["ok"] and (not m["valid"] or m["valid"][w])
+                      for w in range(WORKERS))
+            for k, v in per_worker.items():
+                want[k] = want.get(k, 0) + v * WORKERS
+            if server[0] is not None:
+                want[server[0]] = want.get(server[0], 0) + adv
+            want[server[1]] = want.get(server[1], 0) + 1
+        return want
+
+    # (1) diana at full width, 3 steps, the checksummed wire
+    ekept, emets = {}, []
+
+    def keep_diana(s, params, opt_state, met):
+        d = opt_state.diana
+        emets.append(met)
+        print(f"elastic: diana step {s}: mask {met['mask']} ok {met['ok']} wire verdicts "
+              f"{met['valid']} ghat_norm {float(met['ghat_norm'])!r}")
+        if s == 0:
+            if d.h_worker[1].any():
+                fail("elastic: the non-participant's h_worker row moved at step 0")
+            ekept["row0"] = d.h_worker[0].clone()       # one 4.09 GB row
+        elif s == 1:
+            if not torch.equal(d.h_worker[0], ekept.pop("row0")):
+                fail("elastic: the corrupted worker's h_worker row moved at step 1")
+            # step 1's state, on the host, for corrupt == churn leave
+            ekept["state1"] = [t.detach().to("cpu", copy=True) for t in
+                               [params[k] for k in sorted(params)]
+                               + [opt_state.inner[k] for k in sorted(opt_state.inner)]
+                               + state_leaves(d)]
+            ekept["hs"] = d.h_server.clone()
+        elif s == 2:
+            if float(met["ghat_norm"]) != 0.0 or not torch.equal(d.h_server, ekept.pop("hs")):
+                fail("elastic: the degraded step moved h_server or gave a non-zero ghat")
+    _, e_params, e_state, counts = inturn_run(
+        cfg, STEPS, f"elastic: in turn diana {eflags} --faults corrupt:step=1,worker=0",
+        participation=espec, faults=efaults, keep=keep_diana)
+    want = elastic_launches(emets, {"quantize_pack_prng": 1},
+                            ("unpack_reduce", "unpack_reduce"))
+    if [(m["mask"], m["ok"], m["valid"]) for m in emets] != [
+            ([True, False, True, True], True, [True] * 4),
+            ([True] * 4, True, [False, True, True, True]),
+            ([False, True, False, True], False, [True] * 4)]:
+        fail("elastic: the masks or verdicts are not the ones reckoned")
+    if counts != want:
+        fail(f"elastic diana: launches {counts}, expected {want}")
+    also(f"elastic diana (8 layers, 4 workers, {STEPS} steps, masked)", counts)
+    print("elastic: diana: the non-participant's row zero after step 0, the corrupted "
+          "worker's row unchanged at step 1, h_server unchanged and ghat zero on the degraded "
+          "step 2: bitwise")
+    # The checksum's time on one worker's wire (the fused ternary payload).
+    wire_bytes = e_state.diana.h_worker.shape[1] // 4 + 4 * (e_state.diana.h_worker.shape[1]
+                                                              // cfg.comp_block)
+    del e_params, e_state
+    torch.cuda.empty_cache()
+    wire = torch.randint(0, 256, (wire_bytes,), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    print(f"elastic: checksum of one worker's wire ({wire_bytes} B): "
+          f"{time_ms(lambda: checksum_words(wire), 5):.4f} ms (host sync included), byte "
+          f"bound {bound(float(wire_bytes), 0.0)[0]:.4f} ms")
+    del wire
+
+    # (2) the corrupted wire is its worker's leave: steps 0-1 again with a
+    # churn leave of worker 0 at step 1 instead of the fault
+    lspec = replace(espec, churn=(ChurnEvent(1, 0, "leave"),))
+    _, l_params, l_state, _ = inturn_run(cfg, 2, f"elastic: in turn diana {eflags} "
+                                         "(churn: worker 0 leaves at step 1)",
+                                         participation=lspec)
+    got = ([l_params[k] for k in sorted(l_params)]
+           + [l_state.inner[k] for k in sorted(l_state.inner)] + state_leaves(l_state.diana))
+    state1 = ekept.pop("state1")
+
+    def host_equal(a, b):
+        """A host tensor against a card tensor, a 4.09 GB row at a time."""
+        if a.shape != b.shape:
+            return False
+        if a.numel() * a.element_size() <= 1 << 32:
+            return torch.equal(a, b.cpu())
+        return all(torch.equal(a[i], b[i].cpu()) for i in range(a.shape[0]))
+    same = len(got) == len(state1) and all(host_equal(a, b) for a, b in zip(state1, got))
+    print(f"elastic: corrupt == churn leave at full width: parameters, momentum and every "
+          f"memory after step 1 bitwise ({len(got)} tensors): {same}")
+    if not same:
+        fail("elastic: the corrupted wire's step differs from its worker's churn leave")
+    del l_params, l_state, got, state1
+    torch.cuda.empty_cache()
+
+    # (3) none under participation: the identity operator's masked server
+    # sum, dense_decode_sum, on a trainer path
+    nmets = []
+    _, n_params, n_state, counts = inturn_run(
+        replace(cfg, compression="none"), 2, f"elastic: in turn none {eflags}",
+        participation=espec, keep=lambda s, p, o, m: nmets.append(m))
+    want = elastic_launches(nmets, {"dense_copy": 1}, (None, "dense_decode_sum"))
+    expect("elastic none", counts, want, "elastic none (8 layers, 4 workers, 2 steps, masked)",
+           ("dense_decode_sum",))
+    also("elastic none (8 layers, 4 workers, 2 steps, masked)", counts)
+    print(f"elastic: none: masks {[m['mask'] for m in nmets]}; launches {counts}")
+    del n_params, n_state
+    torch.cuda.empty_cache()
+
+    # (4) the world of one over NCCL: the checksummed wire crosses
+    # all_gather_into_tensor; bitwise the in-turn trainer at n = 1
+    ospec = replace(espec, min_workers=1)
+    d_loss, d_params, d_diana, counts, wire_t = dist_run(
+        cfg, 2, f"elastic: distributed diana --participation-q 0.6 --participation-dropout 0.1 "
+        "--faults corrupt:step=1,worker=0", lambda c, o: build_distributed_step(c, o, efaults),
+        participation=ospec)
+    if counts != {"quantize_pack_prng": 2, "unpack_reduce": 4} or len(wire_t) != 2:
+        fail(f"elastic: distributed launches {counts}, {len(wire_t)} all-gathers")
+    also("elastic distributed diana (world 1, 8 layers, 2 steps)", counts)
+    print(f"elastic: distributed: all_gather_into_tensor of the checksummed wire "
+          f"{wire_t[-1][1]} B per step, {[round(ms, 4) for ms, _ in wire_t]} ms")
+    d_params = {k: v.detach().cpu() for k, v in d_params.items()}
+    d_leaves = [t.cpu() for t in state_leaves(d_diana)]
+    del d_diana
+    torch.cuda.empty_cache()
+    t_loss, t_params, t_diana, _, _ = dist_run(
+        cfg, 2, "elastic: in turn diana (n = 1), the same flags",
+        lambda c, o: build_train_step(c, o, 1, dev, efaults), participation=ospec)
+    t_leaves = state_leaves(t_diana)
+    same = (d_loss == t_loss
+            and all(torch.equal(d_params[k], t_params[k].cpu()) for k in t_params)
+            and len(d_leaves) == len(t_leaves)
+            and all(torch.equal(a, b.cpu()) for a, b in zip(d_leaves, t_leaves)))
+    print(f"elastic: distributed diana with participation and a corrupted wire: losses, "
+          f"parameters, h_worker and h_server bitwise the in-turn trainer's at n = 1: {same}")
+    if not same:
+        fail("elastic: the world-of-one elastic trainer differs from the in-turn trainer")
+    del d_params, d_leaves, t_params, t_diana, t_leaves
+    torch.cuda.empty_cache()
+
+    # (5) all five operators on the reduced model at n = 4, bucketed (with
+    # the fault plan) and per leaf, through the kernels against the same
+    # steps through the plain versions
+    ebatches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                 make_lm_batch(rcfg, ShapeConfig("smoke", 64, WORKERS, "train"), s).items()}
+                for s in range(3)]
+
+    def train_elastic(method, bucketed):
+        params = {k: torch.nn.Parameter(v.detach().to(dev, copy=True)) for k, v in init.items()}
+        opt = make_optimizer(replace(rcfg, compression=method, comp_k=4096,
+                                     comp_bucketed=bucketed), participation=espec)
+        st = opt.init(params, WORKERS)
+        fn = build_train_step(rcfg, opt, WORKERS, dev, efaults if bucketed else None)
+        losses = []
+        for s, batch in enumerate(ebatches):
+            params, st, met = fn(params, st, batch, prng.fold_in(prng.PRNGKey(0), s))
+            losses.append(float(met["loss"]))
+        return losses, params, st.diana
+
+    for method in ("diana", "natural", "randk", "topk_ef", "none"):
+        for bucketed in (True, False):
+            label = method + ("" if bucketed else " --per-leaf-agg")
+            build.reset_launches()
+            k_loss, k_params, k_diana = train_elastic(method, bucketed)
+            kcounts = dict(build.LAUNCHES)
+            on_card = ops._on_card
+            ops._on_card = lambda t: False
+            try:
+                p_loss, p_params, p_diana = train_elastic(method, bucketed)
+            finally:
+                ops._on_card = on_card
+            k_leaves, p_leaves = state_leaves(k_diana), state_leaves(p_diana)
+            same = (k_loss == p_loss
+                    and all(torch.equal(k_params[k], p_params[k]) for k in k_params)
+                    and len(k_leaves) == len(p_leaves)
+                    and all(torch.equal(a, b) for a, b in zip(k_leaves, p_leaves)))
+            print(f"elastic: reduced llama3.2-1b, {label} {eflags}"
+                  f"{' --faults corrupt:step=1,worker=0' if bucketed else ''}, 4 workers, 3 "
+                  f"steps on the card: losses {k_loss} with the kernels, {p_loss} with the "
+                  f"plain versions (states bitwise equal: {same}); kernel launches {kcounts}")
+            if not same:
+                fail(f"elastic: the {label} steps through the kernels differ from the plain "
+                     "versions")
+            also(f"elastic reduced {label} (4 workers, 3 steps)", kcounts)
+    del k_params, p_params, k_diana, p_diana, k_leaves, p_leaves, ebatches
+    build.reset_launches()
+    torch.cuda.empty_cache()
+
     # The model's full depth: 16 layers, the distributed diana path.
     fcfg = get_config("llama3.2-1b")
     f_loss, f_params, f_diana, counts, wire = dist_run(

@@ -13,11 +13,13 @@
   populated payload field byte-cast into ONE uint8 buffer, so the worker
   all-gather is one collective (``repro/core/bucket.py:291-343``);
   :func:`wire_roundtrip` puts the downlink's payload through it.
+* :func:`add_checksum` / :func:`verify_checksum` — the 8-byte tail the wire
+  carries when faults are armed (``repro/core/bucket.py:351-402``).
 
 Bitwise contract (as in ``repro.core.bucket``): the bucketed round equals the
 per-leaf round — same per-segment PRNG draws, same per-block scales, same
-f32 recurrences.  The chunked schedule and wire checksums are later slices
-(ROADMAP.md queue 1).
+f32 recurrences.  The chunked schedule is a later slice (ROADMAP.md queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ from . import tree as T
 from .compressors.base import Compressor, Payload
 
 __all__ = ["BucketLayout", "GroupedBucketLayout", "BucketedCompressor", "bucketed_compressor",
-           "payload_recipe", "fuse_payload", "unfuse_payload", "wire_roundtrip"]
+           "payload_recipe", "fuse_payload", "unfuse_payload", "wire_roundtrip",
+           "CHECKSUM_BYTES", "checksum_words", "add_checksum", "verify_checksum",
+           "checksum_tail_bits_per_dim"]
 
 
 @dataclass(frozen=True)
@@ -187,6 +191,9 @@ class BucketedCompressor(Compressor):
     def server_direction(self, h, dhat_mean):
         return self.base.server_direction(h, dhat_mean)
 
+    def scaled_direction(self, h, total, scale):
+        return self.base.scaled_direction(h, total, scale)
+
 
 @functools.lru_cache(maxsize=None)
 def bucketed_compressor(cfg, layout: BucketLayout) -> BucketedCompressor:
@@ -244,3 +251,90 @@ def wire_roundtrip(pay: Payload) -> Payload:
     if sum(f is not None for f in pay) <= 1:
         return pay
     return unfuse_payload(fuse_payload(pay), payload_recipe(pay))
+
+
+# ---------------------------------------------------------------------------
+# Wire checksums (the fault harness, repro_torch.core.participation)
+# ---------------------------------------------------------------------------
+
+# The tail on the fused wire: two uint32 words, the byte sum and the
+# position-weighted byte sum (positions 1..L as uint32, so they wrap past
+# 2^32), both mod 2^32, little-endian.  An integrity check, not a
+# cryptographic one: one XOR-corrupted byte always changes the byte sum.
+CHECKSUM_BYTES = 8
+_MASK32 = 0xFFFFFFFF
+_CHECKSUM_CHUNK = 1 << 24
+
+
+def checksum_words(flat: torch.Tensor, chunk: int = _CHECKSUM_CHUNK, pos0: int = 0):
+    """``(..., L)`` uint8 -> ``[(s1, s2), ...]``, one pair of Python ints per
+    row (``repro/core/bucket.py:362``'s ``_checksum_words``): ``s1 = sum_j
+    b_j`` and ``s2 = sum_j b_j * ((pos0 + j) mod 2^32)`` over ``j = 1..L``,
+    both mod 2^32; ``pos0`` shifts the positions (0 on the wire).
+
+    torch has no uint32 arithmetic, and an int64 copy of a multi-GB wire
+    would not fit, so the rows are read in chunks of ``chunk`` bytes: per
+    chunk at byte ``c`` the device sums ``b`` and ``b * j`` over the chunk's
+    own positions ``j = 1..chunk`` (exact in int64: ``j <= 2^24``), and the
+    host adds ``(pos0 + c) * sum(b)`` in Python integers, which is ``s2``'s
+    chunk term mod 2^32 whatever the wrap."""
+    lead = tuple(flat.shape[:-1])
+    L = flat.shape[-1]
+    rows = flat.reshape(-1, L)
+    j = torch.arange(1, min(chunk, max(L, 1)) + 1, dtype=torch.int64, device=flat.device)
+    parts = []
+    for c in range(0, L, chunk):
+        b = rows[:, c:c + chunk]
+        parts.append(torch.stack([b.sum(-1, dtype=torch.int64),
+                                  (b * j[:b.shape[1]]).sum(-1)], dim=-1))
+    sums = torch.stack(parts).tolist() if parts else []   # (chunks, rows, 2), one sync
+    out = []
+    for r in range(rows.shape[0]):
+        s1 = s2 = 0
+        for ci, c in enumerate(range(0, L, chunk)):
+            sb, sbj = sums[ci][r]
+            s1 += sb
+            s2 += (pos0 + c) * sb + sbj
+        out.append((s1 & _MASK32, s2 & _MASK32))
+    return out if lead else out[0]
+
+
+def _tail(words, device) -> torch.Tensor:
+    s1, s2 = words
+    return torch.tensor(list((s1 | (s2 << 32)).to_bytes(8, "little")), dtype=torch.uint8,
+                        device=device)
+
+
+def add_checksum(buf: torch.Tensor) -> torch.Tensor:
+    """ONE worker's fused ``(lead, W)`` uint8 buffer -> the 1-D wire
+    ``(lead * W + 8,)``: the payload bytes, then the checksum tail
+    (``repro/core/bucket.py:371``)."""
+    flat = buf.reshape(-1)
+    return torch.cat([flat, _tail(checksum_words(flat), flat.device)])
+
+
+def verify_checksum(wire: torch.Tensor):
+    """Inverse of :func:`add_checksum` over any leading (worker) dims:
+    ``(..., L + 8) -> ((..., L) payload bytes, (...,) bool ok)`` with ``ok``
+    a CPU tensor, False exactly where the recomputed words disagree with the
+    tail (``:380``).  The bytes of a failed payload are not sanitised: the
+    round excludes it."""
+    flat, tail = wire[..., :-CHECKSUM_BYTES], wire[..., -CHECKSUM_BYTES:]
+    lead = tuple(wire.shape[:-1])
+    got = checksum_words(flat)
+    tails = tail.reshape(-1, CHECKSUM_BYTES).cpu().tolist()
+    words = got if lead else [got]
+    ok = [int.from_bytes(bytes(t), "little") == (s1 | (s2 << 32))
+          for t, (s1, s2) in zip(tails, words)]
+    return flat, torch.tensor(ok, dtype=torch.bool).reshape(lead)
+
+
+def checksum_tail_bits_per_dim(layout: BucketLayout, chunk_bytes: int = 0) -> float:
+    """Wire bits per coordinate of the checksum tail when faults are armed
+    (``:388``): one 8-byte tail per wire buffer, and the monolithic wire is
+    one buffer (the chunked schedule, one tail per chunk, is a later
+    slice)."""
+    if chunk_bytes:
+        raise NotImplementedError("the chunked wire (chunk_bytes > 0) is ROADMAP.md queue 1 "
+                                  "item 6")
+    return CHECKSUM_BYTES * 8.0 / max(layout.size, 1)

@@ -1,9 +1,9 @@
 """Compression configuration — a frozen, hashable factory over the registry.
 
 The port's copy of ``repro.core.compression.CompressionConfig`` with the
-fields the flat (uniform) round reads, VR-DIANA's and the compressed
-downlink's included.  Participation and the chunked/hierarchical schedules
-are later slices (ROADMAP.md queue 1).
+fields the flat (uniform) round reads, VR-DIANA's, the compressed
+downlink's and elastic participation's included.  The chunked/hierarchical
+schedules are a later slice (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from .compressors import make_compressor
 from .compressors.registry import canonical_name
+from .participation import ParticipationSpec
 
 __all__ = ["CompressionConfig", "payload_bits_per_dim"]
 
@@ -41,7 +42,10 @@ class CompressionConfig:
     down_method: the downlink (server -> worker) operator for ``ghat``, with
                 its own memory ``h_down``; None keeps the broadcast exact
     down_k:     kept coordinates of a sparse downlink (None: ``k``)
-    down_bucketed: the downlink's layout (None: follows ``bucketed``)"""
+    down_bucketed: the downlink's layout (None: follows ``bucketed``)
+    participation: elastic participation
+                (:class:`~repro_torch.core.participation.ParticipationSpec`):
+                None or a trivial spec keep the all-workers round"""
 
     method: str = "diana"
     p: float = math.inf
@@ -55,6 +59,7 @@ class CompressionConfig:
     down_method: Optional[str] = None
     down_k: Optional[int] = None
     down_bucketed: Optional[bool] = None
+    participation: Optional[ParticipationSpec] = None
 
     def __post_init__(self):
         canonical_name(self.method)  # raises on unknown methods
@@ -64,6 +69,9 @@ class CompressionConfig:
             raise ValueError("block_size must be a multiple of 4 for 2-bit packing")
         if self.vr_p is not None and not 0.0 < self.vr_p <= 1.0:
             raise ValueError(f"vr_p must be in (0, 1], got {self.vr_p}")
+        if self.participation is not None and not isinstance(self.participation,
+                                                             ParticipationSpec):
+            raise TypeError("participation must be a ParticipationSpec")
 
     def make(self):
         """The configured compressor (memoized: compressors are stateless)."""
@@ -72,14 +80,17 @@ class CompressionConfig:
     def down_config(self) -> Optional["CompressionConfig"]:
         """The downlink operator's config, or None: ``down_method`` through
         the same factory, ``down_k`` / ``down_bucketed`` defaulting to the
-        uplink's ``k`` / layout, and never VR (a worker-side transform)."""
+        uplink's ``k`` / layout, never VR (a worker-side transform) and never
+        participation (the broadcast reaches every worker; a degraded step
+        freezes ``h_down`` at the caller)."""
         if self.down_method is None:
             return None
         return replace(self, method=self.down_method,
                        k=self.k if self.down_k is None else self.down_k,
                        bucketed=self.bucketed if self.down_bucketed is None
                        else self.down_bucketed,
-                       down_method=None, down_k=None, down_bucketed=None, vr=False, vr_p=None)
+                       down_method=None, down_k=None, down_bucketed=None, vr=False, vr_p=None,
+                       participation=None)
 
 
 @functools.lru_cache(maxsize=None)

@@ -63,6 +63,53 @@ class Payload(NamedTuple):
         """The ``i``-th worker's payload from a stacked/gathered payload."""
         return Payload(*(None if f is None else f[i] for f in self))
 
+    def _mask_field(self) -> Optional[int]:
+        """The ONE field whose zero rows decode to exact zeros, in the JAX
+        order: ``scales`` (zero scales times any ternary code), else
+        ``values`` (dense or scattered zeros), else ``packed`` (natural
+        compression's code 0 is 0.0)."""
+        for name in ("scales", "values", "packed"):
+            if getattr(self, name) is not None:
+                return self._fields.index(name)
+        return None
+
+    def mask_workers(self, mask: torch.Tensor) -> "Payload":
+        """Zero the rows of the non-participants of a GATHERED payload
+        (``repro/core/compressors/base.py:76``; ``mask`` a (n,) bool): each
+        excluded worker then decodes to zeros and the unchanged
+        ``decode_sum`` recurrence sums the participants alone.  Returns a
+        new payload; the fields it leaves alone are shared.
+
+        A sparse payload's excluded rows also get the indices ``0..k-1``.
+        With zero values a row decodes to the +0.0 row whatever its indices
+        (the JAX decode drops an out-of-range index), so the bits are the
+        same; but a corrupted wire may carry any index, and the card's
+        decode must not be handed one out of range."""
+        i = self._mask_field()
+        if i is None:
+            return self
+        copied = {self._fields[i]: self[i].clone()}
+        if self.indices is not None and self._fields[i] == "values":
+            copied["indices"] = self.indices.clone()
+        return self._replace(**copied).mask_workers_(mask)
+
+    def mask_workers_(self, mask: torch.Tensor) -> "Payload":
+        """:meth:`mask_workers` in place, for a stacked buffer the caller
+        owns: nothing model-sized is allocated.  Zeroed rows hold +0, the
+        bits of the JAX select."""
+        i = self._mask_field()
+        if i is None:
+            return self
+        sparse = self.indices is not None and self._fields[i] == "values"
+        for w, keep in enumerate(mask.tolist()):
+            if not keep:
+                self[i][w].zero_()
+                if sparse:
+                    k = self.indices.shape[-1]
+                    self.indices[w].copy_(torch.arange(k, device=self.indices.device)
+                                          .to(self.indices.dtype))
+        return self
+
 
 class Compressor:
     """Abstract compression operator behind the DIANA aggregation loop.
@@ -139,6 +186,17 @@ class Compressor:
     def server_direction(self, h: torch.Tensor, dhat_mean: torch.Tensor) -> torch.Tensor:
         """The aggregated estimator ``ghat = h + mean_i dhat_i``."""
         return h + dhat_mean if self.carries_state else dhat_mean
+
+    def scaled_direction(self, h: torch.Tensor, total: torch.Tensor, scale: float) -> torch.Tensor:
+        """``server_direction(h, total * scale)``, the elastic round's
+        direction from the participant sum (``repro/core/diana.py:174``).
+        The jitted reference contracts ``h + total * scale`` into one FMA, as
+        it does ``h + alpha * x``, so the alpha rule's direction is
+        :func:`fma32`: bitwise at every participant count, where the unfused
+        sum is an ulp off when ``scale`` is not a power of two."""
+        if self.carries_state and type(self).server_direction is Compressor.server_direction:
+            return fma32(scale, total, h)
+        return self.server_direction(h, total * scale)
 
     # ------------------------------------------------- bucketed (flat) hooks
 

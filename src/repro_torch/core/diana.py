@@ -51,10 +51,25 @@ stays model-wide, applied before the grouping.  Distributed, identity
 groups take the all-reduce, bucketed groups one fused all-gather each, and
 per-leaf groups the per-leaf round (DESIGN.md §Policy).
 
+Elastic participation (``participation`` on the config or the policy,
+:mod:`repro_torch.core.participation`) makes the round a sampled sum: the
+``(n,)`` mask is drawn once per step from ``fold_in(key, PART_FOLD)``, before
+any worker or group fold; every worker still encodes, the non-participants'
+gathered rows are zeroed (:meth:`Payload.mask_workers`) before the
+operator's ``decode_sum``, the direction takes the rescaled sum and
+``h_server`` the unrescaled ``sum / n`` (:func:`_masked_server_tail`), and
+only participants' memory rows advance, by select, never by adding zero.  A
+degraded step (fewer than ``min_workers``) gives ``ghat = 0`` and freezes
+every memory; a rejoining worker's row is reset first and stays reset.
+Identity leaves the all-reduce for the gather under participation.  A
+fault plan (``faults``, bucketed flat configs only) puts each fused payload
+on the checksummed wire (:func:`~repro_torch.core.bucket.add_checksum`) and
+excludes the payloads whose checksum fails, as if their workers had left.
+
 Trees are ``{path: tensor}`` dicts (:mod:`repro_torch.core.tree`); stacked
-per-worker grads carry a leading worker axis on every leaf.  Participation
-and the chunked/hierarchical schedules are later slices (ROADMAP.md queue
-1).
+per-worker grads carry a leading worker axis on every leaf.  The
+chunked/hierarchical schedules are a later slice (ROADMAP.md queue 1 item
+6).
 """
 
 from __future__ import annotations
@@ -66,16 +81,18 @@ import torch.distributed as dist
 
 from . import prng
 from . import tree as T
-from .bucket import (BucketLayout, bucketed_compressor, fuse_payload, payload_recipe,
-                     unfuse_payload, wire_roundtrip)
+from .bucket import (BucketLayout, add_checksum, bucketed_compressor, fuse_payload,
+                     payload_recipe, unfuse_payload, verify_checksum, wire_roundtrip)
 from .compression import CompressionConfig
 from .compressors.base import Payload
 from .numerics import div_n, fma32
+from .participation import (PART_FOLD, ParticipationSpec, apply_faults, direction_scale,
+                            step_ctx)
 from .policy import CompressionPolicy, partition_for
 from .vr import control_variate, init_vr, reference_coins, refresh, vr_coin
 
 __all__ = [
-    "DOWN_FOLD", "GROUP_FOLD", "CHUNK_FOLD",
+    "DOWN_FOLD", "GROUP_FOLD", "CHUNK_FOLD", "PART_FOLD",
     "ReferenceState", "reference_init", "reference_step", "bucket_layout",
     "worker_key", "DianaState", "init_state", "init_downlink", "downlink_round",
     "aggregate_distributed",
@@ -232,9 +249,110 @@ def _vr_check(vr_p, vr_aux, params) -> None:
                          "and the current parameters")
 
 
+# ---------------------------------------------------------------------------
+# Elastic participation plumbing (repro/core/diana.py:120-180)
+# ---------------------------------------------------------------------------
+
+def _resolve_participation(policy, cfg) -> Optional[ParticipationSpec]:
+    """The active spec, or None: a trivial spec keeps the pre-elastic path."""
+    spec = policy.participation if policy is not None else cfg.participation
+    if spec is None or spec.is_trivial:
+        return None
+    return spec
+
+
+def check_faults(spec) -> None:
+    """A fault plan needs the flat bucketed layout: the checksum rides the
+    fused wire (``:1008-1011``)."""
+    policy, cfg = _split_spec(spec)
+    if policy is not None or not cfg.bucketed:
+        raise ValueError("fault injection rides the bucketed fused wire: use a flat config "
+                         "with bucketed=True")
+
+
+def step_part(spec, faults, part_key: torch.Tensor, n: int, step=None, worker_index=None):
+    """One step's :class:`~repro_torch.core.participation.PartCtx`, or None
+    for the pre-elastic round: ``spec`` (a flat config or a policy) names
+    the participation; a fault plan without one runs the checksum alone
+    over an all-workers mask.  ``part_key`` is ``fold_in(step_key,
+    PART_FOLD)``."""
+    policy, cfg = _split_spec(spec)
+    pspec = _resolve_participation(policy, cfg)
+    if faults is not None:
+        check_faults(spec)
+        pspec = pspec or ParticipationSpec()
+    if pspec is None:
+        return None
+    if (pspec.churn or faults is not None) and step is None:
+        raise ValueError("a churn schedule or a fault plan needs the step counter (step=)")
+    if part_key is None:
+        raise ValueError("elastic aggregation needs part_key = fold_in(step_key, PART_FOLD), "
+                         "folded before the worker fold")
+    return step_ctx(pspec, part_key, n, 0 if step is None else int(step), worker_index)
+
+
+def _where_rows(cond, new, old):
+    """Advance where ``cond``, keep ``old`` elsewhere, by SELECT (``:133``):
+    ``x + 0.0`` would turn -0.0 into +0.0.  ``cond`` is a Python bool or a
+    (n,) bool tensor over the leading rows; ``new`` / ``old`` a tensor or a
+    ``{path: tensor}`` tree."""
+    if isinstance(new, Mapping):
+        return {k: _where_rows(cond, new[k], old[k]) for k in new}
+    if isinstance(cond, bool):
+        return new if cond else old
+    c = cond.to(new.device).reshape(cond.shape + (1,) * (new.ndim - cond.ndim))
+    return torch.where(c, new, old)
+
+
+def _reinit_zero(reinit, h):
+    """Zero the rows of the workers whose churn ``join`` fires this step,
+    before the round (``:146``); the freeze selects back to this state, so a
+    fresh row survives a degraded step."""
+    zeros = ({k: torch.zeros_like(v) for k, v in h.items()} if isinstance(h, Mapping)
+             else torch.zeros_like(h))
+    return _where_rows(reinit, zeros, h)
+
+
+def _participant_gate(part, valid=None) -> torch.Tensor:
+    """The (n,) bool of the workers whose memory rows advance (``:154``):
+    scheduled participants, on a non-degraded step, whose wire checksum
+    verified (when faults are armed)."""
+    gate = part.mask & part.ok
+    return gate if valid is None else gate & valid
+
+
+def _masked_server_tail(comp, h_f: torch.Tensor, total: torch.Tensor, n: int, part,
+                        m_eff: torch.Tensor, inplace: bool = False):
+    """The sampled-sum server tail on ONE flat f32 buffer (``:167``):
+    ``ghat = server_direction(h, total * scale)`` with the rescale of the
+    effective set ``m_eff`` (as the jitted reference rounds it,
+    :meth:`~repro_torch.core.compressors.base.Compressor.scaled_direction`),
+    ``h_server`` advanced with the unrescaled ``total / n``, both frozen
+    (``ghat = 0``) on a degraded step.  ``inplace`` lets a memoryless
+    operator scale ``total`` in place (the in-turn trainer's buffer; the
+    same bits)."""
+    if not part.ok:
+        return torch.zeros_like(h_f), h_f
+    scale = float(direction_scale(part.spec, m_eff, part.ok))
+    if not comp.carries_state:
+        return comp.server_direction(h_f, total.mul_(scale) if inplace else total * scale), h_f
+    return (comp.scaled_direction(h_f, total, scale),
+            comp.next_server_memory(h_f, div_n(total, n)))
+
+
+def _wire_exchange(payload: Payload, faults, step: int, widx: int):
+    """One worker's payload on the checksummed wire (``:675-681``): fused
+    into one uint8 buffer, the checksum appended, this worker's scheduled
+    faults injected.  Returns ``(wire, fused shape, recipe)``."""
+    buf = fuse_payload(payload)
+    wire = apply_faults(add_checksum(buf), faults, step, widx)
+    return wire, tuple(buf.shape), payload_recipe(payload)
+
+
 def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: ReferenceState,
                    key: torch.Tensor, cfg, *, beta: float = 0.0,
-                   vr_aux=None, params=None, vr_force_refresh: bool = False):
+                   vr_aux=None, params=None, vr_force_refresh: bool = False,
+                   step: Optional[int] = None, faults=None):
     """Aggregate stacked per-worker grads ``{path: (n, *shape)}`` exactly as
     Algorithm 1; returns ``(v, new_state)`` with ``v = beta * v + ghat``.
 
@@ -245,7 +363,17 @@ def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: Referenc
     current iterate, and the rows whose coin (or ``vr_force_refresh``) is set
     refresh.  With ``state.h_down`` (a downlink) ``ghat`` passes through
     :func:`downlink_round` before the momentum.  A grouped policy runs
-    :func:`_reference_grouped`."""
+    :func:`_reference_grouped`.
+
+    With a non-trivial ``participation`` the round is elastic
+    (``:1390-1412``): the mask is drawn from ``fold_in(key, PART_FOLD)``,
+    ``step`` (default 0) drives the churn schedule, VR's coins are gated on
+    the scheduled mask and a degraded step freezes ``h_down`` and zeroes
+    ``ghat``.  ``faults`` (a
+    :class:`~repro_torch.core.participation.FaultPlan`, flat bucketed
+    configs only) puts each worker's payload on the checksummed wire."""
+    n = next(iter(grads_per_worker.values())).shape[0]
+    part = step_part(cfg, faults, prng.fold_in(key, PART_FOLD), n, step)
     policy, cfg = _split_spec(cfg)
     new_vr = state.vr
     if state.vr is not None:
@@ -253,21 +381,30 @@ def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: Referenc
         _vr_check(vr_p, vr_aux, params)
         g_snap, mu_cand = vr_aux
         grads_per_worker = control_variate(grads_per_worker, g_snap, state.vr.mu)
-        n = next(iter(grads_per_worker.values())).shape[0]
         coins = reference_coins(key, vr_p, n) | bool(vr_force_refresh)
+        if part is not None:
+            # the scheduled mask only, never the wire verdict (:1434-1437)
+            coins = coins & _participant_gate(part)
         new_vr = refresh(state.vr, coins, params, mu_cand)
     if policy is not None:
         ghat, new_hw, new_hs, new_h_down = _reference_grouped(grads_per_worker, state, key,
-                                                              policy)
+                                                              policy, part)
     else:
-        agg = _reference_agg_bucketed if cfg.bucketed else _reference_agg_perleaf
-        ghat, new_hw, new_hs = agg(grads_per_worker, state.h_worker, state.h_server, key, cfg)
+        if cfg.bucketed:
+            ghat, new_hw, new_hs = _reference_agg_bucketed(
+                grads_per_worker, state.h_worker, state.h_server, key, cfg, part=part,
+                faults=faults, step=step)
+        else:
+            ghat, new_hw, new_hs = _reference_agg_perleaf(
+                grads_per_worker, state.h_worker, state.h_server, key, cfg, part=part)
         new_h_down = None
         if state.h_down is not None:
             # _reference_finish's downlink (:1605-1626): the distributed path's
             # downlink_round and key, its memory in f32
-            ghat, new_h_down = downlink_round(ghat, state.h_down, prng.fold_in(key, DOWN_FOLD),
-                                              cfg, h_dtype=torch.float32)
+            ghat, new_h_down = _frozen_downlink(
+                part, state.h_down, ghat,
+                lambda: downlink_round(ghat, state.h_down, prng.fold_in(key, DOWN_FOLD), cfg,
+                                       h_dtype=torch.float32))
     # The momentum accumulate as one FMA: XLA contracts it so for most
     # leaves (beta = 0 makes the choice moot).
     v = {p: fma32(beta, state.v[p], ghat[p]) for p in ghat}
@@ -275,34 +412,46 @@ def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: Referenc
                              h_down=new_h_down)
 
 
-def _reference_grouped(grads_per_worker, state, key, policy: CompressionPolicy):
+def _frozen_downlink(part, h_down, ghat, run):
+    """``run()`` (a downlink round -> ``(ghat, new_h_down)``), except on a
+    degraded step, which broadcasts nothing: ``ghat`` stays zero and
+    ``h_down`` frozen (``:1082-1092``; the JAX round computes the downlink
+    and selects it away, the same bits)."""
+    if part is None or part.ok:
+        return run()
+    return ghat, h_down
+
+
+def _reference_grouped(grads_per_worker, state, key, policy: CompressionPolicy, part=None):
     """The grouped reference round (``repro/core/diana.py:1474``): per
     group, the group's own layout's round with ``gfold = GROUP_FOLD + g``,
     then its downlink (when its rule has one) keyed
     ``fold_in(fold_in(key, DOWN_FOLD), GROUP_FOLD + g)``; returns ``(ghat,
-    h_worker, h_server, h_down)``, the memories keyed by group name."""
-    part = partition_for(policy, grads_per_worker)
+    h_worker, h_server, h_down)``, the memories keyed by group name.  The
+    one participation context ``part`` serves every group."""
+    groups = partition_for(policy, grads_per_worker)
     ghat, new_hw, new_hs, new_hd = [], {}, {}, {}
-    for g, (gname, grads, paths) in enumerate(zip(part.group_names,
-                                                  part.split(grads_per_worker),
-                                                  part.group_paths)):
-        cfg_g, dcfg = part.configs[g], part.down_configs[g]
+    for g, (gname, grads, paths) in enumerate(zip(groups.group_names,
+                                                  groups.split(grads_per_worker),
+                                                  groups.group_paths)):
+        cfg_g, dcfg = groups.configs[g], groups.down_configs[g]
         hw, hs = state.h_worker[gname], state.h_server[gname]
         if cfg_g.bucketed:
             ghat_g, new_hw[gname], new_hs[gname] = _reference_agg_bucketed(
-                grads, hw, hs, key, cfg_g, gfold=GROUP_FOLD + g)
+                grads, hw, hs, key, cfg_g, gfold=GROUP_FOLD + g, part=part)
         else:
             ghat_g, hw_d, hs_d = _reference_agg_perleaf(
                 grads, dict(zip(paths, hw)), dict(zip(paths, hs)), key, cfg_g,
-                gfold=GROUP_FOLD + g)
+                gfold=GROUP_FOLD + g, part=part)
             new_hw[gname], new_hs[gname] = [hw_d[p] for p in paths], [hs_d[p] for p in paths]
         if dcfg is not None:
-            ghat_g, new_hd[gname] = _group_downlink(
-                ghat_g, state.h_down[gname], prng.fold_in(prng.fold_in(key, DOWN_FOLD),
-                                                          GROUP_FOLD + g),
-                cfg_g, dcfg, torch.float32)
+            dkey = prng.fold_in(prng.fold_in(key, DOWN_FOLD), GROUP_FOLD + g)
+            ghat_g, new_hd[gname] = _frozen_downlink(
+                part, state.h_down[gname], ghat_g,
+                lambda: _group_downlink(ghat_g, state.h_down[gname], dkey, cfg_g, dcfg,
+                                        torch.float32))
         ghat.append(ghat_g)
-    return part.merge(ghat), new_hw, new_hs, (new_hd or None)
+    return groups.merge(ghat), new_hw, new_hs, (new_hd or None)
 
 
 def _group_downlink(ghat_g, h_down_g, down_key, cfg_g, dcfg, h_dtype):
@@ -369,13 +518,19 @@ def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Ten
     return ghat_hat, new_h
 
 
-def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg, gfold=None):
+def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg, gfold=None,
+                           part=None):
     """Per-leaf round: each worker encodes every leaf with its own key
     (``split(_worker_key(key, w, gfold), n_leaves)``), the server runs one
-    fused ``decode_sum_apply`` per leaf."""
+    fused ``decode_sum_apply`` per leaf.  With a participation context
+    (``:1526-1600``): rejoining rows reset first, the stacked rows masked
+    before ``decode_sum``, :func:`_masked_server_tail`, and only the
+    :func:`_participant_gate` rows advance."""
     comp = cfg.make()
     paths = T.paths(grads_per_worker)
     n = grads_per_worker[paths[0]].shape[0]
+    if part is not None:
+        h_worker = _reinit_zero(part.reinit, h_worker)
     payloads = {p: [] for p in paths}
     new_hw = {p: [] for p in paths}
     for w in range(n):
@@ -391,19 +546,36 @@ def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg, gfold
     ghat, new_hs = {}, {}
     for p in paths:
         d = grads_per_worker[p].shape[1:].numel()
-        g_flat, new_hs[p] = comp.decode_sum_apply(Payload.stack(payloads[p]), n, d, h_server[p])
+        stacked = Payload.stack(payloads[p])
+        if part is None:
+            g_flat, new_hs[p] = comp.decode_sum_apply(stacked, n, d, h_server[p])
+        else:
+            g_flat, new_hs[p] = _masked_server_tail(
+                comp, h_server[p].float(), comp.decode_sum(stacked.mask_workers(part.mask), n, d),
+                n, part, part.mask)
         ghat[p] = g_flat.reshape(grads_per_worker[p].shape[1:])
-    return ghat, {p: torch.stack(rows) for p, rows in new_hw.items()}, new_hs
+    new_hw = {p: torch.stack(rows) for p, rows in new_hw.items()}
+    if part is not None:
+        new_hw = _where_rows(_participant_gate(part), new_hw, h_worker)
+    return ghat, new_hw, new_hs
 
 
-def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg, gfold=None):
+def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg, gfold=None,
+                            part=None, faults=None, step=None):
     """Bucketed round: each worker ONE compress of the flattened model (or
     policy group) keyed ``_worker_key(key, w, gfold)``; ONE fused
-    ``decode_sum_apply`` over the stacked payloads."""
+    ``decode_sum_apply`` over the stacked payloads.  With a participation
+    context (``:1629-1760``, one chunk) the masked ``decode_sum`` and
+    :func:`_masked_server_tail` instead; with ``faults`` each worker's
+    payload crosses the checksummed wire first (:func:`_wire_exchange`),
+    and the payloads that fail verification are excluded like
+    non-participants, their bytes decoded as received."""
     layout = bucket_layout(cfg, {p: g[0] for p, g in grads_per_worker.items()})
     comp = bucketed_compressor(cfg, layout)
     dp = layout.padded_size
     n = h_worker.shape[0]
+    if part is not None:
+        h_worker = _reinit_zero(part.reinit, h_worker)
     payloads, new_h = [], []
     for w in range(n):
         flat_g = layout.flatten({p: g[w] for p, g in grads_per_worker.items()})
@@ -411,9 +583,24 @@ def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg, gfol
         pay = comp.compress(delta, _worker_key(key, w, gfold))
         payloads.append(pay)
         new_h.append(comp.next_memory(h_worker[w], comp.decode(pay, dp), delta))
-    ghat_flat, new_hs = comp.decode_sum_apply(Payload.stack(payloads), n, dp, h_server)
-    # f32 leaves, like the per-leaf reference
-    return layout.unflatten(ghat_flat, cast=False), torch.stack(new_h), new_hs
+    if part is None:
+        ghat_flat, new_hs = comp.decode_sum_apply(Payload.stack(payloads), n, dp, h_server)
+        # f32 leaves, like the per-leaf reference
+        return layout.unflatten(ghat_flat, cast=False), torch.stack(new_h), new_hs
+    valid = None
+    if faults is not None:
+        # the receivers' view: every worker's wire, verified after the gather
+        wires = [_wire_exchange(pay, faults, step, w) for w, pay in enumerate(payloads)]
+        flat, valid = verify_checksum(torch.stack([wire for wire, _, _ in wires]))
+        _, shape, recipe = wires[0]
+        gathered = unfuse_payload(flat.reshape(n, *shape), recipe)
+    else:
+        gathered = Payload.stack(payloads)
+    m_eff = part.mask if valid is None else part.mask & valid
+    total = comp.decode_sum(gathered.mask_workers(m_eff), n, dp)
+    ghat_flat, new_hs = _masked_server_tail(comp, h_server.float(), total, n, part, m_eff)
+    new_h = _where_rows(_participant_gate(part, valid), torch.stack(new_h), h_worker)
+    return layout.unflatten(ghat_flat, cast=False), new_h, new_hs
 
 
 # ---------------------------------------------------------------------------
@@ -468,20 +655,27 @@ def _gather_fused(payload: Payload, n: int) -> Payload:
     return unfuse_payload(_gather_field(fuse_payload(payload), n), payload_recipe(payload))
 
 
-def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n):
-    """The per-leaf Algorithm-1 round on this rank's leaves (``:381``, the
-    ``part is None`` branch): leaf ``i`` encodes with ``split(key,
-    n_leaves)[i]``, each payload field is gathered on its own, and the server
-    side is ``_gathered_mean``, then ``next_server_memory`` and
-    ``server_direction`` (not the fused ``decode_sum_apply``), as the JAX
-    package composes it.  ``ghat`` comes back f32, shaped like the grads."""
+def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None):
+    """The per-leaf Algorithm-1 round on this rank's leaves (``:381``): leaf
+    ``i`` encodes with ``split(key, n_leaves)[i]``, each payload field is
+    gathered on its own, and the server side is ``_gathered_mean``, then
+    ``next_server_memory`` and ``server_direction`` (not the fused
+    ``decode_sum_apply``), as the JAX package composes it.  ``ghat`` comes
+    back f32, shaped like the grads.  With a participation context the
+    masked sum and :func:`_masked_server_tail`; the rank's row advances
+    only if it participates on a non-degraded step."""
     comp = cfg.make()
     paths = T.paths(grads_local)
     g_flat = {p: grads_local[p].reshape(-1).float() for p in paths}
     h_local = {p: h_worker[p][0].float() for p in paths}
+    if part is not None:
+        h_local = _reinit_zero(part.reinit_own, h_local)
     delta = {p: comp.compress_input(g_flat[p], h_local[p]) for p in paths}
     keys = prng.split(key, len(paths))
     payloads = {p: comp.compress(delta[p], k) for p, k in zip(paths, keys)}
+    if part is not None:
+        return _aggregate_local_masked(grads_local, g_flat, h_local, delta, payloads, h_server,
+                                       comp, cfg, n, part)
     dhat_mean = _gathered_mean(payloads, g_flat, n, comp)
     ghat, new_hw, new_hs = {}, {}, {}
     for p in paths:
@@ -498,18 +692,45 @@ def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n):
     return ghat, new_hw, new_hs
 
 
-def _aggregate_bucketed(grads_local, h_worker, h_server, key, cfg, n):
-    """Algorithm-1 round on the WHOLE model as one flat buffer (``:589``,
-    ``part is None and faults is None``, one chunk): ONE compress with the
-    rank's key, its own decode for ``next_memory`` on the rank's ``(1, Dp)``
-    row, ONE fused all-gather, ONE ``decode_sum_apply`` over the ``n``
-    gathered rows, replicated on every rank.  ``ghat`` comes back f32."""
+def _aggregate_local_masked(grads_local, g_flat, h_local, delta, payloads, h_server, comp,
+                            cfg, n, part):
+    """:func:`_aggregate_local`'s sampled sum (``:446-470``): per-leaf
+    payloads carry no checksum, so the effective set is the scheduled
+    mask."""
+    gathered = _gather_payloads(payloads, n)
+    advance = part.m_own and part.ok
+    ghat, new_hw, new_hs = {}, {}, {}
+    for p in T.paths(grads_local):
+        total = comp.decode_sum(gathered.pop(p).mask_workers(part.mask), n, g_flat[p].numel())
+        g, hs = _masked_server_tail(comp, h_server[p].float(), total, n, part, part.mask)
+        ghat[p] = g.reshape(grads_local[p].shape)
+        new_hs[p] = hs.to(cfg.h_dtype)
+        h = h_local[p]
+        if comp.carries_state and advance:
+            h = comp.next_memory(h, comp.decode(payloads[p], g_flat[p].numel()), delta[p])
+        new_hw[p] = h.to(cfg.h_dtype)[None]
+    return ghat, new_hw, new_hs
+
+
+def _aggregate_bucketed(grads_local, h_worker, h_server, key, cfg, n, part=None, faults=None,
+                        step=None):
+    """Algorithm-1 round on the WHOLE model as one flat buffer (``:589``, one
+    chunk): ONE compress with the rank's key, its own decode for
+    ``next_memory`` on the rank's ``(1, Dp)`` row, ONE fused all-gather, ONE
+    ``decode_sum_apply`` over the ``n`` gathered rows, replicated on every
+    rank.  ``ghat`` comes back f32.  With a participation context the masked
+    round (:func:`_aggregate_bucketed_masked`)."""
     layout = bucket_layout(cfg, grads_local)
     comp = bucketed_compressor(cfg, layout)
     dp = layout.padded_size
     h_local = h_worker[0].float()
+    if part is not None:
+        h_local = _reinit_zero(part.reinit_own, h_local)
     delta = comp.compress_input(layout.flatten(grads_local), h_local)
     payload = comp.compress(delta, key)
+    if part is not None:
+        return _aggregate_bucketed_masked(layout, comp, h_local, delta, payload, h_server, cfg,
+                                          n, part, faults, step)
     # The memory update before the gather, so that the own decode and the
     # input are freed before the server tail allocates (the values are the
     # same in either order).
@@ -521,6 +742,37 @@ def _aggregate_bucketed(grads_local, h_worker, h_server, key, cfg, n):
     gathered = _gather_fused(payload, n)    # ONE collective
     del payload
     ghat_flat, new_hs = comp.decode_sum_apply(gathered, n, dp, h_server.float())
+    return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype)
+
+
+def _aggregate_bucketed_masked(layout, comp, h_local, delta, payload, h_server, cfg, n, part,
+                               faults, step):
+    """The bucketed sampled-sum round (``:653-691``): with ``faults`` the
+    fused payload crosses the checksummed wire (:func:`_wire_exchange`, ONE
+    all-gather of the wires) and every rank verifies every wire; the
+    effective set is the scheduled mask AND the verdicts, and the rank's
+    row advances only if it participates, the step is not degraded and its
+    own wire verified (the verdict is the same on every rank)."""
+    dp = layout.padded_size
+    new_h = h_local
+    if comp.carries_state:
+        new_h = comp.next_memory(h_local, comp.decode(payload, dp), delta)
+    del delta
+    valid = None
+    if faults is not None:
+        wire, shape, recipe = _wire_exchange(payload, faults, step, part.widx)
+        flat, valid = verify_checksum(_gather_field(wire, n))
+        gathered = unfuse_payload(flat.reshape(n, *shape), recipe)
+        del wire, flat
+    else:
+        gathered = _gather_fused(payload, n)
+    del payload
+    m_eff = part.mask if valid is None else part.mask & valid
+    total = comp.decode_sum(gathered.mask_workers(m_eff), n, dp)
+    del gathered
+    ghat_flat, new_hs = _masked_server_tail(comp, h_server.float(), total, n, part, m_eff)
+    gate = part.m_own and part.ok and (valid is None or bool(valid[part.widx]))
+    new_hw = (new_h if gate else h_local).to(cfg.h_dtype)[None]
     return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype)
 
 
@@ -543,55 +795,66 @@ def _allreduce_mean(grads_local, cfg, n):
     return out
 
 
-def _dispatch_round(grads_local, state, key, cfg, n):
+def _dispatch_round(grads_local, state, key, cfg, n, part=None, faults=None, step=None):
     """Route the gradient tree through the layout's round (``:1198``);
     returns ``(ghat, new_hw, new_hs)``.  The per-leaf layout is
     ``_perleaf_round``'s local branch (``:1242-1251``): its nested
     fully-manual shard_map, where each inner device encodes its own shard of
     every leaf, is a GSPMD specialisation with no ``torch.distributed``
-    counterpart, since a rank holds whole leaves."""
-    if cfg.make().prefers_allreduce:
+    counterpart, since a rank holds whole leaves.  Under participation
+    identity is gathered and summed like every operator (``:1208``)."""
+    if cfg.make().prefers_allreduce and part is None:
         return _allreduce_mean(grads_local, cfg, n), state.h_worker, state.h_server
-    agg = _aggregate_bucketed if cfg.bucketed else _aggregate_local
-    return agg(grads_local, state.h_worker, state.h_server, key, cfg, n)
+    if cfg.bucketed:
+        return _aggregate_bucketed(grads_local, state.h_worker, state.h_server, key, cfg, n,
+                                   part, faults, step)
+    return _aggregate_local(grads_local, state.h_worker, state.h_server, key, cfg, n, part)
 
 
-def _aggregate_grouped(grads_local, state, key, policy: CompressionPolicy, n, down_key):
+def _aggregate_grouped(grads_local, state, key, policy: CompressionPolicy, n, down_key,
+                       part=None):
     """One round of a grouped policy (``repro/core/diana.py:1118``): per
     group of the partition, the flat path's round for the group's config
     with the key ``fold_in(key, GROUP_FOLD + g)``: the all-reduce for an
     identity group, ONE fused all-gather for a bucketed group, the per-leaf
     round for a per-leaf one; then the group's downlink, keyed
     ``fold_in(down_key, GROUP_FOLD + g)``.  Returns ``(ghat, h_worker,
-    h_server, h_down)``, the memories keyed by group name."""
-    part = partition_for(policy, grads_local)
+    h_server, h_down)``, the memories keyed by group name.  The one
+    participation context ``part`` serves every group; under it an identity
+    group is gathered and summed (``:1157``)."""
+    groups = partition_for(policy, grads_local)
     ghat, new_hw, new_hs, new_hd = [], {}, {}, {}
-    for g, (gname, grads, paths) in enumerate(zip(part.group_names, part.split(grads_local),
-                                                  part.group_paths)):
-        cfg_g, dcfg = part.configs[g], part.down_configs[g]
+    for g, (gname, grads, paths) in enumerate(zip(groups.group_names,
+                                                  groups.split(grads_local),
+                                                  groups.group_paths)):
+        cfg_g, dcfg = groups.configs[g], groups.down_configs[g]
         hw, hs = state.h_worker[gname], state.h_server[gname]
         gkey = prng.fold_in(key, GROUP_FOLD + g)
-        if cfg_g.make().prefers_allreduce:
+        if cfg_g.make().prefers_allreduce and part is None:
             ghat_g = _allreduce_mean(grads, cfg_g, n)
         elif cfg_g.bucketed:
-            ghat_g, hw, hs = _aggregate_bucketed(grads, hw, hs, gkey, cfg_g, n)
+            ghat_g, hw, hs = _aggregate_bucketed(grads, hw, hs, gkey, cfg_g, n, part)
         else:
             ghat_g, hw_d, hs_d = _aggregate_local(grads, dict(zip(paths, hw)),
-                                                  dict(zip(paths, hs)), gkey, cfg_g, n)
+                                                  dict(zip(paths, hs)), gkey, cfg_g, n, part)
             hw, hs = [hw_d[p] for p in paths], [hs_d[p] for p in paths]
         if dcfg is not None:
-            ghat_g, new_hd[gname] = _group_downlink(
-                ghat_g, state.h_down[gname], prng.fold_in(down_key, GROUP_FOLD + g), cfg_g,
-                dcfg, policy.h_dtype)
+            dkey = prng.fold_in(down_key, GROUP_FOLD + g)
+            ghat_g, new_hd[gname] = _frozen_downlink(
+                part, state.h_down[gname], ghat_g,
+                lambda: _group_downlink(ghat_g, state.h_down[gname], dkey, cfg_g, dcfg,
+                                        policy.h_dtype))
         ghat.append(ghat_g)
         new_hw[gname], new_hs[gname] = hw, hs
-    return part.merge(ghat), new_hw, new_hs, (new_hd or None)
+    return groups.merge(ghat), new_hw, new_hs, (new_hd or None)
 
 
 def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaState,
                           key: torch.Tensor, cfg, *, vr_aux=None,
                           params_local=None, vr_force_refresh: bool = False,
-                          down_key: Optional[torch.Tensor] = None):
+                          down_key: Optional[torch.Tensor] = None,
+                          part_key: Optional[torch.Tensor] = None, step: Optional[int] = None,
+                          faults=None):
     """One DIANA aggregation round across the ranks of the default process
     group, one worker per rank — the port of
     ``repro.core.diana.aggregate_shardmap`` (``repro/core/diana.py:891``)
@@ -615,9 +878,18 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
     ``ghat`` passes through :func:`downlink_round` keyed ``down_key`` =
     ``fold_in(step_key, DOWN_FOLD)``, folded BEFORE the worker fold.
 
+    With a non-trivial ``participation`` (``:1000-1011``) the round is
+    elastic: ``part_key = fold_in(step_key, PART_FOLD)``, folded before the
+    worker fold, gives every rank the same mask; ``step`` (the optimizer's
+    counter) drives the churn schedule and the fault plan; the rank's own
+    bits are its rank's.  ``faults`` (a
+    :class:`~repro_torch.core.participation.FaultPlan`, flat bucketed
+    configs only) puts the fused payload on the checksummed wire.
+
     Returns ``(ghat, new_state)``: ``ghat`` equal on every rank, cast back to
-    the gradients' dtypes (``:1102``).  Participation and the chunked wire
-    are later slices: their fields do not exist on the configs yet."""
+    the gradients' dtypes (``:1102``).  The chunked wire is a later slice."""
+    n = dist.get_world_size()
+    part = step_part(cfg, faults, part_key, n, step, dist.get_rank())
     policy, cfg = _split_spec(cfg)
     grads_in, coin = grads_local, False
     if state.vr is not None:
@@ -626,15 +898,17 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
         mu_own = {p: m[0] for p, m in state.vr.mu.items()}
         grads_in = control_variate(grads_local, vr_aux[0], mu_own)
         coin = vr_coin(key, vr_p) or bool(vr_force_refresh)
+        if part is not None:
+            # the scheduled mask only, never the wire verdict (:1050-1058)
+            coin = coin and part.m_own and part.ok
     if state.h_down is not None and down_key is None:
         raise ValueError("bidirectional aggregation needs down_key = fold_in(step_key, "
                          "DOWN_FOLD), folded before the worker fold")
-    n = dist.get_world_size()
     if policy is not None:
         ghat, new_hw, new_hs, new_h_down = _aggregate_grouped(grads_in, state, key, policy, n,
-                                                              down_key)
+                                                              down_key, part)
     else:
-        ghat, new_hw, new_hs = _dispatch_round(grads_in, state, key, cfg, n)
+        ghat, new_hw, new_hs = _dispatch_round(grads_in, state, key, cfg, n, part, faults, step)
     del grads_in
     new_vr = state.vr
     if state.vr is not None:
@@ -645,6 +919,7 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
     if policy is None:
         new_h_down = state.h_down
         if state.h_down is not None:
-            ghat, new_h_down = downlink_round(ghat, state.h_down, down_key, cfg)
+            ghat, new_h_down = _frozen_downlink(
+                part, state.h_down, ghat, lambda: downlink_round(ghat, state.h_down, down_key, cfg))
     ghat = {p: ghat[p].to(grads_local[p].dtype) for p in ghat}
     return ghat, DianaState(h_worker=new_hw, h_server=new_hs, vr=new_vr, h_down=new_h_down)

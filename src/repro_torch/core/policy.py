@@ -10,8 +10,9 @@ of ``repro.core.policy``).
 * :class:`CompressionPolicy` — an ORDERED tuple of :class:`Rule` s mapping
   path patterns (``re.search`` over ``/``-joined leaf paths) to specs, first
   match wins, plus the model-wide knobs: ``bucketed`` (the default layout),
-  ``h_dtype`` and VR (``vr`` / ``vr_p``, applied to the parameter-shaped
-  gradients before any grouping).
+  ``h_dtype``, VR (``vr`` / ``vr_p``, applied to the parameter-shaped
+  gradients before any grouping) and ``participation`` (a worker is in or
+  out of the whole step, so one mask serves every group).
 
 A uniform policy (one catch-all rule) is the flat
 :class:`~repro_torch.core.compression.CompressionConfig`:
@@ -27,9 +28,9 @@ are the JAX package's on the same tree.
 
 The JAX policy's ``worker_axes`` and ``use_kernel`` have no counterpart here
 (one worker axis; the kernels run wherever the tensors are on the card), and
-its ``participation``, ``chunk_bytes``, ``topology`` and ``node_size`` belong
-to later slices (ROADMAP.md queue 1 items 5-6): the dataclass does not
-declare them, so asking for one raises ``TypeError``.
+its ``chunk_bytes``, ``topology`` and ``node_size`` belong to a later slice
+(ROADMAP.md queue 1 item 6): the dataclass does not declare them, so asking
+for one raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -45,9 +46,10 @@ from typing import Any, Mapping, Optional, Sequence, Tuple
 import torch
 
 from . import tree as T
-from .bucket import BucketLayout, GroupedBucketLayout
+from .bucket import BucketLayout, GroupedBucketLayout, checksum_tail_bits_per_dim
 from .compression import CompressionConfig
 from .compressors.registry import canonical_name
+from .participation import ParticipationSpec
 
 __all__ = ["ChannelSpec", "Rule", "CompressionPolicy", "as_policy", "parse_rules",
            "load_policy", "partition_for", "PolicyPartition", "grouped_bucket_layout",
@@ -137,6 +139,9 @@ class CompressionPolicy:
     bucketed: the layout of specs with ``layout=None``.
     h_dtype:  dtype of every DIANA memory.
     vr, vr_p: VR-DIANA, model-wide (:mod:`repro_torch.core.vr`).
+    participation: elastic participation
+              (:class:`~repro_torch.core.participation.ParticipationSpec`),
+              model-wide: the rule configs never carry it.
     """
 
     rules: Tuple[Rule, ...] = (Rule(".*", ChannelSpec()),)
@@ -144,6 +149,7 @@ class CompressionPolicy:
     h_dtype: Any = torch.float32
     vr: bool = False
     vr_p: Optional[float] = None
+    participation: Optional[ParticipationSpec] = None
 
     def __post_init__(self):
         object.__setattr__(self, "rules", tuple(self.rules))
@@ -153,6 +159,9 @@ class CompressionPolicy:
             raise ValueError("at most 100 rules (group names are zero-padded to two digits)")
         if self.vr_p is not None and not 0.0 < self.vr_p <= 1.0:
             raise ValueError(f"vr_p must be in (0, 1], got {self.vr_p}")
+        if self.participation is not None and not isinstance(self.participation,
+                                                             ParticipationSpec):
+            raise TypeError("participation must be a ParticipationSpec")
 
     def match(self, path: str) -> int:
         """The index of the first rule matching ``path``."""
@@ -185,7 +194,8 @@ class CompressionPolicy:
                                layout=None if cfg.down_bucketed is None
                                else _LAYOUTS[0] if cfg.down_bucketed else _LAYOUTS[1])
         return cls(rules=(Rule(".*", spec, down=down),), bucketed=cfg.bucketed,
-                   h_dtype=cfg.h_dtype, vr=cfg.vr, vr_p=cfg.vr_p)
+                   h_dtype=cfg.h_dtype, vr=cfg.vr, vr_p=cfg.vr_p,
+                   participation=cfg.participation)
 
     def flat_config(self) -> CompressionConfig:
         """The flat config of a uniform policy; raises for a grouped one."""
@@ -200,7 +210,8 @@ class CompressionPolicy:
             alpha=s.alpha, k=_pick(s, None, "k", _FLAT_DEFAULTS.k), h_dtype=self.h_dtype,
             bucketed=self._spec_bucketed(s), vr=self.vr, vr_p=self.vr_p,
             down_method=None if d is None else d.method, down_k=None if d is None else d.k,
-            down_bucketed=None if d is None or d.layout is None else d.layout == "bucketed")
+            down_bucketed=None if d is None or d.layout is None else d.layout == "bucketed",
+            participation=self.participation)
 
     def representative_config(self) -> CompressionConfig:
         """A flat view of the catch-all rule with the model-wide fields,
@@ -209,7 +220,8 @@ class CompressionPolicy:
             return self.flat_config()
         catch = next((i for i, r in enumerate(self.rules) if r.is_catch_all),
                      len(self.rules) - 1)
-        return _dc_replace(_rule_config(self, catch), vr=self.vr, vr_p=self.vr_p)
+        return _dc_replace(_rule_config(self, catch), vr=self.vr, vr_p=self.vr_p,
+                           participation=self.participation)
 
     # -------------------------------------------------------- per-rule configs
 
@@ -343,6 +355,8 @@ class CompressionPolicy:
             doc["vr"] = True
         if self.vr_p is not None:
             doc["vr_p"] = self.vr_p
+        if self.participation is not None:
+            doc["participation"] = self.participation.to_json_dict()
         return doc
 
     def to_json(self) -> str:
@@ -372,10 +386,12 @@ class CompressionPolicy:
                            name=rd.get("name"))
                       for rd in doc["rules"])
         kw = dict(defaults)
-        for f in ("bucketed", "vr", "vr_p", "participation", "chunk_bytes", "topology",
-                  "node_size"):
+        for f in ("bucketed", "vr", "vr_p", "chunk_bytes", "topology", "node_size"):
             if f in doc:
                 kw[f] = doc[f]
+        if "participation" in doc:
+            kw["participation"] = (None if doc["participation"] is None
+                                   else ParticipationSpec.from_json_dict(doc["participation"]))
         if "h_dtype" in doc:
             kw["h_dtype"] = _H_DTYPES[doc["h_dtype"]]
         return cls(rules=rules, **kw)
@@ -500,19 +516,25 @@ def grouped_bucket_layout(policy: CompressionPolicy, tree) -> GroupedBucketLayou
                                layouts=layouts)
 
 
-def policy_bits_per_dim(policy: CompressionPolicy, layout) -> float:
+def policy_bits_per_dim(policy: CompressionPolicy, layout, *,
+                        checksum: bool = False) -> float:
     """Size-weighted mean UPLINK wire cost per coordinate across groups;
     ``layout`` is a :class:`~repro_torch.core.bucket.GroupedBucketLayout` or
-    a ``{path: tensor}`` tree.  (The JAX package's ``checksum=`` term
-    belongs to the elasticity slice, ROADMAP.md queue 1 item 5.)"""
+    a ``{path: tensor}`` tree.  ``checksum=True`` (faults armed) adds the
+    8-byte tail each bucketed group's wire carries
+    (:func:`~repro_torch.core.bucket.checksum_tail_bits_per_dim`); per-leaf
+    groups carry none."""
     if not isinstance(layout, GroupedBucketLayout):
         layout = grouped_bucket_layout(policy, layout)
     bits = total = 0.0
     for ri, lay in zip(layout.rule_ids, layout.layouts):
-        comp = policy.rule_config(ri).make()
+        cfg = policy.rule_config(ri)
+        comp = cfg.make()
         for s in lay.sizes:
             bits += comp.bits_per_dim(s) * s
             total += s
+        if checksum and cfg.bucketed:
+            bits += checksum_tail_bits_per_dim(lay) * lay.size
     return bits / max(total, 1.0)
 
 

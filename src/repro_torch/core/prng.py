@@ -13,12 +13,14 @@ functions follow ``jax/_src/prng.py`` (jax 0.9.0, ``jax_threefry_partitionable
   over the flat index ``i`` (counter mode: a batched draw over several keys
   is the per-key draws, bit for bit).
 
-On top of ``bits``, three draws of ``jax/_src/random.py`` (float32 and int32,
+On top of ``bits``, four draws of ``jax/_src/random.py`` (float32 and int32,
 JAX's defaults without x64): :func:`uniform` (``_uniform``: the top 23 bits
 as the mantissa of a float in [1, 2), minus 1), :func:`bernoulli`
-(``uniform < p``) and :func:`randint` (``_randint``: two 32-bit draws from
-``split(key)``, folded into the span with a multiplier).  The VR coins and
-the convex harness's minibatch indices come from them.
+(``uniform < p``), :func:`randint` (``_randint``: two 32-bit draws from
+``split(key)``, folded into the span with a multiplier) and
+:func:`exponential` (``_exponential``: ``-log1p(-uniform)``).  The VR coins,
+the participation masks and the convex harness's minibatch indices come
+from them.
 
 Keys are int64 CPU tensors of shape ``(..., 2)`` holding uint32 words.  Torch
 has no uint32 arithmetic on the CPU, so words live in int64 and every add is
@@ -36,7 +38,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["MASK", "PRNGKey", "fold_in", "split", "bits", "threefry2x32",
-           "key_words", "to_int32", "uniform", "bernoulli", "randint"]
+           "key_words", "to_int32", "uniform", "bernoulli", "randint", "exponential"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -138,3 +140,10 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -
     mult = (((2**16 % span) ** 2) & MASK) % span
     off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
     return minval + off % span
+
+
+def exponential(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.exponential(key, shape)`` (float32): ``-log1p(-u)`` of
+    the :func:`uniform` draw ``u``.  torch's ``log1p`` and XLA's may differ
+    in the last place."""
+    return -torch.log1p(-uniform(key, shape))

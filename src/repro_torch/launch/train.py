@@ -54,6 +54,17 @@ scales exact (``dense_copy`` / ``dense_decode_sum_mean`` in turn, one
 all-reduce across ranks), top-k's the embedding and the LM head and
 ternary-quantizes the rest.
 
+``--participation-q`` / ``--participation-dropout`` / ``--min-workers``
+make the rounds elastic (``repro_torch.core.participation``): the step's
+mask is drawn from ``fold_in(step_key, PART_FOLD)`` with the optimizer's
+step counter, the non-participants' rows of the stacked payload are zeroed
+before the server's sum (identity then sums with ``dense_decode_sum``, and
+gathers across ranks instead of all-reducing), only the participants'
+memory rows advance, and a step with fewer than ``--min-workers``
+participants applies ``ghat = 0``.  ``--faults`` (the bucketed layout)
+puts each worker's fused payload on a wire with an 8-byte checksum,
+injects the plan's faults and excludes the payloads that fail.
+
 The logged loss is the mean over the workers (all-reduced across ranks).
 Entry points run on ``cuda`` and raise without a GPU unless the caller asks
 for the CPU (``--device cpu``), where the kernels' plain versions run.
@@ -62,6 +73,9 @@ for the CPU (``--device cpu``), where the kernels' plain versions run.
         --mesh 4x1 --steps 3 --batch 8 --seq 4096
     python -m repro_torch.launch.train --arch llama3.2-1b --comp-policy default \\
         --mesh 4x1 --steps 3 --batch 8 --seq 4096
+    python -m repro_torch.launch.train --arch llama3.2-1b --mesh 4x1 --steps 3 \\
+        --batch 8 --seq 4096 --participation-q 0.6 --participation-dropout 0.1 \\
+        --min-workers 3 --faults corrupt:step=1,worker=0
     torchrun --nproc-per-node 1 -m repro_torch.launch.train --arch llama3.2-1b \\
         --mesh 1x1 --steps 3 --batch 2 --seq 4096
     OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
@@ -82,12 +96,15 @@ import torch.distributed as dist
 from repro_torch.configs import ShapeConfig, get_config, get_shape, reduced
 from repro_torch.core import prng
 from repro_torch.core import tree as T
-from repro_torch.core.bucket import bucketed_compressor
+from repro_torch.core.bucket import bucketed_compressor, unfuse_payload, verify_checksum
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import available_methods
 from repro_torch.core.compressors.base import Payload
-from repro_torch.core.diana import (DOWN_FOLD, GROUP_FOLD, _group_downlink, _split_spec,
-                                    aggregate_distributed, bucket_layout, worker_key)
+from repro_torch.core.diana import (DOWN_FOLD, GROUP_FOLD, PART_FOLD, _frozen_downlink,
+                                    _group_downlink, _masked_server_tail, _split_spec,
+                                    _wire_exchange, aggregate_distributed, bucket_layout,
+                                    check_faults, step_part, worker_key)
+from repro_torch.core.participation import ParticipationSpec, parse_faults
 from repro_torch.core.policy import ChannelSpec, CompressionPolicy, load_policy, partition_for
 from repro_torch.core.vr import control_variate, reference_coins, resolve_vr_p
 from repro_torch.core.numerics import div_n
@@ -147,10 +164,12 @@ def resolve_policy_arg(cfg, policy) -> CompressionPolicy:
 
 def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: float = 0.9,
                    compression: Optional[CompressionConfig] = None,
-                   policy=None) -> DianaOptimizer:
+                   policy=None, participation=None) -> DianaOptimizer:
     """The training optimizer: the policy ``policy`` names
     (:func:`resolve_policy_arg`), else the model config's flat ``comp_*``
-    fields."""
+    fields; ``participation`` (a
+    :class:`~repro_torch.core.participation.ParticipationSpec`) rides
+    either whole."""
     if inner not in ("momentum", "sgd"):
         raise NotImplementedError(f"inner optimizer {inner!r} is not ported yet")
     inner_opt = momentum(beta) if inner == "momentum" else sgd()
@@ -158,12 +177,14 @@ def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: floa
         if compression is not None:
             raise ValueError("pass either compression= or policy=, not both")
         return DianaOptimizer(inner=inner_opt, schedule=constant_schedule(lr),
-                              policy=resolve_policy_arg(cfg, policy))
+                              policy=resolve_policy_arg(cfg, policy),
+                              participation=participation)
     comp = compression or CompressionConfig(
         method=cfg.compression, p=cfg.comp_p, block_size=cfg.comp_block, k=cfg.comp_k,
         h_dtype=cfg.h_dtype, bucketed=cfg.comp_bucketed, vr=cfg.vr, vr_p=cfg.vr_p,
         down_method=cfg.comp_down_method, down_k=cfg.comp_down_k)
-    return DianaOptimizer(comp, inner_opt, schedule=constant_schedule(lr))
+    return DianaOptimizer(comp, inner_opt, schedule=constant_schedule(lr),
+                          participation=participation)
 
 
 def init_train_state(cfg, opt: DianaOptimizer, n_workers: int, device, seed: int = 0):
@@ -213,16 +234,69 @@ def _copy_into(held, fresh):
             _copy_into(h, f)
 
 
+class _Elastic:
+    """A round's participation in turn: the step's context ``part`` (None:
+    the all-workers round), the fault plan and step, and the wire verdicts
+    as the workers encode (``valid``, one bool per worker)."""
+
+    def __init__(self, part, faults=None, step=None):
+        self.part, self.faults, self.step = part, faults, step
+        self.valid = []
+
+    def reset(self, w, rows):
+        """A rejoining worker's memory rows are zeroed before its encode, and
+        stay so whatever the step (``_reinit_zero``)."""
+        if self.part is not None and bool(self.part.reinit[w]):
+            for h in rows:
+                h.zero_()
+
+    def advances(self, w) -> bool:
+        """Whether worker ``w``'s memory rows advance: it participates, the
+        step is not degraded and (faults armed) its wire verified."""
+        if self.part is None:
+            return True
+        return (bool(self.part.mask[w]) and self.part.ok
+                and (self.faults is None or self.valid[w]))
+
+    def effective(self) -> torch.Tensor:
+        """The (n,) mask the server sums: scheduled AND verified."""
+        if self.faults is None:
+            return self.part.mask
+        return self.part.mask & torch.tensor(self.valid, dtype=torch.bool)
+
+    def wire(self, pay, w):
+        """Worker ``w``'s payload (a row of the stacked buffer) across the
+        checksummed wire: fused, checksummed, this worker's faults injected,
+        verified; returns the received body as a payload, to be written
+        back into the row after the worker's own decode."""
+        wire, shape, recipe = _wire_exchange(pay, self.faults, self.step, w)
+        flat, ok = verify_checksum(wire)
+        self.valid.append(bool(ok))
+        return unfuse_payload(flat.reshape(shape)[None], recipe).select(0)
+
+
+def _write_back(row, received):
+    """The received bytes of a payload into its row of the stacked buffer."""
+    for f, r in zip(row, received):
+        if f is not None:
+            f.copy_(r)
+
+
 class _BucketedRound:
     """One bucketed group's round in turn: each worker's input flattened
     into one f32 buffer and encoded straight into its row of one stacked
     payload (the all-gather's output shape), its memory row updated in
-    place; then ONE ``decode_sum_apply`` over the rows."""
+    place; then ONE ``decode_sum_apply`` over the rows.  Elastic (``el``
+    with a context): rejoining rows reset before the encode, only advancing
+    rows updated, under faults each payload through the checksummed wire,
+    and the server's sum over the effective rows (zeroed in place in the
+    stacked buffer) then :func:`~repro_torch.core.diana._masked_server_tail`."""
 
-    def __init__(self, cfg, params, hw, hs, n_workers, device):
+    def __init__(self, cfg, params, hw, hs, n_workers, device, el=None):
         self.layout = bucket_layout(cfg, params)
         self.comp = bucketed_compressor(cfg, self.layout)
         self.hw, self.hs, self.n = hw, hs, n_workers
+        self.el = el if el is not None else _Elastic(None)
         self.g_flat = torch.empty(self.layout.padded_size, dtype=torch.float32, device=device)
         self.gathered = self.comp.gathered(n_workers, device)
 
@@ -232,21 +306,32 @@ class _BucketedRound:
         self.layout.flatten(grads, out=self.g_flat)
 
     def encode(self, w, key):
-        comp, hw, dp = self.comp, self.hw, self.layout.padded_size
+        comp, hw, dp, el = self.comp, self.hw, self.layout.padded_size, self.el
+        el.reset(w, [hw[w]])
         # The worker's input (g - h_w, or g + h_w for error feedback),
         # computed in place in the gradient buffer.
         delta = comp.compress_input_(self.g_flat, hw[w])
         pay = comp.compress(delta, key, out=self.gathered.select(w))
-        if comp.carries_state:
+        received = None if el.faults is None else el.wire(pay, w)
+        if comp.carries_state and el.advances(w):
             # h_w <- h_w + alpha * dhat_w (or delta - dhat_w), into the state row.
             hw[w].copy_(comp.next_memory(hw[w], comp.decode(pay, dp), delta))
+        if received is not None:
+            _write_back(pay, received)
 
     def finish(self):
         """``ghat`` as f32 leaves; ``h_server`` updated in place."""
         self.g_flat = None
-        ghat_flat, new_hs = self.comp.decode_sum_apply(self.gathered, self.n,
-                                                       self.layout.padded_size, self.hs)
-        self.gathered = None
+        dp, part = self.layout.padded_size, self.el.part
+        if part is None:
+            ghat_flat, new_hs = self.comp.decode_sum_apply(self.gathered, self.n, dp, self.hs)
+            self.gathered = None
+        else:
+            m_eff = self.el.effective()
+            total = self.comp.decode_sum(self.gathered.mask_workers_(m_eff), self.n, dp)
+            self.gathered = None   # freed before the tail allocates
+            ghat_flat, new_hs = _masked_server_tail(self.comp, self.hs.float(), total, self.n,
+                                                    part, m_eff, inplace=True)
         _copy_into(self.hs, new_hs)  # the server memory stays one buffer
         return self.layout.unflatten(ghat_flat, cast=False)
 
@@ -255,13 +340,15 @@ class _PerLeafRound:
     """One per-leaf group's round in turn (``_reference_agg_perleaf``):
     each worker encodes leaf by leaf, leaf ``i`` keyed ``split(key,
     n_leaves)[i]``, its memory rows updated in place; the payloads stack
-    per leaf, and ONE ``decode_sum_apply`` per leaf."""
+    per leaf, and ONE ``decode_sum_apply`` per leaf (elastic: the masked
+    sum and the masked tail, as the bucketed round)."""
 
-    def __init__(self, cfg, params, hw, hs, n_workers, device):
+    def __init__(self, cfg, params, hw, hs, n_workers, device, el=None):
         self.comp, self.n = cfg.make(), n_workers
         self.paths = T.paths(params)
         self.shapes = {p: params[p].shape for p in self.paths}
         self.hw, self.hs = hw, hs    # {path: (n, d)}, {path: (d,)}
+        self.el = el if el is not None else _Elastic(None)
         self.payloads = {p: [] for p in self.paths}
         self.pending = {}
 
@@ -269,37 +356,45 @@ class _PerLeafRound:
         self.pending = dict(grads)
 
     def encode(self, w, key):
-        comp = self.comp
+        comp, el = self.comp, self.el
+        el.reset(w, [self.hw[p][w] for p in self.paths])
+        advance = comp.carries_state and el.advances(w)
         for p, k in zip(self.paths, prng.split(key, len(self.paths))):
             h = self.hw[p][w]
             delta = comp.compress_input(self.pending.pop(p).reshape(-1).float(), h)
             pay = comp.compress(delta, k)
-            if comp.carries_state:
+            if advance:
                 h.copy_(comp.next_memory(h, comp.decode(pay, h.numel()), delta))
             del delta
             self.payloads[p].append(pay)
 
     def finish(self):
-        ghat = {}
+        ghat, part = {}, self.el.part
         for p in self.paths:
             stacked = Payload.stack(self.payloads.pop(p))
-            g, new_hs = self.comp.decode_sum_apply(stacked, self.n, self.hs[p].numel(),
-                                                   self.hs[p])
+            d = self.hs[p].numel()
+            if part is None:
+                g, new_hs = self.comp.decode_sum_apply(stacked, self.n, d, self.hs[p])
+            else:
+                total = self.comp.decode_sum(stacked.mask_workers_(part.mask), self.n, d)
+                g, new_hs = _masked_server_tail(self.comp, self.hs[p].float(), total, self.n,
+                                                part, part.mask, inplace=True)
             del stacked
             _copy_into(self.hs[p], new_hs)
             ghat[p] = g.reshape(self.shapes[p])
         return ghat
 
 
-def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device):
+def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device, el):
     """The step's rounds: ``(paths, round, worker-key fold, downlink)`` per
     group; ONE group for a flat config (its worker keys unfolded), one per
     policy group otherwise (``fold_in(worker_key, GROUP_FOLD + g)``).  The
-    downlink is None or ``(cfg, dcfg, h_down, down_key)``."""
+    downlink is None or ``(cfg, dcfg, h_down, down_key)``.  ``el`` (the
+    step's :class:`_Elastic`) is shared by every group."""
     policy, cfg = _split_spec(opt.policy)
     if policy is None:
         rnd = (_BucketedRound if cfg.bucketed else _PerLeafRound)(
-            cfg, params, diana.h_worker, diana.h_server, n_workers, device)
+            cfg, params, diana.h_worker, diana.h_server, n_workers, device, el)
         down = (None if diana.h_down is None
                 else (cfg, cfg.down_config(), diana.h_down, prng.fold_in(key, DOWN_FOLD)))
         return [(T.paths(params), rnd, None, down)]
@@ -310,10 +405,10 @@ def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device):
         cfg_g, dcfg = part.configs[g], part.down_configs[g]
         hw, hs = diana.h_worker[gname], diana.h_server[gname]
         if cfg_g.bucketed:
-            rnd = _BucketedRound(cfg_g, leaves, hw, hs, n_workers, device)
+            rnd = _BucketedRound(cfg_g, leaves, hw, hs, n_workers, device, el)
         else:
             rnd = _PerLeafRound(cfg_g, leaves, dict(zip(paths, hw)), dict(zip(paths, hs)),
-                                n_workers, device)
+                                n_workers, device, el)
         down = None
         if dcfg is not None:
             down = (cfg_g, dcfg, diana.h_down[gname],
@@ -322,26 +417,41 @@ def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device):
     return rounds
 
 
-def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
+def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=None):
     """Returns ``step(params, opt_state, batch, key) -> (params, opt_state,
     metrics)`` running the ``n_workers`` workers in turn, in the policy's
     layout: the whole model bucketed or per leaf, or one round per policy
     group.  ``params`` (``{path: nn.Parameter}``) and the optimizer state
-    are updated in place; ``batch`` holds int tensors on ``device``."""
+    are updated in place; ``batch`` holds int tensors on ``device``.
+
+    Under the policy's ``participation`` the step draws its mask from
+    ``fold_in(key, PART_FOLD)`` with the optimizer's step counter, once,
+    before the workers run: the rounds of ``reference_step``, worker by
+    worker.  ``faults`` (a
+    :class:`~repro_torch.core.participation.FaultPlan`, the flat bucketed
+    layout only) puts each worker's payload on the checksummed wire.  The
+    metrics then carry ``mask``, ``ok`` and ``valid`` (the wire verdicts)."""
     device = torch.device(device)
+    if faults is not None:
+        check_faults(opt.policy)
 
     def step(params, opt_state, batch, key):
         paths = T.paths(params)
         diana = opt_state.diana
         vr = diana.vr
         leaves = [params[p] for p in paths]
+        el = _Elastic(step_part(opt.policy, faults, prng.fold_in(key, PART_FOLD), n_workers,
+                                opt_state.step), faults, opt_state.step)
         if vr is not None:
-            # reference_coins: worker w's coin is vr_coin(fold_in(key, w))
-            coins = (reference_coins(key, opt.policy.vr_p, n_workers)
-                     | (opt_state.step == 0)).tolist()
+            # reference_coins: worker w's coin is vr_coin(fold_in(key, w));
+            # elastic, the scheduled mask gates it, never the wire verdict
+            coins = reference_coins(key, opt.policy.vr_p, n_workers) | (opt_state.step == 0)
+            if el.part is not None:
+                coins = coins & el.part.mask & el.part.ok
+            coins = coins.tolist()
         # The random bits live only inside each encode, not across the next
         # worker's backward.
-        rounds = _group_rounds(opt, params, diana, key, n_workers, device)
+        rounds = _group_rounds(opt, params, diana, key, n_workers, device, el)
         losses = []
         for w in range(n_workers):
             wbatch = _worker_batch(batch, w, n_workers)
@@ -371,20 +481,26 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device):
                 ghat_g = rnd.finish()
                 if down is not None:
                     # the compressed broadcast of the f32 ghat, before the cast
+                    # (nothing on a degraded step: h_down frozen, ghat zero)
                     gcfg, dcfg, h_down, down_key = down
-                    ghat_g, new_h_down = _group_downlink(ghat_g, h_down, down_key, gcfg, dcfg,
-                                                         gcfg.h_dtype)
+                    ghat_g, new_h_down = _frozen_downlink(
+                        el.part, h_down, ghat_g,
+                        lambda: _group_downlink(ghat_g, h_down, down_key, gcfg, dcfg,
+                                                gcfg.h_dtype))
                     _copy_into(h_down, new_h_down)
                 ghat.update({p: g.to(params[p].dtype) for p, g in ghat_g.items()})
                 del ghat_g
         del rounds
-        return _finish(opt, params, opt_state, {p: ghat[p] for p in paths},
-                       torch.stack(losses).mean())
+        out = _finish(opt, params, opt_state, {p: ghat[p] for p in paths},
+                      torch.stack(losses).mean())
+        if el.part is not None:
+            out[2].update(mask=el.part.mask.tolist(), ok=el.part.ok, valid=list(el.valid))
+        return out
 
     return step
 
 
-def build_distributed_step(cfg, opt: DianaOptimizer):
+def build_distributed_step(cfg, opt: DianaOptimizer, faults=None):
     """Returns ``step(params, opt_state, batch, key)`` as
     :func:`build_train_step`'s, where this process is worker ``r``, its rank
     in the default process group, of ``n`` = the world size: it
@@ -394,11 +510,15 @@ def build_distributed_step(cfg, opt: DianaOptimizer):
     holds the rank's own ``h_worker`` row (``opt.init(params, 1)``, in the
     policy's layout) and the replicated ``h_server``, updated in place; a
     grouped policy runs its groups inside the round.  The logged loss is
-    the all-reduced mean (``:486``).  Given the same batch and keys, the
+    the all-reduced mean (``:486``).  Under participation or ``faults``
+    the round gets ``part_key = fold_in(key, PART_FOLD)`` and the step
+    counter (``:440-452``).  Given the same batch and keys, the
     parameters and memories equal :func:`build_train_step`'s with ``n``
     workers bit for bit (``none`` and identity groups: to the backend's
     all-reduce order)."""
     rank, n_workers = dist.get_rank(), dist.get_world_size()
+    if faults is not None:
+        check_faults(opt.policy)
 
     def step(params, opt_state, batch, key):
         paths = list(params)
@@ -412,6 +532,9 @@ def build_distributed_step(cfg, opt: DianaOptimizer):
                          params_local=params, vr_force_refresh=opt_state.step == 0)
         if opt_state.diana.h_down is not None:
             extra["down_key"] = prng.fold_in(key, DOWN_FOLD)   # before the worker fold
+        if opt.policy.participation is not None or faults is not None:
+            extra.update(part_key=prng.fold_in(key, PART_FOLD), step=opt_state.step,
+                         faults=faults)
         with torch.no_grad():
             ghat, new = aggregate_distributed(grads, opt_state.diana, worker_key(key, rank),
                                               opt.policy, **extra)
@@ -478,6 +601,21 @@ def main(argv=None):
     ap.add_argument("--vr-p", type=float, default=None,
                     help="snapshot-refresh probability (default 1/m, m the per-worker "
                          "batch)")
+    ap.add_argument("--participation-q", type=float, default=None,
+                    help="elastic rounds: each worker joins a step with probability q (the "
+                         "participant sum is rescaled to stay unbiased); default 1.0 keeps "
+                         "the all-workers round")
+    ap.add_argument("--participation-dropout", type=float, default=None,
+                    help="straggler model: a sampled worker misses the step with this "
+                         "probability (its memory freezes)")
+    ap.add_argument("--min-workers", type=int, default=None,
+                    help="degraded-step floor: with fewer participants the step applies no "
+                         "update (ghat = 0, every memory frozen)")
+    ap.add_argument("--faults", default=None,
+                    help="fault plan: ';'-separated 'kind:step=S,worker=W[,byte=B|delay=D]' "
+                         "events, kind in {drop,delay,corrupt} (e.g. 'corrupt:step=3,"
+                         "worker=1'), or 'checksum' to arm the wire checksum alone; needs the "
+                         "bucketed layout")
     ap.add_argument("--mesh", default=None,
                     help="NxM: N data-parallel workers (M = 1), run in turn on one device, "
                          "or one per rank under torchrun (N = the world size)")
@@ -510,17 +648,28 @@ def main(argv=None):
     if args.vr:
         m_local = max(1, shape.global_batch // n_workers)
         cfg = replace(cfg, vr=True, vr_p=resolve_vr_p(args.vr_p, m_local))
+    participation = None
+    if (args.participation_q is not None or args.participation_dropout is not None
+            or args.min_workers is not None):
+        participation = ParticipationSpec(
+            q=1.0 if args.participation_q is None else args.participation_q,
+            dropout=args.participation_dropout or 0.0, min_workers=args.min_workers or 1)
+    faults = parse_faults(args.faults)
+    if faults is not None and (not cfg.comp_bucketed or args.comp_policy):
+        raise SystemExit("--faults needs the flat bucketed layout (the checksum rides the "
+                         "fused wire buffer)")
     distributed = "WORLD_SIZE" in os.environ
-    opt = make_optimizer(cfg, lr=args.lr, inner=args.inner, policy=args.comp_policy)
+    opt = make_optimizer(cfg, lr=args.lr, inner=args.inner, policy=args.comp_policy,
+                         participation=participation)
     if distributed:
         device = init_distributed(args.device, n_workers)
         params, opt_state = init_train_state(cfg, opt, 1, device)
-        step_fn = build_distributed_step(cfg, opt)
+        step_fn = build_distributed_step(cfg, opt, faults)
         log = dist.get_rank() == 0
     else:
         device = resolve_device(args.device)
         params, opt_state = init_train_state(cfg, opt, n_workers, device)
-        step_fn = build_train_step(cfg, opt, n_workers, device)
+        step_fn = build_train_step(cfg, opt, n_workers, device, faults)
         log = True
     key = prng.PRNGKey(0)
     try:
@@ -532,8 +681,12 @@ def main(argv=None):
                                                  prng.fold_in(key, step))
             loss = float(metrics["loss"])
             if log:
+                elastic = ("" if "mask" not in metrics else
+                           f" mask {metrics['mask']} ok {metrics['ok']}"
+                           + (f" valid {metrics['valid']}" if metrics["valid"] else ""))
                 print(f"step {step:4d} loss {loss:8.4f} ghat "
-                      f"{float(metrics['ghat_norm']):9.4f} ({time.perf_counter() - t0:5.2f}s)")
+                      f"{float(metrics['ghat_norm']):9.4f} ({time.perf_counter() - t0:5.2f}s)"
+                      + elastic)
     finally:
         if distributed and dist.is_initialized():
             dist.destroy_process_group()

@@ -14,7 +14,10 @@ This module owns steps 3-4 and the state plumbing (the port's copy of
 which lifts to a uniform one-rule policy and runs the flat code path.  The
 JAX optimizer's deprecated ``vr=`` / ``vr_p=`` / ``down_method=`` /
 ``down_k=`` keywords are not ported: ``policy.replace(vr=..., vr_p=...)``
-and ``policy.with_down(...)`` say the same.
+and ``policy.with_down(...)`` say the same.  ``participation=`` (a
+:class:`~repro_torch.core.participation.ParticipationSpec`) rides the policy
+whole (``policy.replace(participation=...)``): the training step then feeds
+the round its ``part_key`` and step counter.
 """
 
 from __future__ import annotations
@@ -48,13 +51,16 @@ class DianaOptimizer:
     def __init__(self, compression: Optional[CompressionConfig] = None,
                  inner: Optional[Optimizer] = None, schedule: Optional[Callable] = None,
                  regularizer: Optional[Regularizer] = None, lr: float = 1e-3,
-                 policy: Optional[CompressionPolicy] = None):
+                 policy: Optional[CompressionPolicy] = None, participation=None):
         if policy is not None and compression is not None:
             raise ValueError("pass either compression= (flat config) or policy= "
                              "(CompressionPolicy), not both")
         self.policy = as_policy(policy if policy is not None
                                 else compression if compression is not None
                                 else CompressionConfig())
+        if participation is not None:
+            # model-wide, like VR: one spec on the policy for every group
+            self.policy = self.policy.replace(participation=participation)
         self.inner = inner or momentum()
         self.schedule = schedule or constant_schedule(lr)
         self.regularizer = regularizer or no_reg()

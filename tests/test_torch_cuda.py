@@ -621,3 +621,59 @@ def test_dense_wrappers_reject_bad_inputs(dev):
         ops.dense_decode_sum_op(torch.zeros(10, device=dev))
     with pytest.raises(ValueError):
         ops.dense_decode_sum_mean_op(torch.zeros((2, 10), dtype=torch.int32, device=dev))
+
+
+# --------------------------------------------------- the elastic round's pieces
+
+
+def test_checksum_on_card_equals_cpu(dev):
+    """The wire checksum reduced on the card (chunks of 2^24 bytes, int64
+    sums) equals the CPU's words on wires over 2^24 bytes, with the
+    positions shifted past 2^32 too; a corrupted byte is caught on the card."""
+    from repro_torch.core.bucket import add_checksum, checksum_words, verify_checksum
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = torch.randint(0, 256, (2, (1 << 24) + 12345), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    assert checksum_words(rows) == checksum_words(rows.cpu())
+    for pos0 in (2**32 - 5000, 2**33 + 7):
+        assert checksum_words(rows[1], pos0=pos0) == checksum_words(rows[1].cpu(), pos0=pos0)
+    wire = add_checksum(rows[:1])
+    assert torch.equal(wire.cpu(), add_checksum(rows[:1].cpu()))
+    wire[(1 << 24) + 3] ^= 0x40
+    assert not bool(verify_checksum(wire)[1])
+
+
+@pytest.mark.parametrize("method", ["diana", "natural", "randk", "topk_ef", "none"])
+@pytest.mark.parametrize("bucketed", [True, False])
+def test_masked_decode_sum_equals_plain(dev, method, bucketed):
+    """Each operator's ``decode_sum`` over a gathered payload of 4 workers
+    with workers 1 and 3 excluded (``mask_workers`` and its in-place form),
+    through the kernels, bit for bit the plain versions on the same bytes;
+    an excluded sparse row carries out-of-range indices, as a corrupted
+    wire may."""
+    from repro_torch.core.bucket import BucketLayout, bucketed_compressor
+    from repro_torch.core.compression import CompressionConfig
+
+    cfg = CompressionConfig(method=method, block_size=128, k=97, bucketed=bucketed)
+    tree = {"a": torch.zeros(3001), "b": torch.zeros(70, 130)}
+    if bucketed:
+        comp = bucketed_compressor(cfg, BucketLayout.for_tree(tree, cfg.make().bucket_align()))
+        d = comp.layout.padded_size
+    else:
+        comp, d = cfg.make(), 3001
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((4, d), generator=g, device=dev)
+    x[:, ::5] = -0.0
+    pays = [comp.compress(x[w], prng.fold_in(prng.PRNGKey(2), w)) for w in range(4)]
+    stacked = type(pays[0]).stack(pays)
+    if stacked.indices is not None:
+        stacked.indices[1].copy_(torch.full_like(stacked.indices[1], d + 5)
+                                 if stacked.indices.dtype != torch.uint8 else stacked.indices[1])
+    mask = torch.tensor([True, False, True, False])
+    plain = comp.decode_sum(type(stacked)(*(None if f is None else f.cpu() for f in stacked))
+                            .mask_workers(mask), 4, d)
+    got = comp.decode_sum(stacked.mask_workers(mask), 4, d)
+    assert _same_bits_or_nan(got.cpu(), plain)
+    got_ = comp.decode_sum(stacked.mask_workers_(mask), 4, d)
+    assert _same_bits_or_nan(got_.cpu(), plain)

@@ -22,8 +22,8 @@ grouped rounds of ``repro_torch.core.diana``) against the JAX package.
   document both ways, ``size_adaptive``, ``grouped_bucket_layout`` and
   ``policy_bits_per_dim`` equal the JAX package's.
 * The uniform law (a one-rule policy is the flat config, draw for draw),
-  ``state_from_jax`` on a grouped state, and the fields of later slices
-  refused.
+  ``state_from_jax`` on a grouped state, and the fields of the chunked
+  schedule refused.
 """
 
 import json
@@ -224,9 +224,10 @@ def test_state_from_jax_carries_grouped_states():
 
 
 def test_later_slice_fields_refused():
-    """Participation and the chunked / hierarchical schedules are not
-    declared: asking for them raises TypeError, as a JSON document that
-    names them does."""
+    """The chunked / hierarchical schedules' fields are not declared:
+    asking for them raises TypeError, as a JSON document that names them
+    does; a participation that is not a ``ParticipationSpec`` raises it
+    too."""
     with pytest.raises(TypeError, match="participation"):
         TP.CompressionPolicy(participation=object())
     for field, value in (("chunk_bytes", 256), ("topology", "hierarchical"), ("node_size", 2)):
