@@ -153,6 +153,36 @@ Phases (each prints its lines; any failure exits non-zero):
    reduced model at n = 4, bucketed with the fault plan and per leaf, 3
    steps through the kernels bitwise the same steps through the plain
    versions;
+15d. schedule: ``diana`` and ``randk`` with ``--chunk-bytes 2^29`` in turn
+   at n = 4, 2 steps each, bitwise (losses, parameters, momentum,
+   ``h_worker``, ``h_server``) the monolithic steps from the same state,
+   which stay on the card meanwhile; the chunk count and sizes and the
+   launches per step printed and exact (each encode, own decode and server
+   decode once per chunk); the kernels on chunk views at full width (the
+   second chunk of the ternary bucket, ``h_server`` a view; the natural and
+   dense kernels on views 4 bytes into their buffers; ``sparse_gather``,
+   ``sparse_decode_sum`` at n = 1 and 4 and ``sparse_decode_sum_mean`` on
+   the second chunk of the rand-k and top-k EF buckets, indices
+   chunk-local) bitwise their plain versions and timed; on the reduced model, ``natural``, ``topk_ef`` and
+   ``none`` chunked and ``diana`` hierarchical (chunked and not) through
+   the in-turn trainer, bitwise ``reference_step`` on the same per-worker
+   gradients, and on a tree with leaf sizes 384, 260, 160, 279, 70 and 1
+   (chunks at offsets that are not 16-byte aligned) the chunked and
+   hierarchical ``reference_step`` of all five operators through the
+   kernels bitwise the plain versions; ``diana --topology hierarchical
+   --node-size 2`` at full width, n = 4, 2 steps: node rows bitwise
+   duplicates, ``h_server`` within 8 roundings per step of the mean of the
+   node rows, two encodes per step; and the chunked world of one over NCCL
+   bitwise the chunked in-turn trainer at n = 1, through the round's own
+   asynchronous gathers, each chunk's all-gather timed from its issue to
+   the wait on it and the issue order of gathers and decodes checked;
+15e. controller: ``--comp-policy default --budget-bits-per-dim 1.0
+   --controller-interval 1 --warmup-dense-steps 1`` in turn at n = 4, 3
+   steps: step 0 dense, then the allocation (its policy and
+   ``policy_bits_per_dim`` <= 1.0, the memories carried and restarted),
+   each step's time and launches, the peak, and the telemetry within 1e-4
+   (relative to ``m2``) of a float64 recomputation of ``measure`` on the
+   same served direction;
 16. the full depth: the distributed ``diana`` path on all 16 layers,
    world of one, 3 steps: finite losses, step times and peak memory.
 
@@ -160,7 +190,9 @@ Each timed step starts from a Python collection (outside its time); its
 line gives the time of the collections inside it and the caching
 allocator's device allocations, frees and retries.  Each kernel is credited
 with the launches of the path or round that runs it (``launches``), and
-with those of every other path that ran it (``paths``: path -> launches).
+with those of every other path that ran it (``paths``: path -> launches);
+the kernels of the chunked path carry their time on a chunk view
+(``chunk_view_ms``, ``chunk_view``).
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -259,14 +291,16 @@ def main() -> None:
     try:
         from repro_torch.configs import ShapeConfig, get_config, reduced
         from repro_torch.core import prng
-        from repro_torch.core.bucket import BucketedCompressor, checksum_words
+        from repro_torch.core.bucket import BucketedCompressor, ChunkedSchedule, checksum_words
+        from repro_torch.core.controller import BudgetController, init_controller_state
         from repro_torch.core.compression import CompressionConfig
         from repro_torch.core.compressors.identity import IdentityCompressor
         from repro_torch.core.compressors.natural import NaturalCompressor
         from repro_torch.core.compressors.randk import RandKCompressor, uniform_subset
         from repro_torch.core.compressors.ternary import TernaryCompressor
         from repro_torch.core.compressors.topk_ef import TopKEFCompressor
-        from repro_torch.core.diana import GROUP_FOLD, bucket_layout, worker_key
+        from repro_torch.core.diana import (GROUP_FOLD, bucket_layout, reference_init,
+                                            reference_step, worker_key)
         from repro_torch.core.participation import ChurnEvent, ParticipationSpec, parse_faults
         from repro_torch.core.policy import grouped_bucket_layout, policy_bits_per_dim
         from repro_torch.core.vr import resolve_vr_p
@@ -276,8 +310,9 @@ def main() -> None:
         from repro_torch.data.pipeline import make_lm_batch
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.sparse import COARSE
+        from repro_torch.launch import train as train_mod
         from repro_torch.launch.train import (build_distributed_step, build_train_step,
-                                              init_train_state, make_optimizer)
+                                              controller_tick, init_train_state, make_optimizer)
         from repro_torch.models.transformer import init_model, param_shapes, train_loss
     except ImportError as e:
         fail(f"the repro_torch package is not next to this script ({e})")
@@ -1235,13 +1270,16 @@ def main() -> None:
     # run's parameters and memories stay on the card (22.5 GB at n = 4)
     # while the per-leaf run takes its steps.
     def inturn_run(pcfg, steps, label, policy=None, participation=None, faults=None,
-                   keep=None):
+                   keep=None, schedule=None):
         """``steps`` in-turn steps at n = 4 on batch 8 x 4096 from the
         path's initial state; returns losses, params, optimizer state,
         launches.  ``keep(s, params, opt_state, metrics)`` runs after each
-        step, outside its time."""
+        step, outside its time; ``schedule`` (``chunk_bytes`` / ``topology``
+        / ``node_size``) goes onto the policy."""
         shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
         opt = make_optimizer(pcfg, policy=policy, participation=participation)
+        if schedule:
+            opt.policy = opt.policy.replace(**schedule)
         params, opt_state = init_train_state(pcfg, opt, WORKERS, dev)
         step_fn = build_train_step(pcfg, opt, WORKERS, dev, faults)
         batches = [{k: torch.from_numpy(v).to(dev)
@@ -1364,16 +1402,36 @@ def main() -> None:
                                 device_id=dev)
     except (RuntimeError, ValueError) as e:
         fail(f"NCCL did not start a world of one on the card ({e})")
-    gathers = []
+    gathers, wire_order = [], []
     nccl_gather = dist.all_gather_into_tensor
 
+    class TimedWork:
+        """An issued asynchronous gather's handle: waiting on it (the
+        round's ``_Pending.wait``, which orders the compute stream after
+        NCCL's) records the end event on the compute stream."""
+
+        def __init__(self, work, end):
+            self.work, self.end = work, end
+
+        def wait(self):
+            done = self.work.wait()
+            self.end.record()
+            return done
+
     def timed_gather(out, inp, group=None, async_op=False):
-        """The round's all-gather between CUDA events, with its bytes."""
+        """The round's all-gather, issued as the round asks, between CUDA
+        events, with its bytes.  A synchronous one is bracketed in stream
+        order; an asynchronous one (the chunked wire) spans from its issue
+        to the compute stream's wait on it, so chunk c+1's span also holds
+        chunk c's decode, issued between the two."""
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         work = nccl_gather(out, inp, group=group, async_op=async_op)
-        b.record()
         gathers.append((a, b, inp.numel() * inp.element_size()))
+        wire_order.append("gather")
+        if async_op:
+            return TimedWork(work, b)
+        b.record()
         return work
     dist.all_gather_into_tensor = timed_gather
     dcredit = {}   # kernel name -> (launches, the distributed path that ran them)
@@ -1386,10 +1444,13 @@ def main() -> None:
         "none": {},
     }
 
-    def dist_run(pcfg, steps, label, step_builder, policy=None, participation=None):
+    def dist_run(pcfg, steps, label, step_builder, policy=None, participation=None,
+                 schedule=None):
         """``steps`` steps of one worker from the path's initial state;
         returns losses, params, DIANA state, step times, peak, launches."""
         opt = make_optimizer(pcfg, policy=policy, participation=participation)
+        if schedule:
+            opt.policy = opt.policy.replace(**schedule)
         params, opt_state = init_train_state(pcfg, opt, 1, dev)
         step_fn = step_builder(pcfg, opt)
         batches = [{k: torch.from_numpy(v).to(dev)
@@ -1740,6 +1801,411 @@ def main() -> None:
     build.reset_launches()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ schedule
+    # The chunked and hierarchical wire schedule.  (a) diana and randk with
+    # --chunk-bytes 2^29 at n = 4, 2 steps each, bitwise the monolithic
+    # steps from the same state, whose parameters, momentum and memories stay
+    # on the card meanwhile.
+    CHUNK_BYTES = 1 << 29
+    chunk_paths = {}
+    for method in ("diana", "randk"):
+        pcfg = replace(cfg, compression=method, comp_k=COMP_K)
+        clay = bucket_layout(make_optimizer(pcfg).compression, meta)
+        csched = ChunkedSchedule.for_layout(clay, CHUNK_BYTES)
+        nc = csched.n_chunks
+        print(f"schedule: {method} --chunk-bytes {CHUNK_BYTES}: {nc} chunks of "
+              f"{list(csched.chunk_sizes)} f32 elements at offsets "
+              f"{list(csched.chunk_offsets)} (leaf bounds {list(csched.bounds)})")
+        m_loss, m_params, m_state, _ = inturn_run(pcfg, 2, f"schedule: in turn {method} "
+                                                  "(one chunk)")
+        kept = ([m_params[k].detach() for k in sorted(m_params)]
+                + [m_state.inner[k] for k in sorted(m_state.inner)]
+                + state_leaves(m_state.diana))
+        del m_params, m_state
+        torch.cuda.empty_cache()
+        c_loss, c_params, c_state, counts = inturn_run(
+            pcfg, 2, f"schedule: in turn {method} --chunk-bytes {CHUNK_BYTES}",
+            schedule=dict(chunk_bytes=CHUNK_BYTES))
+        got = ([c_params[k] for k in sorted(c_params)]
+               + [c_state.inner[k] for k in sorted(c_state.inner)]
+               + state_leaves(c_state.diana))
+        same = (c_loss == m_loss and len(got) == len(kept)
+                and all(torch.equal(a, b) for a, b in zip(got, kept)))
+        want = ({"quantize_pack_prng": 2 * WORKERS * nc, "unpack_reduce": 2 * WORKERS * nc,
+                 "unpack_reduce_apply": 2 * nc} if method == "diana" else
+                {"threefry_bits": 2 * WORKERS * slayout.n_leaves,
+                 "sparse_gather": 2 * WORKERS * nc, "sparse_decode_sum": 2 * (WORKERS + 1) * nc})
+        print(f"schedule: {method} chunked: losses, parameters, momentum, h_worker and "
+              f"h_server bitwise the monolithic steps: {same}; launches per step "
+              f"{ {k: v // 2 for k, v in counts.items()} }")
+        if not same:
+            fail(f"schedule: the chunked {method} steps differ from the monolithic steps")
+        if counts != want:
+            fail(f"schedule {method}: launches {counts}, expected {want}")
+        chunk_paths[method] = nc
+        also(f"chunked {method} ({nc} chunks, 8 layers, 4 workers, 2 steps)", counts)
+        del kept, got, c_params, c_state
+        torch.cuda.empty_cache()
+
+    # The kernels on chunk views at full width: the second chunk of the
+    # diana bucket (encode from a view of the f32 buffer, the server decode
+    # into a view of h_server), and the natural and dense kernels on a view
+    # one element into the buffer (4-byte, not 16-byte, aligned), each
+    # against the whole-buffer call and its plain version.
+    chunk_ms = {}
+    dsched = ChunkedSchedule.for_layout(layout, CHUNK_BYTES)
+    c1, o1 = dsched.chunk_layouts[1], dsched.chunk_offsets[1]
+    flat = torch.randn(dp, generator=gen, device=dev) * 1e-3
+    view = dsched.split(flat)[1]
+    ckeys = dsched.chunk_keys(prng.split(prng.PRNGKey(11), layout.n_leaves), 1)
+    rows1 = [r // bsz for r in c1.padded_sizes]
+    packed, scales = ops.quantize_pack_prng_op(view.view(-1, bsz), ckeys, rows1, p=math.inf)
+    pp, ps = ref.ref_quantize_pack_prng(view.view(-1, bsz), ckeys, rows1, math.inf)
+    if not (torch.equal(packed, pp) and torch.equal(scales, ps)):
+        fail("schedule: quantize_pack_prng on a chunk view differs from its plain version")
+    chunk_ms["quantize_pack_prng"] = (time_ms(lambda: ops.quantize_pack_prng_op(
+        view.view(-1, bsz), ckeys, rows1, p=math.inf), 5), f"chunk 1 of the diana bucket, "
+        f"{c1.padded_size} elements at offset {o1}")
+    gp = torch.stack([packed] * WORKERS)
+    gs = torch.stack([scales] * WORKERS)      # (n, m, 1)
+    hsv = dsched.split(torch.randn(dp, generator=gen, device=dev))[1]
+    for name, fn, plain in (
+            ("unpack_reduce", lambda: ops.unpack_reduce_op(gp[:1], gs[:1]),
+             lambda: ref.ref_unpack_reduce(gp[:1], gs[:1])),
+            ("unpack_reduce_apply", lambda: ops.unpack_reduce_apply_op(gp, gs, hsv, alpha=0.02),
+             lambda: ref.ref_unpack_reduce_apply(gp, gs, hsv, 0.02, WORKERS))):
+        a, b = fn(), plain()
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"schedule: {name} on a chunk view differs from its plain version")
+        chunk_ms[name] = (time_ms(fn, 5), f"chunk 1, n = {1 if name == 'unpack_reduce' else 4}"
+                          + (", h_server a view" if name.endswith("apply") else ""))
+    del packed, scales, pp, ps, gp, gs, hsv, flat, view, a, b
+    odd = nd - 1
+    xv = (torch.randn(nd, generator=gen, device=dev) * 1e-3)[1:]
+    nk = prng.split(prng.PRNGKey(12), 2)
+    codes = ops.nat_pack_prng_op(xv, nk, [odd // 2, odd - odd // 2])
+    if not torch.equal(codes, ref.ref_nat_pack_prng(xv, nk, [odd // 2, odd - odd // 2])):
+        fail("schedule: nat_pack_prng on an unaligned view differs from its plain version")
+    chunk_ms["nat_pack_prng"] = (time_ms(lambda: ops.nat_pack_prng_op(
+        xv, nk, [odd // 2, odd - odd // 2]), 5), f"{odd} coordinates from a 4-byte-aligned "
+        "view")
+    ncodes = torch.stack([codes] * WORKERS)
+    hn = torch.randn(nd, generator=gen, device=dev)[1:]
+    for name, fn, plain in (
+            ("nat_decode_sum", lambda: ops.nat_decode_sum_op(ncodes[:1]),
+             lambda: ref.ref_nat_decode_sum(ncodes[:1])),
+            ("nat_decode_sum_apply", lambda: ops.nat_decode_sum_apply_op(ncodes, hn, alpha=0.9),
+             lambda: ref.ref_nat_decode_sum_apply(ncodes, hn, 0.9))):
+        a, b = fn(), plain()
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"schedule: {name} on an unaligned view differs from its plain version")
+        chunk_ms[name] = (time_ms(fn, 5), f"{odd} coordinates, h a 4-byte-aligned view"
+                          if name.endswith("apply") else f"{odd} coordinates, n = 1")
+    del xv, codes, ncodes, hn, a, b
+    torch.cuda.empty_cache()
+    dv = (torch.randn(WORKERS * nd + 1, generator=gen, device=dev))[1:].view(WORKERS, nd)
+    dout = torch.empty(nd, device=dev)
+    for name, fn, plain in (
+            ("dense_copy", lambda: ops.dense_copy_op(dv[0], out=dout), lambda: dv[0].clone()),
+            ("dense_decode_sum", lambda: ops.dense_decode_sum_op(dv),
+             lambda: ref.ref_dense_decode_sum(dv)),
+            ("dense_decode_sum_mean", lambda: ops.dense_decode_sum_mean_op(dv),
+             lambda: ref.ref_dense_decode_sum_mean(dv))):
+        if not torch.equal(fn(), plain()):
+            fail(f"schedule: {name} on an unaligned view differs from its plain version")
+        chunk_ms[name] = (time_ms(fn, 5), f"rows of a (4, {nd}) view 4 bytes into its buffer")
+    del dv, dout
+    torch.cuda.empty_cache()
+    # The sparse kernels on chunk 1 of the rand-k and top-k EF buckets: each
+    # worker's chunk compressed from a view of the f32 buffer into its row
+    # of the chunk's stacked payload (threefry tags, selection,
+    # sparse_gather; indices chunk-local), then sparse_gather on the view,
+    # sparse_decode_sum at n = 1 and n = 4 (rand-k) and
+    # sparse_decode_sum_mean at n = 4 (top-k EF) against the plain versions.
+    ssched = ChunkedSchedule.for_layout(slayout, CHUNK_BYTES)
+    s1, so1 = ssched.chunk_layouts[1], ssched.chunk_offsets[1]
+    sflat = torch.randn(slayout.padded_size, generator=gen, device=dev) * 1e-3
+    sview = ssched.split(sflat)[1]
+    for sname, scomp in (("randk", RandKCompressor(COMP_K)), ("topk_ef", TopKEFCompressor(COMP_K))):
+        cg = scomp.gathered_bucketed(s1, WORKERS, dev)
+        for w in range(WORKERS):
+            xw = sview * (w + 1) if sname == "randk" else sview + 1e-3 * torch.randn(
+                sview.shape, generator=gen, device=dev)
+            keys = ssched.chunk_keys(prng.split(worker_key(prng.PRNGKey(13), w),
+                                                slayout.n_leaves), 1)
+            scomp.compress_bucketed_keys(s1, xw, keys, out=cg.select(w))
+            if not same_bits(cg.values[w], ref.ref_sparse_gather(xw, cg.indices[w])):
+                fail(f"schedule: sparse_gather inside the {sname} chunk compress differs from "
+                     "its plain version")
+            del xw
+        ci, cv, d1 = cg.indices, cg.values, s1.padded_size
+        csc = scomp._bucket_scales(s1, dev)
+        where = (f"chunk 1 of the {sname} bucket, {d1} elements at offset {so1}, K "
+                 f"{cv.shape[-1]} chunk-local indices")
+        if sname == "randk":
+            kv = ops.sparse_gather_op(sview, ci[0])
+            if not same_bits(kv, ref.ref_sparse_gather(sview, ci[0])):
+                fail("schedule: sparse_gather on a chunk view differs from its plain version")
+            chunk_ms["sparse_gather"] = (time_ms(lambda: ops.sparse_gather_op(
+                sview, ci[0], out=kv), 5), f"{where}, from the view")
+            del kv
+            for nw in (1, WORKERS):
+                if not same_bits(ops.sparse_decode_sum_op(ci[:nw], cv[:nw], csc, d1),
+                                 ref.ref_sparse_decode_sum(ci[:nw], cv[:nw], csc, d1)):
+                    fail(f"schedule: sparse_decode_sum (n={nw}) on a chunk differs from its "
+                         "plain version")
+            n4 = time_ms(lambda: ops.sparse_decode_sum_op(ci, cv, csc, d1), 5)
+            chunk_ms["sparse_decode_sum"] = (time_ms(lambda: ops.sparse_decode_sum_op(
+                ci[:1], cv[:1], csc, d1), 5), f"{where}, n = 1; n = 4 {n4:.4f} ms")
+        else:
+            if not same_bits(ops.sparse_decode_sum_mean_op(ci, cv, csc, d1),
+                             ref.ref_sparse_decode_sum_mean(ci, cv, csc, d1)):
+                fail("schedule: sparse_decode_sum_mean on a chunk differs from its plain "
+                     "version")
+            chunk_ms["sparse_decode_sum_mean"] = (time_ms(lambda: ops.sparse_decode_sum_mean_op(
+                ci, cv, csc, d1), 5), f"{where}, n = 4")
+        del cg, ci, cv, csc
+    del sflat, sview
+    torch.cuda.empty_cache()
+    for name, (ms, note) in chunk_ms.items():
+        print(f"schedule: kernel {name} on a chunk view: {ms:.4f} ms ({note})")
+
+    # (b) the other three operators chunked, and diana hierarchical, on the
+    # reduced model at n = 4: the in-turn trainer through the kernels
+    # against the port's reference_step (also through the kernels) on the
+    # same per-worker gradients; and reference_step on a tree whose leaf
+    # sizes (384, 260, 160, 279, 70, 1) put the unaligned operators' chunks
+    # at offsets that are not 16-byte aligned, the kernels against the plain
+    # versions.
+    def trainer_vs_reference(method, schedule, label):
+        params = {k: torch.nn.Parameter(v.detach().to(dev, copy=True)) for k, v in init.items()}
+        opt = make_optimizer(replace(rcfg, compression=method, comp_k=4096))
+        opt.policy = opt.policy.replace(**schedule)
+        st = opt.init(params, WORKERS)
+        fn = build_train_step(rcfg, opt, WORKERS, dev)
+        refst = reference_init({k: v.detach() for k, v in params.items()}, opt.compression,
+                               WORKERS)
+        paths = sorted(params)
+        build.reset_launches()
+        same = True
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     make_lm_batch(rcfg, ShapeConfig("smoke", 64, WORKERS, "train"), s).items()}
+            grads = [torch.autograd.grad(
+                train_loss(params, {k: v[w:w + 1] for k, v in batch.items()}, rcfg),
+                [params[p] for p in paths]) for w in range(WORKERS)]
+            stacked = {p: torch.stack([g[i] for g in grads]) for i, p in enumerate(paths)}
+            key = prng.fold_in(prng.PRNGKey(0), s)
+            _, refst = reference_step(stacked, refst, key, opt.compression)
+            params, st, _ = fn(params, st, batch, key)
+            same = (same and torch.equal(st.diana.h_worker, refst.h_worker)
+                    and torch.equal(st.diana.h_server, refst.h_server))
+        print(f"schedule: reduced llama3.2-1b, {label}, 4 workers, 2 steps: h_worker and "
+              f"h_server bitwise reference_step on the same gradients: {same}; launches "
+              f"{dict(build.LAUNCHES)}")
+        if not same:
+            fail(f"schedule: the {label} trainer differs from reference_step")
+        also(f"reduced {label} (4 workers, 2 steps, trainer and reference_step)",
+             dict(build.LAUNCHES))
+    rchunk = 1 << 18
+    for method in ("natural", "topk_ef", "none"):
+        trainer_vs_reference(method, dict(chunk_bytes=rchunk), f"{method} --chunk-bytes {rchunk}")
+    for cb in (0, rchunk):
+        trainer_vs_reference("diana", dict(chunk_bytes=cb, topology="hierarchical", node_size=2),
+                             f"diana --topology hierarchical --node-size 2 --chunk-bytes {cb}")
+    odd_shapes = {"emb": (24, 16), "w1": (20, 13), "b1": (160,), "w2": (9, 31), "b2": (70,),
+                  "s": ()}
+    og = torch.Generator().manual_seed(6)
+    oparams = {p: torch.randn(sh, generator=og).to(dev) for p, sh in odd_shapes.items()}
+    ograds = [{p: torch.randn((WORKERS, *sh), generator=og).to(dev)
+               for p, sh in odd_shapes.items()} for _ in range(2)]
+    for method, kw in (("diana", dict(block_size=16)), ("natural", {}), ("randk", dict(k=9)),
+                       ("topk_ef", dict(k=9)), ("none", {})):
+        base = CompressionConfig(method=method, bucketed=True, chunk_bytes=300, **kw)
+        for ocfg in (base, replace(base, topology="hierarchical", node_size=2)):
+            osched = ChunkedSchedule.for_layout(bucket_layout(ocfg, oparams), 300)
+
+            def ref_steps():
+                st = reference_init(oparams, ocfg, WORKERS)
+                for s in range(2):
+                    v, st = reference_step(ograds[s], st, prng.fold_in(prng.PRNGKey(3), s), ocfg)
+                return [v[p] for p in sorted(v)] + [st.h_worker, st.h_server]
+            build.reset_launches()
+            k_out = ref_steps()
+            kcounts = dict(build.LAUNCHES)
+            on_card = ops._on_card
+            ops._on_card = lambda t: False
+            try:
+                p_out = ref_steps()
+            finally:
+                ops._on_card = on_card
+            same = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+            label = f"{method} chunk_bytes 300" + (
+                " hierarchical node_size 2" if ocfg.topology == "hierarchical" else "")
+            print(f"schedule: odd tree, {label}: {osched.n_chunks} chunks at byte offsets "
+                  f"{[4 * o for o in osched.chunk_offsets]}; 2 steps of reference_step at n = 4 "
+                  f"through the kernels bitwise the plain versions: {same}; launches {kcounts}")
+            if not same or not kcounts:
+                fail(f"schedule: the odd tree's {label} round differs from its plain versions")
+            also(f"odd tree {label} (reference_step, 4 workers, 2 steps)", kcounts)
+    del oparams, ograds
+    build.reset_launches()
+
+    # (c) hierarchical at full width: diana --topology hierarchical
+    # --node-size 2 at n = 4, 2 steps: two nodes, one encode each per step.
+    hier = dict(topology="hierarchical", node_size=2)
+    hchecks = []
+
+    def keep_hier(s, params, opt_state, met):
+        hw, hs = opt_state.diana.h_worker, opt_state.diana.h_server
+        dup = torch.equal(hw[0], hw[1]) and torch.equal(hw[2], hw[3])
+        mean = (hw[0] + hw[2]) / 2
+        err = float((hs - mean).abs().max())
+        scale = float(hs.abs().max())
+        hchecks.append((dup, err, scale))
+        print(f"schedule: hierarchical step {s}: node rows bitwise duplicates: {dup}; "
+              f"max |h_server - mean of the node rows| {err!r} (max |h_server| {scale!r})")
+    _, h_params, h_state, counts = inturn_run(
+        cfg, 2, "schedule: in turn diana --topology hierarchical --node-size 2", keep=keep_hier,
+        schedule=hier)
+    want = {"quantize_pack_prng": 2 * 2, "unpack_reduce": 2 * 2, "unpack_reduce_apply": 2}
+    if counts != want:
+        fail(f"schedule hierarchical: launches {counts}, expected {want}")
+    also("hierarchical diana (node_size 2, 8 layers, 4 workers, 2 steps)", counts)
+    # the invariant h_server = mean of the node rows, held to 8 f32 roundings
+    # of its magnitude per step (each side's fma per step, the mean's add)
+    if not all(d and e <= 8 * 2.0 ** -24 * max(sc, 1e-30) * (i + 1)
+               for i, (d, e, sc) in enumerate(hchecks)):
+        fail(f"schedule: hierarchical node rows or h_server out of bounds: {hchecks}")
+    del h_params, h_state
+    torch.cuda.empty_cache()
+
+    # (d) the chunked world of one over NCCL: build_distributed_step with
+    # --chunk-bytes 2^29, bitwise build_train_step at n = 1; each chunk's
+    # all-gather timed, and the order of the gathers and the decodes.
+    orig_apply = BucketedCompressor.decode_sum_apply
+
+    def logged_apply(self, *a, **kw):
+        wire_order.append("decode")
+        return orig_apply(self, *a, **kw)
+    BucketedCompressor.decode_sum_apply = logged_apply
+    wire_order.clear()
+    try:
+        d_loss, d_params, d_diana, counts, wire_c = dist_run(
+            cfg, 2, f"schedule: distributed diana --chunk-bytes {CHUNK_BYTES}",
+            build_distributed_step, schedule=dict(chunk_bytes=CHUNK_BYTES))
+    finally:
+        BucketedCompressor.decode_sum_apply = orig_apply
+    order0 = list(wire_order[:len(wire_order) // 2])
+    nc = chunk_paths["diana"]
+    want_order = ["gather", "gather"]
+    for i in range(nc - 1):
+        want_order += ["decode"] + (["gather"] if i + 2 < nc else [])
+    want_order += ["decode"]
+    print(f"schedule: distributed chunked: per step {nc} all_gather_into_tensor(async_op=True) "
+          f"of {[nb for _, nb in wire_c[:nc]]} B, {[round(ms, 4) for ms, _ in wire_c]} ms "
+          f"(CUDA events from each issue to the compute stream's wait on it: chunk c+1's span "
+          f"holds chunk c's decode; at world 1 each gather is a device copy, and one card "
+          f"cannot show a gather overlapping a decode across a wire); issue order in step 0: "
+          f"{order0}")
+    if order0 != want_order:
+        fail(f"schedule: the chunked round's issue order {order0}, expected {want_order}")
+    if counts != {"quantize_pack_prng": 2 * nc, "unpack_reduce": 2 * nc,
+                  "unpack_reduce_apply": 2 * nc}:
+        fail(f"schedule: distributed chunked launches {counts}")
+    also(f"chunked distributed diana (world 1, {nc} chunks, 8 layers, 2 steps)", counts)
+    d_params = {k: v.detach().cpu() for k, v in d_params.items()}
+    d_leaves = [t.cpu() for t in state_leaves(d_diana)]
+    del d_diana
+    torch.cuda.empty_cache()
+    t_loss, t_params, t_diana, _, _ = dist_run(
+        cfg, 2, f"schedule: in turn diana (n = 1) --chunk-bytes {CHUNK_BYTES}",
+        lambda c, o: build_train_step(c, o, 1, dev), schedule=dict(chunk_bytes=CHUNK_BYTES))
+    same = (d_loss == t_loss
+            and all(torch.equal(d_params[k], t_params[k].cpu()) for k in t_params)
+            and all(torch.equal(a, b.cpu()) for a, b in zip(d_leaves, state_leaves(t_diana))))
+    print(f"schedule: distributed chunked: losses, parameters, h_worker and h_server bitwise "
+          f"the chunked in-turn trainer's at n = 1: {same}")
+    if not same:
+        fail("schedule: the chunked world of one differs from the in-turn trainer")
+    del d_params, d_leaves, t_params, t_diana
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- controller
+    # --comp-policy default --budget-bits-per-dim 1.0 --controller-interval 1
+    # --warmup-dense-steps 1 at n = 4, 3 steps: step 0 dense (identity on
+    # the policy's skeleton), then the allocation; the telemetry against a
+    # float64 recomputation of measure on the same f32 served direction.
+    copt = make_optimizer(cfg, policy="default")
+    ctl = BudgetController(base=copt.policy, budget_bits_per_dim=1.0, interval=1,
+                           warmup_dense_steps=1)
+    copt = train_mod._with_policy(copt, ctl.warmup_policy())
+    shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
+    cparams, cstate_opt = init_train_state(cfg, copt, WORKERS, dev)
+    cbuild = lambda o: build_train_step(cfg, o, WORKERS, dev, telemetry=True)  # noqa: E731
+    cstep = cbuild(copt)
+    cstate = init_controller_state(ctl, cparams)
+    exact = []
+    orig_moments = train_mod.group_moments
+
+    def moments_f64(leaves):
+        """Records the float64 (m2, var) of the same leaves beside the
+        telemetry's f32 ones."""
+        s1 = sum(float(l.double().sum()) for l in leaves)
+        s2 = sum(float(l.double().pow(2).sum()) for l in leaves)
+        d = sum(l.numel() for l in leaves)
+        exact.append((s2 / d, max(s2 / d - (s1 / d) ** 2, 0.0)))
+        return orig_moments(leaves)
+    train_mod.group_moments = moments_f64
+    cbatches = [{k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(cfg, shape, s).items()}
+                for s in range(STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ctimes, worst = [], 0.0
+    try:
+        for s in range(STEPS):
+            gc.collect()
+            exact.clear()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            cparams, cstate_opt, met = cstep(cparams, cstate_opt, cbatches[s],
+                                             prng.fold_in(prng.PRNGKey(0), s))
+            torch.cuda.synchronize()
+            ctimes.append(time.perf_counter() - t0)
+            counts = dict(build.LAUNCHES)
+            m2, var = met["telemetry_m2"].tolist(), met["telemetry_var"].tolist()
+            for (e2, ev), a2, av in zip(exact, m2, var):
+                worst = max(worst, abs(a2 - e2) / e2, abs(av - ev) / e2)
+            before = copt.policy
+            t1 = time.perf_counter()
+            copt, cstate_opt, cstep, cstate = controller_tick(
+                ctl, cstate, copt, cstate_opt, cstep, met, cparams, WORKERS, cbuild)
+            tick = time.perf_counter() - t1
+            switched = copt.policy != before
+            print(f"controller: step {s} loss {float(met['loss']):.6f} time {ctimes[-1]:.3f} s; "
+                  f"telemetry m2 {m2} var {var} ok {met['telemetry_ok']}; float64 m2/var "
+                  f"{exact}; launches {counts}; controller tick {tick:.3f} s"
+                  + (f"; switched to {[r.spec for r in copt.policy.rules]} at "
+                     f"{policy_bits_per_dim(copt.policy, cparams)!r} bits per coordinate"
+                     if switched else ""))
+            also(f"controller step {s} (8 layers, 4 workers)", counts)
+            if s == 0 and not switched:
+                fail("controller: no allocation after the dense warmup step")
+            if switched and policy_bits_per_dim(copt.policy, cparams) > 1.0:
+                fail("controller: the allocated policy is over its budget")
+    finally:
+        train_mod.group_moments = orig_moments
+    peak = torch.cuda.max_memory_allocated()
+    print(f"controller: {STEPS} steps {ctimes} s; peak memory {peak} B (held before the "
+          f"steps {held} B); telemetry within {worst!r} (relative to m2) of float64")
+    if worst > 1e-4:
+        fail(f"controller: telemetry {worst} off its float64 recomputation")
+    del cparams, cstate_opt, cstep, cbatches, copt
+    torch.cuda.empty_cache()
+
     # The model's full depth: 16 layers, the distributed diana path.
     fcfg = get_config("llama3.2-1b")
     f_loss, f_params, f_diana, counts, wire = dist_run(
@@ -1760,6 +2226,8 @@ def main() -> None:
         if r["name"] in dcredit:
             r["distributed_launches"], r["distributed_path"] = dcredit[r["name"]]
         r["paths"] = paths_run.get(r["name"], {})
+        if r["name"] in chunk_ms:
+            r["chunk_view_ms"], r["chunk_view"] = chunk_ms[r["name"]]
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         fail(f"kernels never launched on their path: {missing}")

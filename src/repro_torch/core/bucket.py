@@ -6,6 +6,9 @@
 * :class:`BucketedCompressor` — the ordinary compressor interface over that
   buffer, delegating to the operator's ``*_bucketed`` hooks, so a round is
   one compress, one payload and one fused decode per worker set.
+* :class:`ChunkedSchedule` — the layout split into consecutive whole-leaf
+  chunks: the chunked wire compresses, gathers and decodes one chunk at a
+  time, chunk ``c`` with its slice of the monolithic per-leaf keys.
 * :class:`GroupedBucketLayout` — one :class:`BucketLayout` per group of a
   compression policy (:mod:`repro_torch.core.policy`), each aligned to its
   own operator: a grouped round fuses each group, not the whole model.
@@ -18,8 +21,9 @@
 
 Bitwise contract (as in ``repro.core.bucket``): the bucketed round equals the
 per-leaf round — same per-segment PRNG draws, same per-block scales, same
-f32 recurrences.  The chunked schedule is a later slice (ROADMAP.md queue 1
-item 6).
+f32 recurrences; and the chunked round equals the monolithic one, since
+chunks hold whole leaves, keys are slices of the monolithic schedule and every
+decode and memory recurrence is per coordinate.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from . import tree as T
 from .compressors.base import Compressor, Payload
 
-__all__ = ["BucketLayout", "GroupedBucketLayout", "BucketedCompressor", "bucketed_compressor",
+__all__ = ["BucketLayout", "ChunkedSchedule", "GroupedBucketLayout", "BucketedCompressor", "bucketed_compressor",
            "payload_recipe", "fuse_payload", "unfuse_payload", "wire_roundtrip",
            "CHECKSUM_BYTES", "checksum_words", "add_checksum", "verify_checksum",
            "checksum_tail_bits_per_dim"]
@@ -111,6 +115,87 @@ class BucketLayout:
 
 
 @dataclass(frozen=True)
+class ChunkedSchedule:
+    """A :class:`BucketLayout` split into consecutive whole-leaf chunks
+    (``repro/core/bucket.py:156``).
+
+    Chunk boundaries sit on leaf boundaries, so each leaf keeps its place in
+    the monolithic key schedule (:meth:`chunk_keys`) and its ``align``-padded
+    segment: sum-of-chunks is bitwise the monolithic round.  ``bounds`` are
+    the leaf indices where chunks begin and end (``bounds[0] == 0``,
+    ``bounds[-1] == n_leaves``)."""
+
+    layout: BucketLayout
+    bounds: Tuple[int, ...]
+
+    @classmethod
+    def for_layout(cls, layout: BucketLayout, chunk_bytes: int) -> "ChunkedSchedule":
+        """Greedy whole-leaf packing: a chunk closes once it holds at least
+        ``chunk_bytes`` of padded f32 buffer (4 bytes per element), so chunk
+        sizes need not divide the buffer.  ``chunk_bytes <= 0``, or more than
+        the buffer, gives one chunk."""
+        if chunk_bytes <= 0:
+            return cls(layout=layout, bounds=(0, layout.n_leaves))
+        bounds = [0]
+        acc = 0
+        for i, ps in enumerate(layout.padded_sizes):
+            if acc >= chunk_bytes and acc > 0:
+                bounds.append(i)
+                acc = 0
+            acc += 4 * ps
+        bounds.append(layout.n_leaves)
+        return cls(layout=layout, bounds=tuple(bounds))
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.bounds) - 1
+
+    @property
+    def chunk_layouts(self) -> Tuple[BucketLayout, ...]:
+        """Per-chunk sub-layouts, offsets rebased to the chunk's origin, so
+        every ``*_bucketed`` hook (and a sparse payload's indices) works per
+        chunk unchanged."""
+        return _chunk_layouts(self)
+
+    @property
+    def chunk_offsets(self) -> Tuple[int, ...]:
+        """Element offset of each chunk in the monolithic flat buffer."""
+        lay = self.layout
+        return tuple(lay.offsets[b] if b < lay.n_leaves else lay.padded_size
+                     for b in self.bounds[:-1])
+
+    @property
+    def chunk_sizes(self) -> Tuple[int, ...]:
+        """Padded element count of each chunk."""
+        return tuple(l.padded_size for l in self.chunk_layouts)
+
+    def split(self, flat: torch.Tensor):
+        """Flat buffer -> the per-chunk VIEWS (no copies: writing into a
+        chunk writes the buffer).  Splits the last dim, so a stacked ``(n,
+        Dp)`` buffer gives ``(n, Dp_c)`` views."""
+        return [flat[..., off:off + sz] for off, sz in zip(self.chunk_offsets, self.chunk_sizes)]
+
+    def chunk_keys(self, keys: torch.Tensor, c: int) -> torch.Tensor:
+        """Chunk ``c``'s slice of the MONOLITHIC per-leaf key schedule
+        ``split(key, n_leaves)``: chunking never re-splits keys."""
+        return keys[self.bounds[c]:self.bounds[c + 1]]
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_layouts(sched: ChunkedSchedule) -> Tuple[BucketLayout, ...]:
+    lay = sched.layout
+    outs = []
+    for b0, b1 in zip(sched.bounds[:-1], sched.bounds[1:]):
+        base = lay.offsets[b0] if b0 < lay.n_leaves else lay.padded_size
+        outs.append(BucketLayout(paths=lay.paths[b0:b1], shapes=lay.shapes[b0:b1],
+                                 dtypes=lay.dtypes[b0:b1], sizes=lay.sizes[b0:b1],
+                                 padded_sizes=lay.padded_sizes[b0:b1],
+                                 offsets=tuple(o - base for o in lay.offsets[b0:b1]),
+                                 align=lay.align))
+    return tuple(outs)
+
+
+@dataclass(frozen=True)
 class GroupedBucketLayout:
     """One :class:`BucketLayout` per compression-policy group
     (``repro/core/bucket.py:254``): ``names`` are the group names (the keys
@@ -145,6 +230,7 @@ class BucketedCompressor(Compressor):
         self.layout = layout
         self.name = f"bucketed:{base.name}"
         self.carries_state = base.carries_state
+        self.fused_downlink_input = base.fused_downlink_input
 
     def compress(self, delta: torch.Tensor, key: torch.Tensor, *,
                  out: Optional[Payload] = None) -> Payload:
@@ -181,6 +267,9 @@ class BucketedCompressor(Compressor):
 
     def compress_input_(self, g, h):
         return self.base.compress_input_(g, h)
+
+    def compress_input_scaled(self, total, scale, h):
+        return self.base.compress_input_scaled(total, scale, h)
 
     def next_memory(self, h, dhat, delta):
         return self.base.next_memory_bucketed(self.layout, h, dhat, delta)
@@ -330,11 +419,8 @@ def verify_checksum(wire: torch.Tensor):
 
 
 def checksum_tail_bits_per_dim(layout: BucketLayout, chunk_bytes: int = 0) -> float:
-    """Wire bits per coordinate of the checksum tail when faults are armed
-    (``:388``): one 8-byte tail per wire buffer, and the monolithic wire is
-    one buffer (the chunked schedule, one tail per chunk, is a later
-    slice)."""
-    if chunk_bytes:
-        raise NotImplementedError("the chunked wire (chunk_bytes > 0) is ROADMAP.md queue 1 "
-                                  "item 6")
-    return CHECKSUM_BYTES * 8.0 / max(layout.size, 1)
+    """Wire bits per coordinate of the checksum tails when faults are armed
+    (``:388``): one 8-byte tail per wire buffer, that is one per chunk of the
+    :class:`ChunkedSchedule` (the monolithic wire is one chunk)."""
+    n_chunks = ChunkedSchedule.for_layout(layout, chunk_bytes).n_chunks
+    return CHECKSUM_BYTES * 8.0 * n_chunks / max(layout.size, 1)

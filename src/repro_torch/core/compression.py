@@ -2,8 +2,8 @@
 
 The port's copy of ``repro.core.compression.CompressionConfig`` with the
 fields the flat (uniform) round reads, VR-DIANA's, the compressed
-downlink's and elastic participation's included.  The chunked/hierarchical
-schedules are a later slice (ROADMAP.md queue 1 item 6).
+downlink's, elastic participation's and the wire schedule's (chunks and the
+two-level topology) included.
 """
 
 from __future__ import annotations
@@ -45,7 +45,15 @@ class CompressionConfig:
     down_bucketed: the downlink's layout (None: follows ``bucketed``)
     participation: elastic participation
                 (:class:`~repro_torch.core.participation.ParticipationSpec`):
-                None or a trivial spec keep the all-workers round"""
+                None or a trivial spec keep the all-workers round
+    chunk_bytes: target bytes (of padded f32 buffer) per chunk of the bucketed
+                wire (:class:`~repro_torch.core.bucket.ChunkedSchedule`):
+                chunk i+1's gather is issued before chunk i's decode; 0 keeps
+                the one-chunk wire.  Bitwise either way; bucketed only
+    topology:   ``"flat"`` or ``"hierarchical"`` (an uncompressed mean over
+                ``node_size`` workers, then the compressed exchange between
+                nodes, with one memory per node).  Bucketed only
+    node_size:  workers per node under ``"hierarchical"`` (divides n; 1 is flat)"""
 
     method: str = "diana"
     p: float = math.inf
@@ -60,6 +68,9 @@ class CompressionConfig:
     down_k: Optional[int] = None
     down_bucketed: Optional[bool] = None
     participation: Optional[ParticipationSpec] = None
+    chunk_bytes: int = 0
+    topology: str = "flat"
+    node_size: int = 1
 
     def __post_init__(self):
         canonical_name(self.method)  # raises on unknown methods
@@ -72,6 +83,16 @@ class CompressionConfig:
         if self.participation is not None and not isinstance(self.participation,
                                                              ParticipationSpec):
             raise TypeError("participation must be a ParticipationSpec")
+        if self.chunk_bytes < 0:
+            raise ValueError(f"chunk_bytes must be >= 0, got {self.chunk_bytes}")
+        if self.topology not in ("flat", "hierarchical"):
+            raise ValueError(
+                f"topology must be 'flat' or 'hierarchical', got {self.topology!r}")
+        if self.node_size < 1:
+            raise ValueError(f"node_size must be >= 1, got {self.node_size}")
+        if self.topology == "hierarchical" and not self.bucketed:
+            raise ValueError("topology='hierarchical' requires bucketed=True "
+                             "(the two-level round runs on the fused wire)")
 
     def make(self):
         """The configured compressor (memoized: compressors are stateless)."""
@@ -82,7 +103,8 @@ class CompressionConfig:
         the same factory, ``down_k`` / ``down_bucketed`` defaulting to the
         uplink's ``k`` / layout, never VR (a worker-side transform) and never
         participation (the broadcast reaches every worker; a degraded step
-        freezes ``h_down`` at the caller)."""
+        freezes ``h_down`` at the caller).  The broadcast chunks as the uplink
+        does; the topology is an uplink concern and resets to flat."""
         if self.down_method is None:
             return None
         return replace(self, method=self.down_method,
@@ -90,7 +112,7 @@ class CompressionConfig:
                        bucketed=self.bucketed if self.down_bucketed is None
                        else self.down_bucketed,
                        down_method=None, down_k=None, down_bucketed=None, vr=False, vr_p=None,
-                       participation=None)
+                       participation=None, topology="flat", node_size=1)
 
 
 @functools.lru_cache(maxsize=None)

@@ -125,6 +125,12 @@ class Compressor:
     # The payload IS the dense vector and no state is kept: the distributed
     # round all-reduces instead of gather + decode (identity).
     prefers_allreduce: bool = False
+    # Under a compressed downlink the jitted reference contracts this
+    # operator's elastic direction ``total * scale`` into the downlink's
+    # input, one FMA across the two rounds (top-k EF: measured against
+    # jitted JAX rounds in tests/test_torch_elastic_reference.py; XLA keeps
+    # identity's two roundings).  See :meth:`compress_input_scaled`.
+    fused_downlink_input: bool = False
 
     # ---------------------------------------------------------------- wire
 
@@ -170,6 +176,16 @@ class Compressor:
         """:meth:`compress_input` computed in place in ``g`` (the trainer's
         gradient buffer): the same bits, no model-sized temporary."""
         return g.sub_(h) if self.carries_state else g
+
+    def compress_input_scaled(self, total: torch.Tensor, scale: float,
+                              h: torch.Tensor) -> torch.Tensor:
+        """``compress_input(total * scale, h)`` with the product contracted
+        into the memory term, one rounding: ``fma(scale, total, -h)`` for
+        the alpha rule (what a downlink encodes after an uplink whose
+        direction XLA leaves unrounded, :attr:`fused_downlink_input`)."""
+        if not self.carries_state:
+            return total * scale
+        return fma32(scale, total, -h)
 
     def next_memory(self, h: torch.Tensor, dhat: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
         """Worker memory update ``h_i + alpha * dhat_i`` (one rounding, as jitted)."""

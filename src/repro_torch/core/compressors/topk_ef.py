@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..numerics import fma32
 from .base import Payload
 from .sparse import SparseCompressor, top_k_indices
 
@@ -33,6 +34,7 @@ __all__ = ["TopKEFCompressor"]
 class TopKEFCompressor(SparseCompressor):
     name = "topk_ef"
     carries_state = True  # the EF residual
+    fused_downlink_input = True
 
     def _select(self, x: torch.Tensor, kk: int, key: torch.Tensor) -> torch.Tensor:
         del key  # deterministic selection
@@ -61,6 +63,10 @@ class TopKEFCompressor(SparseCompressor):
 
     def compress_input_(self, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return g.add_(h)
+
+    def compress_input_scaled(self, total: torch.Tensor, scale: float,
+                              h: torch.Tensor) -> torch.Tensor:
+        return fma32(scale, total, h)
 
     def next_memory(self, h: torch.Tensor, dhat: torch.Tensor,
                     delta: torch.Tensor) -> torch.Tensor:

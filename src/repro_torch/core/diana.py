@@ -66,10 +66,30 @@ fault plan (``faults``, bucketed flat configs only) puts each fused payload
 on the checksummed wire (:func:`~repro_torch.core.bucket.add_checksum`) and
 excludes the payloads whose checksum fails, as if their workers had left.
 
+The wire schedule (``chunk_bytes``, ``topology``, ``node_size``; bucketed
+layouts only).  With ``chunk_bytes > 0`` the flat buffer splits into
+whole-leaf chunks (:class:`~repro_torch.core.bucket.ChunkedSchedule`): each
+worker compresses chunk ``c`` with chunk ``c``'s slice of its monolithic
+per-leaf keys, its own decode is the chunks' decodes joined, and the server
+decodes chunk by chunk against that chunk's slice of ``h_server``;
+distributed, chunk ``c+1``'s all-gather is issued (``async_op=True``) before
+chunk ``c``'s decode, which waits on chunk ``c``'s gather alone.  Every
+recurrence is per coordinate, so the chunked round is bitwise the monolithic
+one.  :data:`CHUNK_FOLD` stays unused: the JAX package feeds it only to its
+compiled-TPU in-kernel-PRNG encodes, which draw one stream per launch and are
+equal to the monolithic round in distribution only; the port's
+in-kernel-PRNG encodes draw the per-segment streams of the plain route, so
+chunk keys are slices of the monolithic schedule and chunked equals
+monolithic bit for bit on the card too.  With ``topology="hierarchical"``
+the round is two-level: each node's ``node_size`` workers average their flat
+f32 gradients uncompressed, in worker order (:func:`_ordered_node_sum`),
+then one compressed round runs between the nodes, node ``b`` keyed
+``fold_in(key, b)`` and holding one memory row, which each of its workers
+stores.  It composes with neither participation, faults nor VR, and a
+grouped policy keeps the flat topology.
+
 Trees are ``{path: tensor}`` dicts (:mod:`repro_torch.core.tree`); stacked
-per-worker grads carry a leading worker axis on every leaf.  The
-chunked/hierarchical schedules are a later slice (ROADMAP.md queue 1 item
-6).
+per-worker grads carry a leading worker axis on every leaf.
 """
 
 from __future__ import annotations
@@ -81,14 +101,16 @@ import torch.distributed as dist
 
 from . import prng
 from . import tree as T
-from .bucket import (BucketLayout, add_checksum, bucketed_compressor, fuse_payload,
-                     payload_recipe, unfuse_payload, verify_checksum, wire_roundtrip)
+from .bucket import (BucketLayout, ChunkedSchedule, add_checksum, bucketed_compressor,
+                     fuse_payload, payload_recipe, unfuse_payload, verify_checksum,
+                     wire_roundtrip)
 from .compression import CompressionConfig
 from .compressors.base import Payload
 from .numerics import div_n, fma32
 from .participation import (PART_FOLD, ParticipationSpec, apply_faults, direction_scale,
                             step_ctx)
 from .policy import CompressionPolicy, partition_for
+from .telemetry import measure
 from .vr import control_variate, init_vr, reference_coins, refresh, vr_coin
 
 __all__ = [
@@ -100,8 +122,9 @@ __all__ = [
 
 # The JAX package's fold constants (repro/core/diana.py:79-98): the downlink
 # stream, per-group streams of grouped policies (folded after the worker
-# fold, and never by a uniform policy), and the chunked wire's
-# in-kernel-PRNG chunk streams (a later slice).
+# fold, and never by a uniform policy), and the JAX package's chunk streams
+# for its compiled-TPU in-kernel-PRNG encodes, which the port never draws
+# (see the module docstring).
 DOWN_FOLD = 0x444E  # 'DN'
 GROUP_FOLD = 0x4750  # 'GP'
 CHUNK_FOLD = 0x434B  # 'CK'
@@ -322,7 +345,7 @@ def _participant_gate(part, valid=None) -> torch.Tensor:
 
 
 def _masked_server_tail(comp, h_f: torch.Tensor, total: torch.Tensor, n: int, part,
-                        m_eff: torch.Tensor, inplace: bool = False):
+                        m_eff: torch.Tensor, inplace: bool = False, defer: bool = False):
     """The sampled-sum server tail on ONE flat f32 buffer (``:167``):
     ``ghat = server_direction(h, total * scale)`` with the rescale of the
     effective set ``m_eff`` (as the jitted reference rounds it,
@@ -330,29 +353,186 @@ def _masked_server_tail(comp, h_f: torch.Tensor, total: torch.Tensor, n: int, pa
     ``h_server`` advanced with the unrescaled ``total / n``, both frozen
     (``ghat = 0``) on a degraded step.  ``inplace`` lets a memoryless
     operator scale ``total`` in place (the in-turn trainer's buffer; the
-    same bits)."""
+    same bits).  Returns ``(ghat, new_h, scale)``: ``scale`` is None unless
+    ``defer`` (a downlink follows) and the operator's direction feeds the
+    downlink's input unrounded
+    (:attr:`~repro_torch.core.compressors.base.Compressor.fused_downlink_input`,
+    top-k EF), when ``ghat`` is ``total`` itself and the direction is
+    ``total * scale``: the caller hands ``scale`` to :func:`downlink_round`,
+    which contracts the product into its input in one rounding, as the
+    jitted reference does."""
     if not part.ok:
-        return torch.zeros_like(h_f), h_f
+        return torch.zeros_like(h_f), h_f, None
     scale = float(direction_scale(part.spec, m_eff, part.ok))
+    if defer and comp.fused_downlink_input:
+        return total, comp.next_server_memory(h_f, div_n(total, n)), scale
     if not comp.carries_state:
-        return comp.server_direction(h_f, total.mul_(scale) if inplace else total * scale), h_f
+        return (comp.server_direction(h_f, total.mul_(scale) if inplace else total * scale), h_f,
+                None)
     return (comp.scaled_direction(h_f, total, scale),
-            comp.next_server_memory(h_f, div_n(total, n)))
+            comp.next_server_memory(h_f, div_n(total, n)), None)
 
 
-def _wire_exchange(payload: Payload, faults, step: int, widx: int):
+def _wire_exchange(payload: Payload, faults, step: int, widx: int, byte_offset: int = 0,
+                   body_total: Optional[int] = None):
     """One worker's payload on the checksummed wire (``:675-681``): fused
     into one uint8 buffer, the checksum appended, this worker's scheduled
-    faults injected.  Returns ``(wire, fused shape, recipe)``."""
+    faults injected.  A chunk's wire passes its ``byte_offset`` into the
+    round's concatenated body and the ``body_total`` (``_chunk_wire_meta``,
+    ``:694``).  Returns ``(wire, fused shape, recipe)``."""
     buf = fuse_payload(payload)
-    wire = apply_faults(add_checksum(buf), faults, step, widx)
+    wire = apply_faults(add_checksum(buf), faults, step, widx, byte_offset=byte_offset,
+                        body_total=body_total)
     return wire, tuple(buf.shape), payload_recipe(payload)
+
+
+def _chunk_wire_meta(pays):
+    """Each chunk payload's byte offset into the round's concatenated wire
+    body, and the body's total (``:694``): the window a corrupt event maps
+    through, so it lands in exactly one chunk."""
+    offs, acc = [], 0
+    for pay in pays:
+        offs.append(acc)
+        acc += sum(f.numel() * f.element_size() for f in pay if f is not None)
+    return offs, acc
+
+
+# ---------------------------------------------------------------------------
+# The wire schedule: chunks and the two-level topology (:499-587)
+# ---------------------------------------------------------------------------
+
+def _hier_node_size(cfg) -> int:
+    """The active node size: > 1 exactly when the two-level round runs."""
+    return cfg.node_size if cfg.topology == "hierarchical" else 1
+
+
+def _node_scale(acc: torch.Tensor, s: int) -> torch.Tensor:
+    """The node sum's ``/ s`` as the jitted JAX round computes it: XLA
+    rewrites the division by a constant into ``acc * f32(1/s)``, which
+    torch's CUDA division by a Python scalar also does, and its CPU one does
+    not; so the port multiplies by the rounded reciprocal explicitly, the
+    same bits on every device (exact for s a power of two)."""
+    return acc.mul_(float(torch.tensor(1.0 / s, dtype=torch.float32)))
+
+
+def _ordered_node_sum(rows, s: int) -> torch.Tensor:
+    """The ascending f32 sum over one node's ``s`` > 1 worker rows, then
+    ``/ s`` (``:519``): an explicit recurrence, never the backend's
+    reduction."""
+    acc = rows[0] + rows[1]
+    for i in range(2, s):
+        acc = acc + rows[i]
+    return _node_scale(acc, s)
+
+
+def _node_pool_tree(grads_per_worker, node_size: int):
+    """Stacked per-worker grads ``(n, ...)`` -> per-node means ``(n / s,
+    ...)`` in f32 with :func:`_ordered_node_sum` per leaf (``:541``)."""
+    out = {}
+    for p, x in grads_per_worker.items():
+        xr = x.float().reshape(-1, node_size, *x.shape[1:])
+        out[p] = _ordered_node_sum([xr[:, i] for i in range(node_size)], node_size)
+    return out
+
+
+def _check_topology(policy, cfg, pspec, faults, vr, n: int) -> None:
+    """The two-level round's gates (``:1012-1030``, ``:1402-1418``): flat
+    configs only, no participation, faults or VR, and ``node_size`` divides
+    the worker count.  (The JAX package asserts the last three; the port
+    raises ``ValueError``, as for its other assertions.)"""
+    if policy is not None and policy.topology == "hierarchical":
+        raise NotImplementedError("hierarchical topology runs only on flat (uniform) bucketed "
+                                  "configs: grouped policies keep topology='flat'")
+    if cfg is None or _hier_node_size(cfg) == 1:
+        return
+    if pspec is not None or faults is not None or vr is not None:
+        raise ValueError("topology='hierarchical' composes with neither participation/faults "
+                         "nor VR")
+    if n % cfg.node_size:
+        raise ValueError(f"node_size={cfg.node_size} must divide n_workers={n}")
+
+
+def _chunk_payloads(cfg, sched: ChunkedSchedule, delta: torch.Tensor, key: torch.Tensor,
+                    outs=None):
+    """One worker's delta buffer compressed chunk by chunk (``:560``), chunk
+    ``c`` with its slice of the monolithic keys ``split(key, n_leaves)``, so
+    every leaf draws its monolithic bits; into ``outs[c]`` (a row of chunk
+    ``c``'s stacked buffer) when given."""
+    base = cfg.make()
+    keys = prng.split(key, sched.layout.n_leaves)
+    return [base.compress_bucketed_keys(cl, dseg, sched.chunk_keys(keys, c),
+                                        out=None if outs is None else outs[c])
+            for c, (cl, dseg) in enumerate(zip(sched.chunk_layouts, sched.split(delta)))]
+
+
+def _chunk_decode_own(cfg, sched: ChunkedSchedule, pays) -> torch.Tensor:
+    """A worker's own ``dhat`` over the whole buffer: the chunks' decodes
+    written side by side into one ``(Dp,)`` buffer (``:578``; per
+    coordinate, so bitwise the monolithic decode)."""
+    dhat = views = None
+    for c, (cl, pay) in enumerate(zip(sched.chunk_layouts, pays)):
+        d = bucketed_compressor(cfg, cl).decode(pay, cl.padded_size)
+        if dhat is None:
+            dhat = torch.empty(sched.layout.padded_size, dtype=d.dtype, device=d.device)
+            views = sched.split(dhat)
+        views[c].copy_(d)
+        del d
+    return dhat
+
+
+def _server_chunks(cfg, sched: ChunkedSchedule, take, n: int, h_server=None, *, mask=None,
+                   hs_out=None):
+    """The server side of a bucketed round, chunk by chunk (``:578``,
+    ``:707``): ``take(c)`` hands over chunk ``c``'s stacked payload just
+    before its decode (the distributed round's waits on that chunk's
+    gather).  Without ``mask``, ``decode_sum_apply`` against each chunk's
+    slice of ``h_server``; returns ``(ghat, new h_server)``, the memory
+    written into ``hs_out`` when given (the trainer's held buffer; a chunk's
+    slice once that chunk is decoded).  With ``mask`` (the (n,) effective
+    rows), the masked ``decode_sum``, the other rows zeroed in place in the
+    stacked payload; returns the sum.  One chunk returns the kernel's
+    outputs as they are; more write their slices of ``(Dp,)`` buffers."""
+    hs_in = None if mask is not None else sched.split(h_server)
+    outs = None
+    for c, cl in enumerate(sched.chunk_layouts):
+        comp = bucketed_compressor(cfg, cl)
+        st = take(c)
+        if mask is None:
+            res = comp.decode_sum_apply(st, n, cl.padded_size, hs_in[c])
+        else:
+            res = (comp.decode_sum(st.mask_workers_(mask), n, cl.padded_size),)
+        del st
+        if sched.n_chunks == 1:
+            outs = list(res)
+        else:
+            if outs is None:
+                outs = [torch.empty(sched.layout.padded_size, dtype=r.dtype, device=r.device)
+                        for r in res]
+                if hs_out is not None:
+                    outs[1] = hs_out
+            for o, r in zip(outs, res):
+                sched.split(o)[c].copy_(r)
+        del res
+    if mask is not None:
+        return outs[0]
+    if hs_out is not None and outs[1] is not hs_out:
+        hs_out.copy_(outs[1])
+        outs[1] = hs_out
+    return outs[0], outs[1]
+
+
+def _taker(items: list):
+    """``take(c)`` over a list that drops each item as it is handed over."""
+    def take(c):
+        item, items[c] = items[c], None
+        return item
+    return take
 
 
 def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: ReferenceState,
                    key: torch.Tensor, cfg, *, beta: float = 0.0,
                    vr_aux=None, params=None, vr_force_refresh: bool = False,
-                   step: Optional[int] = None, faults=None):
+                   step: Optional[int] = None, faults=None, telemetry: bool = False):
     """Aggregate stacked per-worker grads ``{path: (n, *shape)}`` exactly as
     Algorithm 1; returns ``(v, new_state)`` with ``v = beta * v + ghat``.
 
@@ -371,10 +551,16 @@ def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: Referenc
     the scheduled mask and a degraded step freezes ``h_down`` and zeroes
     ``ghat``.  ``faults`` (a
     :class:`~repro_torch.core.participation.FaultPlan`, flat bucketed
-    configs only) puts each worker's payload on the checksummed wire."""
+    configs only) puts each worker's payload on the checksummed wire.
+
+    ``telemetry=True`` returns ``(v, new_state, telem)``, ``telem`` the
+    :class:`~repro_torch.core.telemetry.GroupTelemetry` of the served f32
+    direction (after the downlink, before the momentum): a pure observer,
+    ``v`` and the state are the same bits."""
     n = next(iter(grads_per_worker.values())).shape[0]
     part = step_part(cfg, faults, prng.fold_in(key, PART_FOLD), n, step)
     policy, cfg = _split_spec(cfg)
+    _check_topology(policy, cfg, _resolve_participation(policy, cfg), faults, state.vr, n)
     new_vr = state.vr
     if state.vr is not None:
         vr_p = policy.vr_p if policy is not None else cfg.vr_p
@@ -390,13 +576,15 @@ def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: Referenc
         ghat, new_hw, new_hs, new_h_down = _reference_grouped(grads_per_worker, state, key,
                                                               policy, part)
     else:
+        defer = state.h_down is not None
         if cfg.bucketed:
-            ghat, new_hw, new_hs = _reference_agg_bucketed(
+            ghat, new_hw, new_hs, scale = _reference_agg_bucketed(
                 grads_per_worker, state.h_worker, state.h_server, key, cfg, part=part,
-                faults=faults, step=step)
+                faults=faults, step=step, defer=defer)
         else:
-            ghat, new_hw, new_hs = _reference_agg_perleaf(
-                grads_per_worker, state.h_worker, state.h_server, key, cfg, part=part)
+            ghat, new_hw, new_hs, scale = _reference_agg_perleaf(
+                grads_per_worker, state.h_worker, state.h_server, key, cfg, part=part,
+                defer=defer)
         new_h_down = None
         if state.h_down is not None:
             # _reference_finish's downlink (:1605-1626): the distributed path's
@@ -404,12 +592,15 @@ def reference_step(grads_per_worker: Mapping[str, torch.Tensor], state: Referenc
             ghat, new_h_down = _frozen_downlink(
                 part, state.h_down, ghat,
                 lambda: downlink_round(ghat, state.h_down, prng.fold_in(key, DOWN_FOLD), cfg,
-                                       h_dtype=torch.float32))
+                                       h_dtype=torch.float32, scale=scale))
     # The momentum accumulate as one FMA: XLA contracts it so for most
     # leaves (beta = 0 makes the choice moot).
     v = {p: fma32(beta, state.v[p], ghat[p]) for p in ghat}
-    return v, ReferenceState(h_worker=new_hw, h_server=new_hs, v=v, vr=new_vr,
-                             h_down=new_h_down)
+    new_state = ReferenceState(h_worker=new_hw, h_server=new_hs, v=v, vr=new_vr,
+                               h_down=new_h_down)
+    if telemetry:
+        return v, new_state, measure(policy, ghat, ok=None if part is None else part.ok)
+    return v, new_state
 
 
 def _frozen_downlink(part, h_down, ghat, run):
@@ -437,30 +628,33 @@ def _reference_grouped(grads_per_worker, state, key, policy: CompressionPolicy, 
         cfg_g, dcfg = groups.configs[g], groups.down_configs[g]
         hw, hs = state.h_worker[gname], state.h_server[gname]
         if cfg_g.bucketed:
-            ghat_g, new_hw[gname], new_hs[gname] = _reference_agg_bucketed(
-                grads, hw, hs, key, cfg_g, gfold=GROUP_FOLD + g, part=part)
+            ghat_g, new_hw[gname], new_hs[gname], scale = _reference_agg_bucketed(
+                grads, hw, hs, key, cfg_g, gfold=GROUP_FOLD + g, part=part,
+                defer=dcfg is not None)
         else:
-            ghat_g, hw_d, hs_d = _reference_agg_perleaf(
+            ghat_g, hw_d, hs_d, scale = _reference_agg_perleaf(
                 grads, dict(zip(paths, hw)), dict(zip(paths, hs)), key, cfg_g,
-                gfold=GROUP_FOLD + g, part=part)
+                gfold=GROUP_FOLD + g, part=part, defer=dcfg is not None)
             new_hw[gname], new_hs[gname] = [hw_d[p] for p in paths], [hs_d[p] for p in paths]
         if dcfg is not None:
             dkey = prng.fold_in(prng.fold_in(key, DOWN_FOLD), GROUP_FOLD + g)
             ghat_g, new_hd[gname] = _frozen_downlink(
                 part, state.h_down[gname], ghat_g,
                 lambda: _group_downlink(ghat_g, state.h_down[gname], dkey, cfg_g, dcfg,
-                                        torch.float32))
+                                        torch.float32, scale))
         ghat.append(ghat_g)
     return groups.merge(ghat), new_hw, new_hs, (new_hd or None)
 
 
-def _group_downlink(ghat_g, h_down_g, down_key, cfg_g, dcfg, h_dtype):
-    """A group's downlink round; a grouped state's per-leaf downlink memory
-    is a list in the group's leaf order (a flat state's, a dict)."""
+def _group_downlink(ghat_g, h_down_g, down_key, cfg_g, dcfg, h_dtype, scale=None):
+    """A group's downlink round (``scale`` the round's deferred one); a
+    grouped state's per-leaf downlink memory is a list in the group's leaf
+    order (a flat state's, a dict)."""
     if dcfg.bucketed or isinstance(h_down_g, Mapping):
-        return downlink_round(ghat_g, h_down_g, down_key, cfg_g, h_dtype=h_dtype, dcfg=dcfg)
+        return downlink_round(ghat_g, h_down_g, down_key, cfg_g, h_dtype=h_dtype, dcfg=dcfg,
+                              scale=scale)
     out, new_h = downlink_round(ghat_g, dict(zip(T.paths(ghat_g), h_down_g)), down_key, cfg_g,
-                                h_dtype=h_dtype, dcfg=dcfg)
+                                h_dtype=h_dtype, dcfg=dcfg, scale=scale)
     return out, [new_h[p] for p in T.paths(ghat_g)]
 
 
@@ -470,7 +664,7 @@ def _group_downlink(ghat_g, h_down_g, down_key, cfg_g, dcfg, h_dtype):
 
 def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Tensor,
                    cfg: CompressionConfig, *, h_dtype=None,
-                   dcfg: Optional[CompressionConfig] = None):
+                   dcfg: Optional[CompressionConfig] = None, scale: Optional[float] = None):
     """Pass the aggregated direction ``ghat`` (f32 leaves) through the
     DOWNLINK operator (``repro/core/diana.py:802-888``): the server encodes
     ``delta = compress_input(ghat, h_down)``, every receiver decodes the
@@ -481,9 +675,15 @@ def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Ten
 
     The layout is the downlink's own (``cfg.down_config().bucketed``): ONE
     compress of the flat buffer keyed ``down_key``, its payload through
-    :func:`~repro_torch.core.bucket.wire_roundtrip`; or per leaf, leaf ``i``
+    :func:`~repro_torch.core.bucket.wire_roundtrip` (with ``chunk_bytes``,
+    chunk by chunk, each chunk its own wire object); or per leaf, leaf ``i``
     keyed ``split(down_key, n_leaves)[i]``, payloads unfused.  ``down_key``
     is the step key folded with :data:`DOWN_FOLD` before any worker fold.
+
+    With ``scale`` (an elastic top-k EF uplink's deferred one,
+    :func:`_masked_server_tail`) ``ghat`` holds the participant sums and the
+    direction is ``ghat * scale``: the server encodes
+    ``compress_input_scaled(ghat, scale, h_down)``, one rounding.
 
     Returns ``(ghat_hat, new_h_down)``, ``ghat_hat`` shaped and typed like
     ``ghat`` and the memory in ``h_dtype`` (default ``cfg.h_dtype``).
@@ -499,10 +699,20 @@ def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Ten
         h = h_down.float()
         # compress_input computed in the freshly flattened buffer (the same
         # bits as g - h, or g + h for error feedback)
-        delta = comp.compress_input_(layout.flatten(ghat), h)
-        pay = wire_roundtrip(comp.compress(delta, down_key))
-        dhat = comp.decode(pay, layout.padded_size)
-        del pay
+        if scale is None:
+            delta = comp.compress_input_(layout.flatten(ghat), h)
+        else:
+            delta = comp.compress_input_scaled(layout.flatten(ghat), scale, h)
+        sched = ChunkedSchedule.for_layout(layout, dcfg.chunk_bytes)
+        if sched.n_chunks > 1:
+            # the chunked broadcast (:841-849): each chunk its own wire object
+            pays = [wire_roundtrip(p) for p in _chunk_payloads(dcfg, sched, delta, down_key)]
+            dhat = _chunk_decode_own(dcfg, sched, pays)
+            del pays
+        else:
+            pay = wire_roundtrip(comp.compress(delta, down_key))
+            dhat = comp.decode(pay, layout.padded_size)
+            del pay
         new_h = comp.next_memory(h, dhat, delta).to(h_dtype)
         del delta
         return layout.unflatten(comp.server_direction(h, dhat), cast=True), new_h
@@ -511,7 +721,8 @@ def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Ten
     ghat_hat, new_h = {}, {}
     for p, k in zip(paths, prng.split(down_key, len(paths))):
         g, h = ghat[p].reshape(-1).float(), h_down[p].float()
-        delta = comp.compress_input(g, h)
+        delta = (comp.compress_input(g, h) if scale is None
+                 else comp.compress_input_scaled(g, scale, h))
         dhat = comp.decode(comp.compress(delta, k), g.numel())
         ghat_hat[p] = comp.server_direction(h, dhat).reshape(ghat[p].shape).to(ghat[p].dtype)
         new_h[p] = comp.next_memory(h, dhat, delta).to(h_dtype)
@@ -519,13 +730,14 @@ def downlink_round(ghat: Mapping[str, torch.Tensor], h_down, down_key: torch.Ten
 
 
 def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg, gfold=None,
-                           part=None):
+                           part=None, defer=False):
     """Per-leaf round: each worker encodes every leaf with its own key
     (``split(_worker_key(key, w, gfold), n_leaves)``), the server runs one
     fused ``decode_sum_apply`` per leaf.  With a participation context
     (``:1526-1600``): rejoining rows reset first, the stacked rows masked
     before ``decode_sum``, :func:`_masked_server_tail`, and only the
-    :func:`_participant_gate` rows advance."""
+    :func:`_participant_gate` rows advance.  Returns ``(ghat, h_worker,
+    h_server, scale)``, ``scale`` the tail's deferred one (or None)."""
     comp = cfg.make()
     paths = T.paths(grads_per_worker)
     n = grads_per_worker[paths[0]].shape[0]
@@ -543,73 +755,124 @@ def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg, gfold
             dhat = comp.decode(pay, g.numel())
             payloads[p].append(pay)
             new_hw[p].append(comp.next_memory(h, dhat, delta))
-    ghat, new_hs = {}, {}
+    ghat, new_hs, scale = {}, {}, None
     for p in paths:
         d = grads_per_worker[p].shape[1:].numel()
         stacked = Payload.stack(payloads[p])
         if part is None:
             g_flat, new_hs[p] = comp.decode_sum_apply(stacked, n, d, h_server[p])
         else:
-            g_flat, new_hs[p] = _masked_server_tail(
+            g_flat, new_hs[p], scale = _masked_server_tail(
                 comp, h_server[p].float(), comp.decode_sum(stacked.mask_workers(part.mask), n, d),
-                n, part, part.mask)
+                n, part, part.mask, defer=defer)
         ghat[p] = g_flat.reshape(grads_per_worker[p].shape[1:])
     new_hw = {p: torch.stack(rows) for p, rows in new_hw.items()}
     if part is not None:
         new_hw = _where_rows(_participant_gate(part), new_hw, h_worker)
-    return ghat, new_hw, new_hs
+    return ghat, new_hw, new_hs, scale
 
 
 def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg, gfold=None,
-                            part=None, faults=None, step=None):
+                            part=None, faults=None, step=None, defer=False):
     """Bucketed round: each worker ONE compress of the flattened model (or
     policy group) keyed ``_worker_key(key, w, gfold)``; ONE fused
     ``decode_sum_apply`` over the stacked payloads.  With a participation
-    context (``:1629-1760``, one chunk) the masked ``decode_sum`` and
+    context (``:1629-1760``) the masked ``decode_sum`` and
     :func:`_masked_server_tail` instead; with ``faults`` each worker's
     payload crosses the checksummed wire first (:func:`_wire_exchange`),
     and the payloads that fail verification are excluded like
-    non-participants, their bytes decoded as received."""
+    non-participants, their bytes decoded as received.
+
+    Chunked (``cfg.chunk_bytes``): each worker compresses chunk by chunk
+    (:func:`_chunk_payloads`), its own decode joins the chunks', and the
+    server decodes per chunk against that chunk's ``h_server`` slice; under
+    faults each chunk is its own checksummed wire, and a worker whose wire
+    fails in any chunk is excluded whole.  Hierarchical: the grads pool to
+    node means (:func:`_node_pool_tree`), the round runs over the nodes with
+    the leader rows (node ``b`` keyed ``fold_in(key, b)``), and each node
+    row is repeated over its workers."""
+    node_size = _hier_node_size(cfg)
+    if node_size > 1:
+        grads_per_worker = _node_pool_tree(grads_per_worker, node_size)
+        # the rows of a node are equal by construction: the leaders' rows
+        # are the node memories
+        h_worker = h_worker[::node_size]
     layout = bucket_layout(cfg, {p: g[0] for p, g in grads_per_worker.items()})
     comp = bucketed_compressor(cfg, layout)
     dp = layout.padded_size
     n = h_worker.shape[0]
+    sched = ChunkedSchedule.for_layout(layout, cfg.chunk_bytes)
+    chunked = sched.n_chunks > 1
     if part is not None:
         h_worker = _reinit_zero(part.reinit, h_worker)
-    payloads, new_h = [], []
+    payloads, new_h = [], []   # payloads[w]: the worker's list of chunk payloads
     for w in range(n):
         flat_g = layout.flatten({p: g[w] for p, g in grads_per_worker.items()})
         delta = comp.compress_input(flat_g, h_worker[w])
-        pay = comp.compress(delta, _worker_key(key, w, gfold))
-        payloads.append(pay)
-        new_h.append(comp.next_memory(h_worker[w], comp.decode(pay, dp), delta))
+        wkey = _worker_key(key, w, gfold)
+        if chunked:
+            pays = _chunk_payloads(cfg, sched, delta, wkey)
+            dhat = _chunk_decode_own(cfg, sched, pays)
+        else:
+            pays = [comp.compress(delta, wkey)]
+            dhat = comp.decode(pays[0], dp)
+        payloads.append(pays)
+        new_h.append(comp.next_memory(h_worker[w], dhat, delta))
+    new_h = torch.stack(new_h)
+    stacked = [Payload.stack([pays[c] for pays in payloads]) for c in range(sched.n_chunks)]
     if part is None:
-        ghat_flat, new_hs = comp.decode_sum_apply(Payload.stack(payloads), n, dp, h_server)
+        ghat_flat, new_hs = _server_chunks(cfg, sched, _taker(stacked), n, h_server)
+        if node_size > 1:
+            # every worker of a node stores the node's memory row
+            new_h = torch.repeat_interleave(new_h, node_size, dim=0)
         # f32 leaves, like the per-leaf reference
-        return layout.unflatten(ghat_flat, cast=False), torch.stack(new_h), new_hs
+        return layout.unflatten(ghat_flat, cast=False), new_h, new_hs, None
     valid = None
     if faults is not None:
-        # the receivers' view: every worker's wire, verified after the gather
-        wires = [_wire_exchange(pay, faults, step, w) for w, pay in enumerate(payloads)]
-        flat, valid = verify_checksum(torch.stack([wire for wire, _, _ in wires]))
-        _, shape, recipe = wires[0]
-        gathered = unfuse_payload(flat.reshape(n, *shape), recipe)
-    else:
-        gathered = Payload.stack(payloads)
+        # the receivers' view: every worker's wire per chunk, verified after
+        # the gather; a worker is excluded whole if any of its wires fails
+        offs, body_total = _chunk_wire_meta(payloads[0])
+        for c in range(sched.n_chunks):
+            wires = [_wire_exchange(pays[c], faults, step, w, offs[c],
+                                    body_total if chunked else None)
+                     for w, pays in enumerate(payloads)]
+            flat, v_c = verify_checksum(torch.stack([wire for wire, _, _ in wires]))
+            _, shape, recipe = wires[0]
+            stacked[c] = unfuse_payload(flat.reshape(n, *shape), recipe)
+            valid = v_c if valid is None else valid & v_c
     m_eff = part.mask if valid is None else part.mask & valid
-    total = comp.decode_sum(gathered.mask_workers(m_eff), n, dp)
-    ghat_flat, new_hs = _masked_server_tail(comp, h_server.float(), total, n, part, m_eff)
-    new_h = _where_rows(_participant_gate(part, valid), torch.stack(new_h), h_worker)
-    return layout.unflatten(ghat_flat, cast=False), new_h, new_hs
+    total = _server_chunks(cfg, sched, _taker(stacked), n, mask=m_eff)
+    ghat_flat, new_hs, scale = _masked_server_tail(comp, h_server.float(), total, n, part, m_eff,
+                                                   defer=defer)
+    new_h = _where_rows(_participant_gate(part, valid), new_h, h_worker)
+    return layout.unflatten(ghat_flat, cast=False), new_h, new_hs, scale
 
 
 # ---------------------------------------------------------------------------
 # Distributed aggregation (one worker per torch.distributed rank)
 # ---------------------------------------------------------------------------
 
-def _gather_field(a: torch.Tensor, n: int) -> torch.Tensor:
-    """All-gather ONE payload field over the ranks: ``(n, *a.shape)`` in rank
-    order (``repro/core/diana.py:311``, no groups).
+class _Pending:
+    """An issued all-gather and what its received bytes become: :meth:`wait`
+    blocks on the collective alone (for NCCL, it orders the compute stream
+    after it; the host does not synchronize) and returns the result.  The
+    output buffers stay alive until then."""
+
+    def __init__(self, works, result):
+        self.works, self.result = [w for w in works if w is not None], result
+
+    def wait(self):
+        for w in self.works:
+            w.wait()
+        self.works = []
+        return self.result()
+
+
+def _gather_field_async(a: torch.Tensor, n: int, group=None, async_op: bool = True) -> _Pending:
+    """Issue the all-gather of ONE payload field over the ranks of ``group``
+    (the default group when None): ``(n, *a.shape)`` in group-rank order
+    once waited on (``repro/core/diana.py:311``).  ``async_op=False`` runs
+    it in place (the one-collective rounds).
 
     The field travels as its bytes (``view(torch.uint8)``, exact), ``(lead,
     W)``, into ONE preallocated ``(n * lead, W)`` buffer viewed as ``(n,
@@ -617,8 +880,13 @@ def _gather_field(a: torch.Tensor, n: int) -> torch.Tensor:
     codes) crosses gloo and NCCL alike."""
     src = a.contiguous().view(torch.uint8).reshape(a.shape[0], -1)
     out = torch.empty((n * src.shape[0], src.shape[1]), dtype=torch.uint8, device=src.device)
-    dist.all_gather_into_tensor(out, src)
-    return out.view(n, *src.shape).view(a.dtype).reshape(n, *a.shape)
+    work = dist.all_gather_into_tensor(out, src, group=group, async_op=async_op)
+    return _Pending([work], lambda: out.view(n, *src.shape).view(a.dtype).reshape(n, *a.shape))
+
+
+def _gather_field(a: torch.Tensor, n: int, group=None) -> torch.Tensor:
+    """:func:`_gather_field_async` run in place."""
+    return _gather_field_async(a, n, group, async_op=False).wait()
 
 
 def _gather_payloads(payloads: Mapping[str, Payload], n: int):
@@ -641,21 +909,65 @@ def _gathered_mean(payloads, like, n: int, comp):
             for p, t in _gathered_sum(payloads, like, n, comp).items()}
 
 
-def _gather_fused(payload: Payload, n: int) -> Payload:
-    """All-gather ONE fused uint8 buffer instead of one collective per field
-    (``:474``): the populated fields byte-cast into one ``(lead, W)``
-    buffer (:func:`~repro_torch.core.bucket.fuse_payload`), gathered once,
-    split back locally.  One populated field is gathered as itself: it
-    already is one collective, and the fuse would only copy it."""
+def _gather_fused_async(payload: Payload, n: int, group=None, async_op: bool = True) -> _Pending:
+    """Issue the all-gather of ONE fused uint8 buffer instead of one
+    collective per field (``:474``): the populated fields byte-cast into one
+    ``(lead, W)`` buffer (:func:`~repro_torch.core.bucket.fuse_payload`),
+    gathered once, split back locally once waited on.  One populated field
+    is gathered as itself: it already is one collective, and the fuse would
+    only copy it."""
     populated = [i for i, f in enumerate(payload) if f is not None]
     if len(populated) == 1:
-        fields = [None] * len(Payload._fields)
-        fields[populated[0]] = _gather_field(payload[populated[0]], n)
-        return Payload(*fields)
-    return unfuse_payload(_gather_field(fuse_payload(payload), n), payload_recipe(payload))
+        pend = _gather_field_async(payload[populated[0]], n, group, async_op)
+
+        def one():
+            fields = [None] * len(Payload._fields)
+            fields[populated[0]] = pend.result()
+            return Payload(*fields)
+        return _Pending(pend.works, one)
+    recipe = payload_recipe(payload)
+    pend = _gather_field_async(fuse_payload(payload), n, group, async_op)
+    return _Pending(pend.works, lambda: unfuse_payload(pend.result(), recipe))
 
 
-def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None):
+def _gather_fused(payload: Payload, n: int, group=None) -> Payload:
+    """:func:`_gather_fused_async` run in place."""
+    return _gather_fused_async(payload, n, group, async_op=False).wait()
+
+
+_TOPOLOGY_GROUPS: dict = {}
+
+
+def _topology_groups(node_size: int):
+    """This rank's ``(intra-node group, inter-node group)`` of the default
+    group's ranks (``_node_groups`` / ``_internode_groups``, ``:502-516``):
+    node ``b`` is ranks ``b*s .. b*s + s - 1``; the inter-node group of
+    intra-node rank ``r`` holds rank ``r`` of every node, ascending, so its
+    gathered rows arrive in node order.  ``dist.new_group`` is collective:
+    every rank builds every group, in the same order, once per world."""
+    world = dist.group.WORLD
+    n, rank = dist.get_world_size(), dist.get_rank()
+    cached = _TOPOLOGY_GROUPS.get(node_size)
+    if cached is not None and cached[0] is world:
+        return cached[1]
+    nodes = [list(range(b * node_size, (b + 1) * node_size)) for b in range(n // node_size)]
+    intra = [dist.new_group(r) for r in nodes]
+    inter = [dist.new_group([b * node_size + r for b in range(n // node_size)])
+             for r in range(node_size)]
+    mine = (intra[rank // node_size], inter[rank % node_size])
+    _TOPOLOGY_GROUPS[node_size] = (world, mine)
+    return mine
+
+
+def _intranode_mean(g_flat: torch.Tensor, node_size: int, group) -> torch.Tensor:
+    """Level 1 of the two-level round (``:530``): the node's flat f32
+    gradients all-gathered over the intra-node group, then
+    :func:`_ordered_node_sum`, the same on every rank of the node."""
+    rows = _gather_field(g_flat[None], node_size, group)[:, 0]
+    return _ordered_node_sum([rows[i] for i in range(node_size)], node_size)
+
+
+def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None, defer=False):
     """The per-leaf Algorithm-1 round on this rank's leaves (``:381``): leaf
     ``i`` encodes with ``split(key, n_leaves)[i]``, each payload field is
     gathered on its own, and the server side is ``_gathered_mean``, then
@@ -675,7 +987,7 @@ def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None):
     payloads = {p: comp.compress(delta[p], k) for p, k in zip(paths, keys)}
     if part is not None:
         return _aggregate_local_masked(grads_local, g_flat, h_local, delta, payloads, h_server,
-                                       comp, cfg, n, part)
+                                       comp, cfg, n, part, defer)
     dhat_mean = _gathered_mean(payloads, g_flat, n, comp)
     ghat, new_hw, new_hs = {}, {}, {}
     for p in paths:
@@ -689,48 +1001,78 @@ def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None):
         hs = h_server[p].float()
         new_hs[p] = comp.next_server_memory(hs, dhat_mean[p]).to(cfg.h_dtype)
         ghat[p] = comp.server_direction(hs, dhat_mean[p]).reshape(grads_local[p].shape)
-    return ghat, new_hw, new_hs
+    return ghat, new_hw, new_hs, None
 
 
 def _aggregate_local_masked(grads_local, g_flat, h_local, delta, payloads, h_server, comp,
-                            cfg, n, part):
+                            cfg, n, part, defer=False):
     """:func:`_aggregate_local`'s sampled sum (``:446-470``): per-leaf
     payloads carry no checksum, so the effective set is the scheduled
     mask."""
     gathered = _gather_payloads(payloads, n)
     advance = part.m_own and part.ok
-    ghat, new_hw, new_hs = {}, {}, {}
+    ghat, new_hw, new_hs, scale = {}, {}, {}, None
     for p in T.paths(grads_local):
         total = comp.decode_sum(gathered.pop(p).mask_workers(part.mask), n, g_flat[p].numel())
-        g, hs = _masked_server_tail(comp, h_server[p].float(), total, n, part, part.mask)
+        g, hs, scale = _masked_server_tail(comp, h_server[p].float(), total, n, part, part.mask,
+                                           defer=defer)
         ghat[p] = g.reshape(grads_local[p].shape)
         new_hs[p] = hs.to(cfg.h_dtype)
         h = h_local[p]
         if comp.carries_state and advance:
             h = comp.next_memory(h, comp.decode(payloads[p], g_flat[p].numel()), delta[p])
         new_hw[p] = h.to(cfg.h_dtype)[None]
-    return ghat, new_hw, new_hs
+    return ghat, new_hw, new_hs, scale
 
 
 def _aggregate_bucketed(grads_local, h_worker, h_server, key, cfg, n, part=None, faults=None,
-                        step=None):
-    """Algorithm-1 round on the WHOLE model as one flat buffer (``:589``, one
-    chunk): ONE compress with the rank's key, its own decode for
-    ``next_memory`` on the rank's ``(1, Dp)`` row, ONE fused all-gather, ONE
+                        step=None, defer=False):
+    """Algorithm-1 round on the WHOLE model as one flat buffer (``:589``):
+    ONE compress with the rank's key, its own decode for ``next_memory`` on
+    the rank's ``(1, Dp)`` row, ONE fused all-gather, ONE
     ``decode_sum_apply`` over the ``n`` gathered rows, replicated on every
     rank.  ``ghat`` comes back f32.  With a participation context the masked
-    round (:func:`_aggregate_bucketed_masked`)."""
+    round (:func:`_aggregate_bucketed_masked`); with ``cfg.chunk_bytes``
+    the chunked wire (:func:`_chunked_wire`).
+
+    Hierarchical (``:613-636``): the flat gradient is first averaged over
+    the rank's node (:func:`_intranode_mean`), then the compressed round
+    runs over the inter-node group, ``n / node_size`` payloads in node
+    order.  The caller folds ``key`` with the node index."""
     layout = bucket_layout(cfg, grads_local)
     comp = bucketed_compressor(cfg, layout)
     dp = layout.padded_size
+    g_flat = layout.flatten(grads_local)
+    node_size = _hier_node_size(cfg)
+    n_eff, group = n, None
+    if node_size > 1:
+        intra, group = _topology_groups(node_size)
+        g_flat = _intranode_mean(g_flat, node_size, intra)
+        n_eff = n // node_size
     h_local = h_worker[0].float()
     if part is not None:
         h_local = _reinit_zero(part.reinit_own, h_local)
-    delta = comp.compress_input(layout.flatten(grads_local), h_local)
+    delta = comp.compress_input_(g_flat, h_local)
+    del g_flat
+    sched = ChunkedSchedule.for_layout(layout, cfg.chunk_bytes)
+    if sched.n_chunks > 1:
+        pays = _chunk_payloads(cfg, sched, delta, key)
+        if part is not None:
+            return _aggregate_bucketed_masked(layout, comp, h_local, delta, pays, h_server, cfg,
+                                              n_eff, part, faults, step, sched, defer)
+        # the memory once over the whole buffer ("only the wire is
+        # chunked"), and the input freed before the wire's buffers exist
+        new_hw = h_local.to(cfg.h_dtype)[None]
+        if comp.carries_state:
+            new_hw = comp.next_memory(h_local, _chunk_decode_own(cfg, sched, pays),
+                                      delta).to(cfg.h_dtype)[None]
+        del delta
+        ghat_flat, new_hs = _chunked_wire(cfg, sched, pays, h_server, n_eff, group)
+        return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype), None
     payload = comp.compress(delta, key)
     if part is not None:
-        return _aggregate_bucketed_masked(layout, comp, h_local, delta, payload, h_server, cfg,
-                                          n, part, faults, step)
+        return _aggregate_bucketed_masked(layout, comp, h_local, delta, [payload], h_server,
+                                          cfg, n, part, faults, step, sched, defer)
     # The memory update before the gather, so that the own decode and the
     # input are freed before the server tail allocates (the values are the
     # same in either order).
@@ -739,41 +1081,74 @@ def _aggregate_bucketed(grads_local, h_worker, h_server, key, cfg, n, part=None,
     else:
         new_hw = h_worker
     del delta
-    gathered = _gather_fused(payload, n)    # ONE collective
+    gathered = _gather_fused(payload, n_eff, group)    # ONE collective
     del payload
-    ghat_flat, new_hs = comp.decode_sum_apply(gathered, n, dp, h_server.float())
-    return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype)
+    ghat_flat, new_hs = comp.decode_sum_apply(gathered, n_eff, dp, h_server.float())
+    return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype), None
 
 
-def _aggregate_bucketed_masked(layout, comp, h_local, delta, payload, h_server, cfg, n, part,
-                               faults, step):
-    """The bucketed sampled-sum round (``:653-691``): with ``faults`` the
-    fused payload crosses the checksummed wire (:func:`_wire_exchange`, ONE
-    all-gather of the wires) and every rank verifies every wire; the
-    effective set is the scheduled mask AND the verdicts, and the rank's
-    row advances only if it participates, the step is not degraded and its
-    own wire verified (the verdict is the same on every rank)."""
+def _chunked_wire(cfg, sched, pays, h_server, n_eff, group):
+    """The chunked wire of :func:`_aggregate_bucketed` (``:707``), software
+    pipelined: chunk ``c+1``'s all-gather is issued before chunk ``c``'s
+    ``decode_sum_apply``, which waits on chunk ``c``'s gather alone and
+    writes its slice of ``ghat`` and ``h_server``.  ``pays`` (the rank's
+    chunk payloads) is consumed: each chunk is dropped once gathered.
+    Returns ``(ghat, new h_server)``, flat f32."""
+    pending = [_gather_fused_async(pays[0], n_eff, group)]
+
+    def take(c):
+        if c + 1 < sched.n_chunks:
+            pending.append(_gather_fused_async(pays[c + 1], n_eff, group))
+        gathered = pending[c].wait()
+        pending[c] = pays[c] = None
+        return gathered
+    return _server_chunks(cfg, sched, take, n_eff, h_server.float())
+
+
+def _aggregate_bucketed_masked(layout, comp, h_local, delta, pays, h_server, cfg, n, part,
+                               faults, step, sched, defer=False):
+    """The bucketed sampled-sum round (``:653-691``, chunked ``:749-800``):
+    ``pays`` holds one payload per chunk of ``sched``.  Every chunk's
+    gather is issued before any verify or decode.  With ``faults`` each
+    chunk's fused payload crosses the checksummed wire (:func:`_wire_exchange`,
+    one all-gather of the wires per chunk) and every rank verifies every
+    wire; a worker is excluded whole if any of its chunk wires fails.  The
+    effective set is the scheduled mask AND the verdicts, and the rank's row
+    advances only if it participates, the step is not degraded and its own
+    wires verified (the verdict is the same on every rank)."""
     dp = layout.padded_size
+    chunked = sched.n_chunks > 1
     new_h = h_local
     if comp.carries_state:
-        new_h = comp.next_memory(h_local, comp.decode(payload, dp), delta)
+        dhat = _chunk_decode_own(cfg, sched, pays) if chunked else comp.decode(pays[0], dp)
+        new_h = comp.next_memory(h_local, dhat, delta)
+        del dhat
     del delta
     valid = None
     if faults is not None:
-        wire, shape, recipe = _wire_exchange(payload, faults, step, part.widx)
-        flat, valid = verify_checksum(_gather_field(wire, n))
-        gathered = unfuse_payload(flat.reshape(n, *shape), recipe)
-        del wire, flat
+        offs, body_total = _chunk_wire_meta(pays)
+        wires = [_wire_exchange(pay, faults, step, part.widx, offs[c],
+                                body_total if chunked else None)
+                 for c, pay in enumerate(pays)]
+        pending = [_gather_field_async(wire, n, async_op=chunked) for wire, _, _ in wires]
+        gathered = []
+        for pend, (_, shape, recipe) in zip(pending, wires):
+            flat, v_c = verify_checksum(pend.wait())
+            gathered.append(unfuse_payload(flat.reshape(n, *shape), recipe))
+            valid = v_c if valid is None else valid & v_c
+        del wires, pending, flat
     else:
-        gathered = _gather_fused(payload, n)
-    del payload
+        pending = [_gather_fused_async(pay, n, async_op=chunked) for pay in pays]
+        gathered = [pend.wait() for pend in pending]
+        del pending
+    del pays
     m_eff = part.mask if valid is None else part.mask & valid
-    total = comp.decode_sum(gathered.mask_workers(m_eff), n, dp)
-    del gathered
-    ghat_flat, new_hs = _masked_server_tail(comp, h_server.float(), total, n, part, m_eff)
+    total = _server_chunks(cfg, sched, _taker(gathered), n, mask=m_eff)
+    ghat_flat, new_hs, scale = _masked_server_tail(comp, h_server.float(), total, n, part, m_eff,
+                                                   defer=defer)
     gate = part.m_own and part.ok and (valid is None or bool(valid[part.widx]))
     new_hw = (new_h if gate else h_local).to(cfg.h_dtype)[None]
-    return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype)
+    return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype), scale
 
 
 def _allreduce_mean(grads_local, cfg, n):
@@ -795,20 +1170,23 @@ def _allreduce_mean(grads_local, cfg, n):
     return out
 
 
-def _dispatch_round(grads_local, state, key, cfg, n, part=None, faults=None, step=None):
+def _dispatch_round(grads_local, state, key, cfg, n, part=None, faults=None, step=None,
+                    defer=False):
     """Route the gradient tree through the layout's round (``:1198``);
-    returns ``(ghat, new_hw, new_hs)``.  The per-leaf layout is
+    returns ``(ghat, new_hw, new_hs, scale)``, ``scale`` the masked tail's
+    deferred one (:func:`_masked_server_tail`) or None.  The per-leaf layout is
     ``_perleaf_round``'s local branch (``:1242-1251``): its nested
     fully-manual shard_map, where each inner device encodes its own shard of
     every leaf, is a GSPMD specialisation with no ``torch.distributed``
     counterpart, since a rank holds whole leaves.  Under participation
     identity is gathered and summed like every operator (``:1208``)."""
     if cfg.make().prefers_allreduce and part is None:
-        return _allreduce_mean(grads_local, cfg, n), state.h_worker, state.h_server
+        return _allreduce_mean(grads_local, cfg, n), state.h_worker, state.h_server, None
     if cfg.bucketed:
         return _aggregate_bucketed(grads_local, state.h_worker, state.h_server, key, cfg, n,
-                                   part, faults, step)
-    return _aggregate_local(grads_local, state.h_worker, state.h_server, key, cfg, n, part)
+                                   part, faults, step, defer)
+    return _aggregate_local(grads_local, state.h_worker, state.h_server, key, cfg, n, part,
+                            defer)
 
 
 def _aggregate_grouped(grads_local, state, key, policy: CompressionPolicy, n, down_key,
@@ -830,20 +1208,23 @@ def _aggregate_grouped(grads_local, state, key, policy: CompressionPolicy, n, do
         cfg_g, dcfg = groups.configs[g], groups.down_configs[g]
         hw, hs = state.h_worker[gname], state.h_server[gname]
         gkey = prng.fold_in(key, GROUP_FOLD + g)
+        scale = None
         if cfg_g.make().prefers_allreduce and part is None:
             ghat_g = _allreduce_mean(grads, cfg_g, n)
         elif cfg_g.bucketed:
-            ghat_g, hw, hs = _aggregate_bucketed(grads, hw, hs, gkey, cfg_g, n, part)
+            ghat_g, hw, hs, scale = _aggregate_bucketed(grads, hw, hs, gkey, cfg_g, n, part,
+                                                        defer=dcfg is not None)
         else:
-            ghat_g, hw_d, hs_d = _aggregate_local(grads, dict(zip(paths, hw)),
-                                                  dict(zip(paths, hs)), gkey, cfg_g, n, part)
+            ghat_g, hw_d, hs_d, scale = _aggregate_local(grads, dict(zip(paths, hw)),
+                                                  dict(zip(paths, hs)), gkey, cfg_g, n, part,
+                                                  defer=dcfg is not None)
             hw, hs = [hw_d[p] for p in paths], [hs_d[p] for p in paths]
         if dcfg is not None:
             dkey = prng.fold_in(down_key, GROUP_FOLD + g)
             ghat_g, new_hd[gname] = _frozen_downlink(
                 part, state.h_down[gname], ghat_g,
                 lambda: _group_downlink(ghat_g, state.h_down[gname], dkey, cfg_g, dcfg,
-                                        policy.h_dtype))
+                                        policy.h_dtype, scale))
         ghat.append(ghat_g)
         new_hw[gname], new_hs[gname] = hw, hs
     return groups.merge(ghat), new_hw, new_hs, (new_hd or None)
@@ -854,7 +1235,7 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
                           params_local=None, vr_force_refresh: bool = False,
                           down_key: Optional[torch.Tensor] = None,
                           part_key: Optional[torch.Tensor] = None, step: Optional[int] = None,
-                          faults=None):
+                          faults=None, telemetry: bool = False):
     """One DIANA aggregation round across the ranks of the default process
     group, one worker per rank — the port of
     ``repro.core.diana.aggregate_shardmap`` (``repro/core/diana.py:891``)
@@ -886,11 +1267,19 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
     :class:`~repro_torch.core.participation.FaultPlan`, flat bucketed
     configs only) puts the fused payload on the checksummed wire.
 
+    With ``chunk_bytes`` the bucketed rounds run the chunked wire; with
+    ``topology="hierarchical"`` (a flat config) the two-level round, and
+    ``key`` must be folded with the rank's NODE index ``rank // node_size``
+    (``repro/launch/train.py:455-459``), not its rank.
+
     Returns ``(ghat, new_state)``: ``ghat`` equal on every rank, cast back to
-    the gradients' dtypes (``:1102``).  The chunked wire is a later slice."""
+    the gradients' dtypes (``:1102``).  ``telemetry=True`` returns ``(ghat,
+    new_state, telem)``, measured on the f32 served direction before the
+    cast (no collective: ``ghat`` is replicated)."""
     n = dist.get_world_size()
     part = step_part(cfg, faults, part_key, n, step, dist.get_rank())
     policy, cfg = _split_spec(cfg)
+    _check_topology(policy, cfg, _resolve_participation(policy, cfg), faults, state.vr, n)
     grads_in, coin = grads_local, False
     if state.vr is not None:
         vr_p = policy.vr_p if policy is not None else cfg.vr_p
@@ -908,7 +1297,9 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
         ghat, new_hw, new_hs, new_h_down = _aggregate_grouped(grads_in, state, key, policy, n,
                                                               down_key, part)
     else:
-        ghat, new_hw, new_hs = _dispatch_round(grads_in, state, key, cfg, n, part, faults, step)
+        ghat, new_hw, new_hs, scale = _dispatch_round(grads_in, state, key, cfg, n, part,
+                                                      faults, step,
+                                                      defer=state.h_down is not None)
     del grads_in
     new_vr = state.vr
     if state.vr is not None:
@@ -920,6 +1311,13 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
         new_h_down = state.h_down
         if state.h_down is not None:
             ghat, new_h_down = _frozen_downlink(
-                part, state.h_down, ghat, lambda: downlink_round(ghat, state.h_down, down_key, cfg))
+                part, state.h_down, ghat,
+                lambda: downlink_round(ghat, state.h_down, down_key, cfg, scale=scale))
+    telem = None
+    if telemetry:
+        telem = measure(policy, ghat, ok=None if part is None else part.ok)
     ghat = {p: ghat[p].to(grads_local[p].dtype) for p in ghat}
-    return ghat, DianaState(h_worker=new_hw, h_server=new_hs, vr=new_vr, h_down=new_h_down)
+    new_state = DianaState(h_worker=new_hw, h_server=new_hs, vr=new_vr, h_down=new_h_down)
+    if telemetry:
+        return ghat, new_state, telem
+    return ghat, new_state

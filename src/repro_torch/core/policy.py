@@ -27,10 +27,10 @@ and is named ``g<rule:02d>_<label>``, so names, group order and leaf order
 are the JAX package's on the same tree.
 
 The JAX policy's ``worker_axes`` and ``use_kernel`` have no counterpart here
-(one worker axis; the kernels run wherever the tensors are on the card), and
-its ``chunk_bytes``, ``topology`` and ``node_size`` belong to a later slice
-(ROADMAP.md queue 1 item 6): the dataclass does not declare them, so asking
-for one raises ``TypeError``.
+(one worker axis; the kernels run wherever the tensors are on the card).
+Its ``chunk_bytes``, ``topology`` and ``node_size`` are model-wide, like
+``vr``: the rule configs of bucketed groups carry them, and a per-leaf group
+keeps the flat topology.
 """
 
 from __future__ import annotations
@@ -142,6 +142,8 @@ class CompressionPolicy:
     participation: elastic participation
               (:class:`~repro_torch.core.participation.ParticipationSpec`),
               model-wide: the rule configs never carry it.
+    chunk_bytes, topology, node_size: the wire schedule, model-wide
+              (:class:`~repro_torch.core.compression.CompressionConfig`).
     """
 
     rules: Tuple[Rule, ...] = (Rule(".*", ChannelSpec()),)
@@ -150,6 +152,9 @@ class CompressionPolicy:
     vr: bool = False
     vr_p: Optional[float] = None
     participation: Optional[ParticipationSpec] = None
+    chunk_bytes: int = 0
+    topology: str = "flat"
+    node_size: int = 1
 
     def __post_init__(self):
         object.__setattr__(self, "rules", tuple(self.rules))
@@ -162,6 +167,13 @@ class CompressionPolicy:
         if self.participation is not None and not isinstance(self.participation,
                                                              ParticipationSpec):
             raise TypeError("participation must be a ParticipationSpec")
+        if self.chunk_bytes < 0:
+            raise ValueError(f"chunk_bytes must be >= 0, got {self.chunk_bytes}")
+        if self.topology not in ("flat", "hierarchical"):
+            raise ValueError(
+                f"topology must be 'flat' or 'hierarchical', got {self.topology!r}")
+        if self.node_size < 1:
+            raise ValueError(f"node_size must be >= 1, got {self.node_size}")
 
     def match(self, path: str) -> int:
         """The index of the first rule matching ``path``."""
@@ -195,7 +207,8 @@ class CompressionPolicy:
                                else _LAYOUTS[0] if cfg.down_bucketed else _LAYOUTS[1])
         return cls(rules=(Rule(".*", spec, down=down),), bucketed=cfg.bucketed,
                    h_dtype=cfg.h_dtype, vr=cfg.vr, vr_p=cfg.vr_p,
-                   participation=cfg.participation)
+                   participation=cfg.participation, chunk_bytes=cfg.chunk_bytes,
+                   topology=cfg.topology, node_size=cfg.node_size)
 
     def flat_config(self) -> CompressionConfig:
         """The flat config of a uniform policy; raises for a grouped one."""
@@ -211,7 +224,8 @@ class CompressionPolicy:
             bucketed=self._spec_bucketed(s), vr=self.vr, vr_p=self.vr_p,
             down_method=None if d is None else d.method, down_k=None if d is None else d.k,
             down_bucketed=None if d is None or d.layout is None else d.layout == "bucketed",
-            participation=self.participation)
+            participation=self.participation, chunk_bytes=self.chunk_bytes,
+            topology=self.topology, node_size=self.node_size)
 
     def representative_config(self) -> CompressionConfig:
         """A flat view of the catch-all rule with the model-wide fields,
@@ -318,7 +332,8 @@ class CompressionPolicy:
 
     def force_perleaf(self) -> "CompressionPolicy":
         """Every group, both directions, in the per-leaf layout: the same
-        results bit for bit, more collectives."""
+        results bit for bit, more collectives.  The two-level topology rides
+        the fused wire, so it falls back to the flat exchange."""
 
         def fix(rule: Rule) -> Rule:
             spec = (_dc_replace(rule.spec, layout="perleaf")
@@ -326,7 +341,8 @@ class CompressionPolicy:
             down = None if rule.down is None else _dc_replace(rule.down, layout="perleaf")
             return _dc_replace(rule, spec=spec, down=down)
 
-        return _dc_replace(self, bucketed=False, rules=tuple(fix(r) for r in self.rules))
+        return _dc_replace(self, bucketed=False, topology="flat",
+                           rules=tuple(fix(r) for r in self.rules))
 
     # ---------------------------------------------------------- serialization
 
@@ -357,6 +373,12 @@ class CompressionPolicy:
             doc["vr_p"] = self.vr_p
         if self.participation is not None:
             doc["participation"] = self.participation.to_json_dict()
+        if self.chunk_bytes:
+            doc["chunk_bytes"] = self.chunk_bytes
+        if self.topology != "flat":
+            doc["topology"] = self.topology
+        if self.node_size != 1:
+            doc["node_size"] = self.node_size
         return doc
 
     def to_json(self) -> str:
@@ -367,8 +389,7 @@ class CompressionPolicy:
         """From a JSON document (the JAX package's format); ``defaults``
         seed the model-wide fields and the document's keys win.  Its
         ``worker_axes`` and ``use_kernel`` are read and dropped (no
-        counterpart here); the keys of later slices pass on to the
-        constructor, which refuses them."""
+        counterpart here)."""
 
         def spec_of(d: dict) -> ChannelSpec:
             kw = {"method": d["method"]}
@@ -404,11 +425,16 @@ class CompressionPolicy:
 @functools.lru_cache(maxsize=None)
 def _rule_config(policy: CompressionPolicy, i: int) -> CompressionConfig:
     spec = policy.rules[i].spec
+    bucketed = policy._spec_bucketed(spec)
+    # the two-level exchange rides the fused wire: a per-leaf group runs the
+    # flat one, and its node_size is inert
+    topology = policy.topology if bucketed else "flat"
     return CompressionConfig(
         method=spec.method, p=_pick(spec, None, "p", _FLAT_DEFAULTS.p),
         block_size=_pick(spec, None, "block_size", _FLAT_DEFAULTS.block_size),
         alpha=spec.alpha, k=_pick(spec, None, "k", _FLAT_DEFAULTS.k), h_dtype=policy.h_dtype,
-        bucketed=policy._spec_bucketed(spec))
+        bucketed=bucketed, chunk_bytes=policy.chunk_bytes, topology=topology,
+        node_size=policy.node_size if topology == "hierarchical" else 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -422,7 +448,9 @@ def _rule_down_config(policy: CompressionPolicy, i: int) -> Optional[Compression
         block_size=_pick(d, up, "block_size", _FLAT_DEFAULTS.block_size),
         alpha=d.alpha if d.alpha is not None else up.alpha,
         k=_pick(d, up, "k", _FLAT_DEFAULTS.k), h_dtype=policy.h_dtype,
-        bucketed=policy._spec_bucketed(up) if d.layout is None else d.layout == "bucketed")
+        bucketed=policy._spec_bucketed(up) if d.layout is None else d.layout == "bucketed",
+        # the broadcast chunks as the uplink does; it has no topology
+        chunk_bytes=policy.chunk_bytes)
 
 
 def as_policy(spec) -> CompressionPolicy:
@@ -521,7 +549,7 @@ def policy_bits_per_dim(policy: CompressionPolicy, layout, *,
     """Size-weighted mean UPLINK wire cost per coordinate across groups;
     ``layout`` is a :class:`~repro_torch.core.bucket.GroupedBucketLayout` or
     a ``{path: tensor}`` tree.  ``checksum=True`` (faults armed) adds the
-    8-byte tail each bucketed group's wire carries
+    8-byte tail each wire buffer of a bucketed group carries, one per chunk
     (:func:`~repro_torch.core.bucket.checksum_tail_bits_per_dim`); per-leaf
     groups carry none."""
     if not isinstance(layout, GroupedBucketLayout):
@@ -534,7 +562,7 @@ def policy_bits_per_dim(policy: CompressionPolicy, layout, *,
             bits += comp.bits_per_dim(s) * s
             total += s
         if checksum and cfg.bucketed:
-            bits += checksum_tail_bits_per_dim(lay) * lay.size
+            bits += checksum_tail_bits_per_dim(lay, cfg.chunk_bytes) * lay.size
     return bits / max(total, 1.0)
 
 

@@ -65,6 +65,16 @@ participants applies ``ghat = 0``.  ``--faults`` (the bucketed layout)
 puts each worker's fused payload on a wire with an 8-byte checksum,
 injects the plan's faults and excludes the payloads that fail.
 
+``--chunk-bytes`` splits each bucketed wire into whole-leaf chunks (one
+stacked payload per chunk in turn; across ranks chunk c+1's all-gather is
+issued before chunk c's decode); ``--topology hierarchical --node-size K``
+averages each node's K gradients before one encode per node, keyed
+``fold_in(step_key, node)``.  ``--budget-bits-per-dim`` (with
+``--controller-interval`` and ``--warmup-dense-steps``) runs the bit-budget
+controller between steps (:func:`controller_tick`): the steps report each
+policy group's telemetry, and a switch migrates the memories and rebuilds
+the step.
+
 The logged loss is the mean over the workers (all-reduced across ranks).
 Entry points run on ``cuda`` and raise without a GPU unless the caller asks
 for the CPU (``--device cpu``), where the kernels' plain versions run.
@@ -96,16 +106,24 @@ import torch.distributed as dist
 from repro_torch.configs import ShapeConfig, get_config, get_shape, reduced
 from repro_torch.core import prng
 from repro_torch.core import tree as T
-from repro_torch.core.bucket import bucketed_compressor, unfuse_payload, verify_checksum
+from repro_torch.core.bucket import (ChunkedSchedule, bucketed_compressor, unfuse_payload,
+                                     verify_checksum)
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import available_methods
 from repro_torch.core.compressors.base import Payload
-from repro_torch.core.diana import (DOWN_FOLD, GROUP_FOLD, PART_FOLD, _frozen_downlink,
-                                    _group_downlink, _masked_server_tail, _split_spec,
+from repro_torch.core.controller import (BudgetController, init_controller_state,
+                                         maybe_reallocate, migrate_diana_state, observe)
+from repro_torch.core.diana import (DOWN_FOLD, GROUP_FOLD, PART_FOLD, _check_topology,
+                                    _chunk_decode_own, _chunk_payloads, _chunk_wire_meta,
+                                    _frozen_downlink, _group_downlink,
+                                    _hier_node_size, _masked_server_tail, _node_scale,
+                                    _resolve_participation, _server_chunks, _split_spec, _taker,
                                     _wire_exchange, aggregate_distributed, bucket_layout,
                                     check_faults, step_part, worker_key)
 from repro_torch.core.participation import ParticipationSpec, parse_faults
-from repro_torch.core.policy import ChannelSpec, CompressionPolicy, load_policy, partition_for
+from repro_torch.core.policy import (ChannelSpec, CompressionPolicy, load_policy, partition_for,
+                                     policy_bits_per_dim)
+from repro_torch.core.telemetry import GroupTelemetry, from_moments, group_moments
 from repro_torch.core.vr import control_variate, reference_coins, resolve_vr_p
 from repro_torch.core.numerics import div_n
 from repro_torch.data.pipeline import make_lm_batch
@@ -115,7 +133,7 @@ from repro_torch.optim.optimizers import constant_schedule, momentum, sgd
 
 __all__ = ["resolve_device", "resolve_policy_arg", "make_optimizer", "init_train_state",
            "build_train_step", "build_distributed_step", "init_distributed", "parse_mesh",
-           "main"]
+           "controller_tick", "main"]
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:
@@ -264,15 +282,23 @@ class _Elastic:
             return self.part.mask
         return self.part.mask & torch.tensor(self.valid, dtype=torch.bool)
 
-    def wire(self, pay, w):
-        """Worker ``w``'s payload (a row of the stacked buffer) across the
-        checksummed wire: fused, checksummed, this worker's faults injected,
-        verified; returns the received body as a payload, to be written
-        back into the row after the worker's own decode."""
-        wire, shape, recipe = _wire_exchange(pay, self.faults, self.step, w)
-        flat, ok = verify_checksum(wire)
-        self.valid.append(bool(ok))
-        return unfuse_payload(flat.reshape(shape)[None], recipe).select(0)
+    def wire(self, pays, w):
+        """Worker ``w``'s chunk payloads (rows of the stacked buffers; one,
+        unchunked) across the checksummed wire: each fused, checksummed,
+        this worker's faults injected through the chunk's window of the
+        round's body, verified; returns the received bodies as payloads, to
+        be written back into the rows after the worker's own decode.  The
+        worker's verdict is the AND over its chunks."""
+        offs, body_total = _chunk_wire_meta(pays)
+        received, ok = [], True
+        for c, pay in enumerate(pays):
+            wire, shape, recipe = _wire_exchange(pay, self.faults, self.step, w, offs[c],
+                                                 body_total if len(pays) > 1 else None)
+            flat, ok_c = verify_checksum(wire)
+            ok = ok and bool(ok_c)
+            received.append(unfuse_payload(flat.reshape(shape)[None], recipe).select(0))
+        self.valid.append(ok)
+        return received
 
 
 def _write_back(row, received):
@@ -290,50 +316,91 @@ class _BucketedRound:
     with a context): rejoining rows reset before the encode, only advancing
     rows updated, under faults each payload through the checksummed wire,
     and the server's sum over the effective rows (zeroed in place in the
-    stacked buffer) then :func:`~repro_torch.core.diana._masked_server_tail`."""
+    stacked buffer) then :func:`~repro_torch.core.diana._masked_server_tail`.
 
-    def __init__(self, cfg, params, hw, hs, n_workers, device, el=None):
+    Chunked (``cfg.chunk_bytes``): one stacked buffer per chunk, each worker
+    encoding chunk by chunk into its rows, its memory updated once over the
+    whole buffer; the server decodes chunk by chunk into slices of ``ghat``
+    and of the held ``h_server``.  Hierarchical (``node_size`` s > 1): the
+    node's workers pool into one f32 buffer in turn (worker 0's flat
+    gradient, then ``+`` each next, then ``/ s``), and the node encodes once,
+    at its last worker, with the node key into row ``node`` of an ``(n / s)``
+    -row stack; its memory row is copied to the node's other rows."""
+
+    def __init__(self, cfg, params, hw, hs, n_workers, device, el=None, defer=False):
+        self.cfg, self.defer = cfg, defer
         self.layout = bucket_layout(cfg, params)
         self.comp = bucketed_compressor(cfg, self.layout)
+        self.sched = ChunkedSchedule.for_layout(self.layout, cfg.chunk_bytes)
         self.hw, self.hs, self.n = hw, hs, n_workers
+        self.s = _hier_node_size(cfg)
         self.el = el if el is not None else _Elastic(None)
         self.g_flat = torch.empty(self.layout.padded_size, dtype=torch.float32, device=device)
-        self.gathered = self.comp.gathered(n_workers, device)
+        # the node's pooled gradient: one more (Dp,) f32 buffer
+        self.pool = self.g_flat if self.s == 1 else torch.empty_like(self.g_flat)
+        self.rows = n_workers // self.s
+        self.gathered = [bucketed_compressor(cfg, cl).gathered(self.rows, device)
+                         for cl in self.sched.chunk_layouts]
 
-    def load(self, grads):
+    def load(self, grads, w=0):
         """Flatten a worker's input tree into the buffer (the caller may
-        then free the tree before the encode)."""
-        self.layout.flatten(grads, out=self.g_flat)
+        then free the tree before the encode); hierarchical, add it into the
+        node's pool."""
+        if self.s == 1 or w % self.s == 0:
+            self.layout.flatten(grads, out=self.pool)
+        else:
+            self.pool.add_(self.layout.flatten(grads, out=self.g_flat))
+            if w % self.s == self.s - 1:
+                _node_scale(self.pool, self.s)
 
     def encode(self, w, key):
+        """Worker ``w``'s encode (``key`` its worker key; hierarchical, the
+        node key, and nothing before the node's last worker)."""
+        if w % self.s != self.s - 1:
+            return
         comp, hw, dp, el = self.comp, self.hw, self.layout.padded_size, self.el
+        r, lead = w // self.s, w - self.s + 1     # the node, and its leader's row
         el.reset(w, [hw[w]])
-        # The worker's input (g - h_w, or g + h_w for error feedback),
-        # computed in place in the gradient buffer.
-        delta = comp.compress_input_(self.g_flat, hw[w])
-        pay = comp.compress(delta, key, out=self.gathered.select(w))
-        received = None if el.faults is None else el.wire(pay, w)
+        # The input (g - h, or g + h for error feedback), computed in place
+        # in the gradient buffer.
+        delta = comp.compress_input_(self.pool, hw[lead])
+        rows = [g.select(r) for g in self.gathered]
+        if self.sched.n_chunks > 1:
+            pays = _chunk_payloads(self.cfg, self.sched, delta, key, outs=rows)
+        else:
+            pays = [comp.compress(delta, key, out=rows[0])]
+        received = None if el.faults is None else el.wire(pays, w)
         if comp.carries_state and el.advances(w):
             # h_w <- h_w + alpha * dhat_w (or delta - dhat_w), into the state row.
-            hw[w].copy_(comp.next_memory(hw[w], comp.decode(pay, dp), delta))
+            dhat = (_chunk_decode_own(self.cfg, self.sched, pays) if self.sched.n_chunks > 1
+                    else comp.decode(pays[0], dp))
+            hw[lead].copy_(comp.next_memory(hw[lead], dhat, delta))
+            del dhat
+            for i in range(lead + 1, w + 1):   # the node's other rows
+                hw[i].copy_(hw[lead])
         if received is not None:
-            _write_back(pay, received)
+            for pay, rec in zip(pays, received):
+                _write_back(pay, rec)
 
     def finish(self):
-        """``ghat`` as f32 leaves; ``h_server`` updated in place."""
-        self.g_flat = None
-        dp, part = self.layout.padded_size, self.el.part
+        """``(ghat, scale)``: ``ghat`` as f32 leaves, ``scale`` the masked
+        tail's deferred one (or None); ``h_server`` updated in place."""
+        self.g_flat = self.pool = None
+        part, sched = self.el.part, self.sched
+        take = _taker(self.gathered)
         if part is None:
-            ghat_flat, new_hs = self.comp.decode_sum_apply(self.gathered, self.n, dp, self.hs)
+            ghat_flat, _ = _server_chunks(self.cfg, sched, take, self.rows, self.hs,
+                                          hs_out=self.hs)
             self.gathered = None
-        else:
-            m_eff = self.el.effective()
-            total = self.comp.decode_sum(self.gathered.mask_workers_(m_eff), self.n, dp)
-            self.gathered = None   # freed before the tail allocates
-            ghat_flat, new_hs = _masked_server_tail(self.comp, self.hs.float(), total, self.n,
-                                                    part, m_eff, inplace=True)
-        _copy_into(self.hs, new_hs)  # the server memory stays one buffer
-        return self.layout.unflatten(ghat_flat, cast=False)
+            return self.layout.unflatten(ghat_flat, cast=False), None
+        m_eff = self.el.effective()
+        total = _server_chunks(self.cfg, sched, take, self.n, mask=m_eff)
+        self.gathered = None   # freed before the tail allocates
+        ghat_flat, new_hs, scale = _masked_server_tail(self.comp, self.hs.float(), total,
+                                                       self.n, part, m_eff, inplace=True,
+                                                       defer=self.defer)
+        _copy_into(self.hs, new_hs)
+        return self.layout.unflatten(ghat_flat, cast=False), scale
 
 
 class _PerLeafRound:
@@ -343,8 +410,8 @@ class _PerLeafRound:
     per leaf, and ONE ``decode_sum_apply`` per leaf (elastic: the masked
     sum and the masked tail, as the bucketed round)."""
 
-    def __init__(self, cfg, params, hw, hs, n_workers, device, el=None):
-        self.comp, self.n = cfg.make(), n_workers
+    def __init__(self, cfg, params, hw, hs, n_workers, device, el=None, defer=False):
+        self.comp, self.n, self.defer = cfg.make(), n_workers, defer
         self.paths = T.paths(params)
         self.shapes = {p: params[p].shape for p in self.paths}
         self.hw, self.hs = hw, hs    # {path: (n, d)}, {path: (d,)}
@@ -352,7 +419,7 @@ class _PerLeafRound:
         self.payloads = {p: [] for p in self.paths}
         self.pending = {}
 
-    def load(self, grads):
+    def load(self, grads, w=0):
         self.pending = dict(grads)
 
     def encode(self, w, key):
@@ -369,7 +436,8 @@ class _PerLeafRound:
             self.payloads[p].append(pay)
 
     def finish(self):
-        ghat, part = {}, self.el.part
+        """``(ghat, scale)``, as :meth:`_BucketedRound.finish`."""
+        ghat, part, scale = {}, self.el.part, None
         for p in self.paths:
             stacked = Payload.stack(self.payloads.pop(p))
             d = self.hs[p].numel()
@@ -377,12 +445,13 @@ class _PerLeafRound:
                 g, new_hs = self.comp.decode_sum_apply(stacked, self.n, d, self.hs[p])
             else:
                 total = self.comp.decode_sum(stacked.mask_workers_(part.mask), self.n, d)
-                g, new_hs = _masked_server_tail(self.comp, self.hs[p].float(), total, self.n,
-                                                part, part.mask, inplace=True)
+                g, new_hs, scale = _masked_server_tail(self.comp, self.hs[p].float(), total,
+                                                       self.n, part, part.mask, inplace=True,
+                                                       defer=self.defer)
             del stacked
             _copy_into(self.hs[p], new_hs)
             ghat[p] = g.reshape(self.shapes[p])
-        return ghat
+        return ghat, scale
 
 
 def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device, el):
@@ -394,7 +463,8 @@ def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device, el
     policy, cfg = _split_spec(opt.policy)
     if policy is None:
         rnd = (_BucketedRound if cfg.bucketed else _PerLeafRound)(
-            cfg, params, diana.h_worker, diana.h_server, n_workers, device, el)
+            cfg, params, diana.h_worker, diana.h_server, n_workers, device, el,
+            defer=diana.h_down is not None)
         down = (None if diana.h_down is None
                 else (cfg, cfg.down_config(), diana.h_down, prng.fold_in(key, DOWN_FOLD)))
         return [(T.paths(params), rnd, None, down)]
@@ -405,10 +475,11 @@ def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device, el
         cfg_g, dcfg = part.configs[g], part.down_configs[g]
         hw, hs = diana.h_worker[gname], diana.h_server[gname]
         if cfg_g.bucketed:
-            rnd = _BucketedRound(cfg_g, leaves, hw, hs, n_workers, device, el)
+            rnd = _BucketedRound(cfg_g, leaves, hw, hs, n_workers, device, el,
+                                 defer=dcfg is not None)
         else:
             rnd = _PerLeafRound(cfg_g, leaves, dict(zip(paths, hw)), dict(zip(paths, hs)),
-                                n_workers, device, el)
+                                n_workers, device, el, defer=dcfg is not None)
         down = None
         if dcfg is not None:
             down = (cfg_g, dcfg, diana.h_down[gname],
@@ -417,7 +488,26 @@ def _group_rounds(opt: DianaOptimizer, params, diana, key, n_workers, device, el
     return rounds
 
 
-def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=None):
+def _check_schedule(opt: DianaOptimizer, n_workers: int, faults) -> int:
+    """The wire schedule's gates at build time; returns the node size (1:
+    the flat topology)."""
+    policy, flat = _split_spec(opt.policy)
+    _check_topology(policy, flat, _resolve_participation(policy, flat), faults,
+                    True if opt.policy.vr else None, n_workers)
+    return 1 if flat is None else _hier_node_size(flat)
+
+
+def _step_telemetry(moments, el, enabled):
+    """The step's telemetry metrics (``repro/launch/train.py:490-494``)
+    from each group's ``(m2, var)``, or nothing."""
+    if not enabled:
+        return {}
+    t = from_moments(moments, None if el.part is None else el.part.ok)
+    return {"telemetry_m2": t.m2, "telemetry_var": t.var, "telemetry_ok": t.ok}
+
+
+def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=None,
+                     telemetry: bool = False):
     """Returns ``step(params, opt_state, batch, key) -> (params, opt_state,
     metrics)`` running the ``n_workers`` workers in turn, in the policy's
     layout: the whole model bucketed or per leaf, or one round per policy
@@ -430,10 +520,17 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=No
     worker.  ``faults`` (a
     :class:`~repro_torch.core.participation.FaultPlan`, the flat bucketed
     layout only) puts each worker's payload on the checksummed wire.  The
-    metrics then carry ``mask``, ``ok`` and ``valid`` (the wire verdicts)."""
+    metrics then carry ``mask``, ``ok`` and ``valid`` (the wire verdicts).
+
+    The policy's ``chunk_bytes`` chunks each bucketed group's wire, and
+    ``topology="hierarchical"`` pools each node's gradients before one
+    encode per node, keyed ``fold_in(key, node)``.  ``telemetry=True`` adds
+    ``telemetry_m2`` / ``telemetry_var`` (per group) and ``telemetry_ok`` to
+    the metrics, measured on each group's f32 served direction."""
     device = torch.device(device)
     if faults is not None:
         check_faults(opt.policy)
+    node_size = _check_schedule(opt, n_workers, faults)
 
     def step(params, opt_state, batch, key):
         paths = T.paths(params)
@@ -469,16 +566,16 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=No
                             vr.snapshot[p][w].copy_(params[p])
                             vr.mu[p][w].copy_(grads[p])
                 for gpaths, rnd, _, _ in rounds:
-                    rnd.load({p: x[p] for p in gpaths})
+                    rnd.load({p: x[p] for p in gpaths}, w)
                 # this worker's gradient is freed before its encode
                 del grads, x
-                wkey = worker_key(key, w)
+                wkey = worker_key(key, w // node_size)   # hierarchical: the node key
                 for _, rnd, gfold, _ in rounds:
                     rnd.encode(w, wkey if gfold is None else prng.fold_in(wkey, gfold))
-        ghat = {}
+        ghat, moments = {}, []
         with torch.no_grad():
             for _, rnd, _, down in rounds:
-                ghat_g = rnd.finish()
+                ghat_g, scale = rnd.finish()
                 if down is not None:
                     # the compressed broadcast of the f32 ghat, before the cast
                     # (nothing on a degraded step: h_down frozen, ghat zero)
@@ -486,8 +583,10 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=No
                     ghat_g, new_h_down = _frozen_downlink(
                         el.part, h_down, ghat_g,
                         lambda: _group_downlink(ghat_g, h_down, down_key, gcfg, dcfg,
-                                                gcfg.h_dtype))
+                                                gcfg.h_dtype, scale))
                     _copy_into(h_down, new_h_down)
+                if telemetry:
+                    moments.append(group_moments([ghat_g[p] for p in T.paths(ghat_g)]))
                 ghat.update({p: g.to(params[p].dtype) for p, g in ghat_g.items()})
                 del ghat_g
         del rounds
@@ -495,12 +594,13 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=No
                       torch.stack(losses).mean())
         if el.part is not None:
             out[2].update(mask=el.part.mask.tolist(), ok=el.part.ok, valid=list(el.valid))
+        out[2].update(_step_telemetry(moments, el, telemetry))
         return out
 
     return step
 
 
-def build_distributed_step(cfg, opt: DianaOptimizer, faults=None):
+def build_distributed_step(cfg, opt: DianaOptimizer, faults=None, telemetry: bool = False):
     """Returns ``step(params, opt_state, batch, key)`` as
     :func:`build_train_step`'s, where this process is worker ``r``, its rank
     in the default process group, of ``n`` = the world size: it
@@ -512,13 +612,16 @@ def build_distributed_step(cfg, opt: DianaOptimizer, faults=None):
     grouped policy runs its groups inside the round.  The logged loss is
     the all-reduced mean (``:486``).  Under participation or ``faults``
     the round gets ``part_key = fold_in(key, PART_FOLD)`` and the step
-    counter (``:440-452``).  Given the same batch and keys, the
+    counter (``:440-452``).  Hierarchical, the key is folded with the rank's
+    node ``rank // node_size`` (``:455-459``).  ``telemetry`` as in
+    :func:`build_train_step`.  Given the same batch and keys, the
     parameters and memories equal :func:`build_train_step`'s with ``n``
     workers bit for bit (``none`` and identity groups: to the backend's
     all-reduce order)."""
     rank, n_workers = dist.get_rank(), dist.get_world_size()
     if faults is not None:
         check_faults(opt.policy)
+    node_size = _check_schedule(opt, n_workers, faults)
 
     def step(params, opt_state, batch, key):
         paths = list(params)
@@ -535,16 +638,22 @@ def build_distributed_step(cfg, opt: DianaOptimizer, faults=None):
         if opt.policy.participation is not None or faults is not None:
             extra.update(part_key=prng.fold_in(key, PART_FOLD), step=opt_state.step,
                          faults=faults)
+        if telemetry:
+            extra["telemetry"] = True
         with torch.no_grad():
-            ghat, new = aggregate_distributed(grads, opt_state.diana, worker_key(key, rank),
-                                              opt.policy, **extra)
-            del grads, extra
+            out = aggregate_distributed(grads, opt_state.diana,
+                                        worker_key(key, rank // node_size), opt.policy, **extra)
+            ghat, new, telem = out[0], out[1], (out[2] if telemetry else None)
+            del grads, extra, out
             _copy_into(opt_state.diana, new)  # each memory stays one buffer
             del new
             loss = loss.detach().clone()
             dist.all_reduce(loss, op=dist.ReduceOp.SUM)
             loss = div_n(loss, n_workers)
-        return _finish(opt, params, opt_state, ghat, loss)
+        res = _finish(opt, params, opt_state, ghat, loss)
+        if telem is not None:
+            res[2].update(telemetry_m2=telem.m2, telemetry_var=telem.var, telemetry_ok=telem.ok)
+        return res
 
     return step
 
@@ -569,6 +678,44 @@ def init_distributed(device: str, n_workers: int) -> torch.device:
         else:
             dist.init_process_group("gloo")
     return dev
+
+
+def _with_policy(opt: DianaOptimizer, policy: CompressionPolicy) -> DianaOptimizer:
+    """``opt`` with another policy (inner optimizer, schedule and
+    regularizer shared)."""
+    return DianaOptimizer(inner=opt.inner, schedule=opt.schedule, regularizer=opt.regularizer,
+                          policy=policy)
+
+
+def controller_tick(controller, cstate, opt, opt_state, step_fn, metrics, params, rows: int,
+                    build, log: bool = True):
+    """One turn of the budget controller after a step
+    (``repro/launch/train.py:849``): fold the step's telemetry into the
+    EMAs, ask for a (dwell- and hysteresis-gated) decision, and on a switch
+    migrate the DIANA memories onto the new policy's layout
+    (:func:`~repro_torch.core.controller.migrate_diana_state`: a memory
+    whose shape changes is freed before its zeros are allocated) and build
+    the new policy's step with ``build(opt)``.  ``rows`` is the number of
+    ``h_worker`` rows the process holds.  Returns ``(opt, opt_state,
+    step_fn, cstate)``."""
+    telem = GroupTelemetry(m2=metrics["telemetry_m2"], var=metrics["telemetry_var"],
+                           ok=metrics["telemetry_ok"])
+    cstate = observe(controller, cstate, telem)
+    cstate, new_policy = maybe_reallocate(controller, cstate, params)
+    if new_policy is None or new_policy == opt.policy:
+        return opt, opt_state, step_fn, cstate
+    if log:
+        print(f"controller: switching policy at step {cstate.step} (bits/dim "
+              f"{policy_bits_per_dim(new_policy, params):.3f} <= budget "
+              f"{controller.budget_bits_per_dim})")
+    opt = _with_policy(opt, new_policy)
+    carried, fresh = [], []
+    with torch.no_grad():
+        diana = migrate_diana_state(opt_state.diana, params, new_policy, rows, carried, fresh)
+    if log:
+        print(f"controller: memories carried {carried}; restarted from zeros {fresh}")
+    opt_state = opt_state._replace(diana=diana)
+    return opt, opt_state, build(opt), cstate
 
 
 def main(argv=None):
@@ -616,6 +763,27 @@ def main(argv=None):
                          "events, kind in {drop,delay,corrupt} (e.g. 'corrupt:step=3,"
                          "worker=1'), or 'checksum' to arm the wire checksum alone; needs the "
                          "bucketed layout")
+    ap.add_argument("--chunk-bytes", type=int, default=None,
+                    help="split the bucketed wire into whole-leaf chunks of about this many "
+                         "bytes: chunk i+1's all-gather is issued before chunk i's decode; "
+                         "0 (default) keeps one chunk; bitwise the same results either way")
+    ap.add_argument("--topology", default=None, choices=[None, "flat", "hierarchical"],
+                    help="'hierarchical': an uncompressed mean inside each node of "
+                         "--node-size workers, then the compressed round between the nodes "
+                         "(one memory per node); bucketed flat configs only")
+    ap.add_argument("--node-size", type=int, default=None,
+                    help="workers per node under --topology hierarchical (divides N; "
+                         "required, since --mesh has no node axis)")
+    ap.add_argument("--budget-bits-per-dim", type=float, default=None,
+                    help="the bit-budget controller: telemetry per policy group feeds an "
+                         "allocator that re-picks each group's operator from a candidate "
+                         "lattice, every emitted policy within this many uplink bits per "
+                         "coordinate")
+    ap.add_argument("--controller-interval", type=int, default=50,
+                    help="at most one policy switch per this many steps")
+    ap.add_argument("--warmup-dense-steps", type=int, default=0,
+                    help="the first N steps aggregate dense (identity on the policy's "
+                         "skeleton) before the first allocation")
     ap.add_argument("--mesh", default=None,
                     help="NxM: N data-parallel workers (M = 1), run in turn on one device, "
                          "or one per rank under torchrun (N = the world size)")
@@ -661,16 +829,46 @@ def main(argv=None):
     distributed = "WORLD_SIZE" in os.environ
     opt = make_optimizer(cfg, lr=args.lr, inner=args.inner, policy=args.comp_policy,
                          participation=participation)
+    if args.chunk_bytes is not None or args.topology or args.node_size:
+        pol = opt.policy
+        topology = args.topology or pol.topology
+        node_size = args.node_size or pol.node_size
+        if topology == "hierarchical" and node_size == 1:
+            raise SystemExit("--topology hierarchical needs --node-size K (K > 1, dividing the "
+                             "worker count): --mesh NxM has no node axis to infer it from")
+        opt.policy = pol.replace(
+            chunk_bytes=pol.chunk_bytes if args.chunk_bytes is None else args.chunk_bytes,
+            topology=topology, node_size=node_size)
+    controller = None
+    if args.budget_bits_per_dim is not None:
+        if faults is not None:
+            raise SystemExit("--budget-bits-per-dim does not compose with --faults (the "
+                             "checksum's budget tail depends on the fault plan, not the policy)")
+        # the author's policy is the skeleton every emitted policy shares
+        controller = BudgetController(base=opt.policy,
+                                      budget_bits_per_dim=args.budget_bits_per_dim,
+                                      interval=args.controller_interval,
+                                      warmup_dense_steps=args.warmup_dense_steps)
+        if args.warmup_dense_steps > 0:
+            opt = _with_policy(opt, controller.warmup_policy())
+    telemetry = controller is not None
     if distributed:
         device = init_distributed(args.device, n_workers)
-        params, opt_state = init_train_state(cfg, opt, 1, device)
-        step_fn = build_distributed_step(cfg, opt, faults)
+        rows = 1
+        params, opt_state = init_train_state(cfg, opt, rows, device)
+        build = lambda o: build_distributed_step(cfg, o, faults, telemetry)  # noqa: E731
         log = dist.get_rank() == 0
     else:
         device = resolve_device(args.device)
-        params, opt_state = init_train_state(cfg, opt, n_workers, device)
-        step_fn = build_train_step(cfg, opt, n_workers, device, faults)
+        rows = n_workers
+        params, opt_state = init_train_state(cfg, opt, rows, device)
+        build = lambda o: build_train_step(cfg, o, n_workers, device, faults,  # noqa: E731
+                                           telemetry)
         log = True
+    step_fn = build(opt)
+    cstate = None
+    if controller is not None:
+        cstate = init_controller_state(controller, params)
     key = prng.PRNGKey(0)
     try:
         for step in range(args.steps):
@@ -687,6 +885,10 @@ def main(argv=None):
                 print(f"step {step:4d} loss {loss:8.4f} ghat "
                       f"{float(metrics['ghat_norm']):9.4f} ({time.perf_counter() - t0:5.2f}s)"
                       + elastic)
+            if controller is not None:
+                opt, opt_state, step_fn, cstate = controller_tick(
+                    controller, cstate, opt, opt_state, step_fn, metrics, params, rows, build,
+                    log=log)
     finally:
         if distributed and dist.is_initialized():
             dist.destroy_process_group()

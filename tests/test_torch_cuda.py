@@ -9,7 +9,8 @@ between rows, inside a group of 4, inside the peeled head and inside a
 warp's chunk, B in {128, 2048, 4096} with row counts below and above the
 grid's warps, a segment past 2^32 words (17 GB of f32), and equality with
 the bits kernels fed ``threefry_bits``; for the dense kernels odd d, 1-5
-workers, rows at unaligned starts, -0.0, +-inf and NaN).
+workers, rows at unaligned starts, -0.0, +-inf and NaN; and every operator's
+kernels on the chunk views of the wire schedule, odd offsets included).
 Needs an NVIDIA GPU: each test skips without one.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -677,3 +678,88 @@ def test_masked_decode_sum_equals_plain(dev, method, bucketed):
     assert _same_bits_or_nan(got.cpu(), plain)
     got_ = comp.decode_sum(stacked.mask_workers_(mask), 4, d)
     assert _same_bits_or_nan(got_.cpu(), plain)
+
+
+# The wire schedule's chunk views: whole-leaf chunks of a flat buffer, at
+# offsets that are not 16-byte aligned for the unaligned operators (leaf
+# sizes 384, 260, 160, 279, 70 and 1).
+_CHUNK_SHAPES = {"emb": (24, 16), "w1": (20, 13), "b1": (160,), "w2": (9, 31), "b2": (70,),
+                 "s": ()}
+_CHUNK_OPS = [("diana", dict(block_size=16)), ("natural", {}), ("randk", dict(k=9)),
+              ("topk_ef", dict(k=9)), ("none", {})]
+
+
+@pytest.mark.parametrize("method,kw", _CHUNK_OPS, ids=[m for m, _ in _CHUNK_OPS])
+def test_kernels_on_chunk_views(dev, method, kw):
+    """Each chunk's encode reads a view of the flat buffer at the chunk's
+    offset, and the server decodes (sum, and the fused apply into a view
+    of ``h_server``) run per chunk: on the card bitwise the plain versions
+    on the CPU, and every kernel of the operator launched."""
+    from repro_torch.core.bucket import ChunkedSchedule, bucketed_compressor
+    from repro_torch.core.compressors.base import Payload
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.diana import bucket_layout
+
+    cfg = CompressionConfig(method=method, bucketed=True, chunk_bytes=300, **kw)
+    g = torch.Generator().manual_seed(5)
+    tree = {p: torch.randn(s, generator=g) for p, s in _CHUNK_SHAPES.items()}
+    lay = bucket_layout(cfg, tree)
+    sched = ChunkedSchedule.for_layout(lay, 300)
+    assert sched.n_chunks >= 3
+    if cfg.make().bucket_align() == 1:
+        assert any((4 * o) % 16 for o in sched.chunk_offsets)
+    n = 3
+    flats = [lay.flatten({p: v * (w + 1) for p, v in tree.items()}) for w in range(n)]
+    h = torch.randn(lay.padded_size, generator=g)
+    before = dict(build.LAUNCHES)
+    for c, cl in enumerate(sched.chunk_layouts):
+        comp = bucketed_compressor(cfg, cl)
+        keys = [sched.chunk_keys(prng.split(prng.fold_in(prng.PRNGKey(2), w), lay.n_leaves), c)
+                for w in range(n)]
+        out = {}
+        for where in ("cpu", dev):
+            views = [sched.split(f.to(where))[c] for f in flats]
+            pays = [cfg.make().compress_bucketed_keys(cl, v, k) for v, k in zip(views, keys)]
+            stacked = Payload.stack(pays)
+            hs = sched.split(h.to(where))[c]
+            own = comp.decode(pays[0], cl.padded_size)
+            total = comp.decode_sum(stacked, n, cl.padded_size)
+            ghat, new_h = comp.decode_sum_apply(stacked, n, cl.padded_size, hs)
+            out[str(where)] = [f for f in stacked if f is not None] + [own, total, ghat, new_h]
+        for a, b in zip(out["cpu"], out[str(dev)]):
+            assert torch.equal(a, b.cpu()), (method, c)
+    launched = {k for k, v in build.LAUNCHES.items() if v > before.get(k, 0)}
+    want = {"diana": {"quantize_pack_prng", "unpack_reduce", "unpack_reduce_apply"},
+            "natural": {"nat_pack_prng", "nat_decode_sum", "nat_decode_sum_apply"},
+            "randk": {"threefry_bits", "sparse_gather", "sparse_decode_sum"},
+            "topk_ef": {"sparse_gather", "sparse_decode_sum", "sparse_decode_sum_mean"},
+            "none": {"dense_copy", "dense_decode_sum", "dense_decode_sum_mean"}}[method]
+    assert want <= launched, (method, launched)
+
+
+@pytest.mark.parametrize("method,kw", _CHUNK_OPS, ids=[m for m, _ in _CHUNK_OPS])
+def test_chunked_reference_step_on_card_equals_cpu(dev, method, kw):
+    """The chunked and the hierarchical ``reference_step`` through the
+    kernels, bitwise the plain versions on the CPU (two steps, n = 4)."""
+    from dataclasses import replace
+
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.diana import reference_init, reference_step
+
+    g = torch.Generator().manual_seed(6)
+    params = {p: torch.randn(s, generator=g) for p, s in _CHUNK_SHAPES.items()}
+    grads = [{p: torch.randn((4, *s), generator=g) for p, s in _CHUNK_SHAPES.items()}
+             for _ in range(2)]
+    base = CompressionConfig(method=method, bucketed=True, chunk_bytes=300, **kw)
+    for cfg in (base, replace(base, topology="hierarchical", node_size=2)):
+        res = {}
+        for where in ("cpu", dev):
+            st = reference_init({p: v.to(where) for p, v in params.items()}, cfg, 4)
+            for s in range(2):
+                v, st = reference_step({p: x.to(where) for p, x in grads[s].items()}, st,
+                                       prng.fold_in(prng.PRNGKey(3), s), cfg)
+            res[str(where)] = (v, st)
+        (vc, sc), (vg, sg) = res["cpu"], res[str(dev)]
+        assert all(torch.equal(vc[p], vg[p].cpu()) for p in params), cfg.topology
+        assert torch.equal(sc.h_worker, sg.h_worker.cpu())
+        assert torch.equal(sc.h_server, sg.h_server.cpu())

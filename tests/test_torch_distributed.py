@@ -768,12 +768,11 @@ def test_world_of_one_trainer_bitwise_in_turn(world_of_one, one_thread, method):
 
 
 def test_policy_and_chunked_configs_refused(world_of_one):
-    """A policy runs now: a uniform policy's round is the flat config's bit
-    for bit (its state too, over two rounds, with a downlink); anything
-    else than a config or a policy raises TypeError; and the fields of later
-    slices (participation, the chunked wire) cannot even be asked for,
-    since the port's ``CompressionPolicy`` and ``CompressionConfig`` have no
-    field for them yet."""
+    """A policy runs: a uniform policy's round is the flat config's bit for
+    bit (its state too, over two rounds, with a downlink); anything else
+    than a config or a policy raises TypeError, as does a participation
+    that is not a spec; and a ``chunk_bytes`` config (two chunks, with its
+    chunked downlink) runs, its rounds bitwise the monolithic config's."""
     from repro_torch.core.policy import CompressionPolicy
 
     cfg = replace(_config("diana", "bucketed"), down_method="topk_ef", down_k=8)
@@ -794,8 +793,21 @@ def test_policy_and_chunked_configs_refused(world_of_one):
         aggregate_distributed(grads, s_cfg, prng.PRNGKey(0), object())
     with pytest.raises(TypeError, match="participation"):
         CompressionPolicy(participation=0.5)
-    with pytest.raises(TypeError, match="chunk_bytes"):
-        replace(cfg, chunk_bytes=256)
+    chunked = replace(cfg, chunk_bytes=256)
+    layout = bucket_layout(chunked, {p: torch.zeros(s) for p, s in SHAPES.items()})
+    from repro_torch.core.bucket import ChunkedSchedule
+    assert ChunkedSchedule.for_layout(layout, 256).n_chunks == 2
+    s_mono = init_state({p: torch.zeros(s) for p, s in SHAPES.items()}, cfg, 1)
+    s_chunk = init_state({p: torch.zeros(s) for p, s in SHAPES.items()}, chunked, 1)
+    for r in range(ROUNDS):
+        grads = {p: torch.from_numpy(data[f"{p}{r}"][0].copy()) for p in SHAPES}
+        key = prng.fold_in(prng.PRNGKey(SEED_KEY), r)
+        extra = dict(down_key=prng.fold_in(key, DOWN_FOLD))
+        g1, s_mono = aggregate_distributed(grads, s_mono, worker_key(key, 0), cfg, **extra)
+        g2, s_chunk = aggregate_distributed(grads, s_chunk, worker_key(key, 0), chunked, **extra)
+        assert all(torch.equal(g1[p], g2[p]) for p in SHAPES)
+        for a, b in zip(s_mono, s_chunk):
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_cli_mesh_must_match_the_world(monkeypatch):

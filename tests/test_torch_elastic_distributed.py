@@ -18,7 +18,13 @@ CPU processes.
   - with a fault plan on the flat bucketed layout (a corrupt on worker 1 at
     step 0, a drop of worker 2 at step 2), all five operators: the
     checksummed wire crosses the all-gather, and ghat and the memories are
-    bit for bit.
+    bit for bit;
+  - under a grouped policy (identity on ``b``, a top-k EF group with a
+    top-k EF down rule on ``w``, bucketed or per leaf), four rounds from
+    ``PRNGKey(5)`` (masks 1111, a degraded step, 1110, 1011): the group's
+    round defers the direction's scale 4/3 into its downlink's input, one
+    rounding, as the jitted round does; ghat and every group's memories bit
+    for bit.
 * The distributed trainer (4 ranks x 1 worker, ``build_distributed_step``)
   against the in-turn trainer at n = 4, 3 steps with
   ``--participation-q 0.6 --participation-dropout 0.1 --min-workers 3
@@ -47,7 +53,8 @@ from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.diana import DOWN_FOLD, PART_FOLD, aggregate_distributed, init_state, \
     worker_key
 from repro_torch.core.participation import (ChurnEvent, FaultEvent, FaultPlan,
-                                            ParticipationSpec, parse_faults)
+                                            ParticipationSpec, parse_faults, step_ctx)
+from repro_torch.core.policy import CompressionPolicy, parse_rules
 from repro_torch.core.vr import VRState
 from repro_torch.data.pipeline import make_lm_batch
 from repro_torch.launch import train
@@ -62,6 +69,8 @@ CASES = {"diana": dict(block_size=16), "natural": {}, "randk": dict(k=8),
 SHAPES = {"b": (9,), "w": (12, 5)}
 SPEC = dict(q=0.7, dropout=0.2, churn=((1, 3, "leave"), (3, 3, "join")), min_workers=2)
 FAULTS = (dict(step=0, worker=1, kind="corrupt"), dict(step=2, worker=2, kind="drop"))
+GROUPED = "^b$=identity,*=topk_ef:k=8:layout=%s/topk_ef:k=8"
+GROUPED_SEED, GROUPED_ROUNDS = 5, 4
 TRAIN_METHODS = ("diana", "none")
 TRAIN_SPEC = ParticipationSpec(q=0.6, dropout=0.1, min_workers=3)
 TRAIN_FAULTS = "corrupt:step=1,worker=0"
@@ -74,12 +83,13 @@ import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from repro.compat import shard_map
-from repro.core import (ChurnEvent, CompressionConfig, DianaState, FaultEvent, FaultPlan,
-                        ParticipationSpec, VRState, aggregate_shardmap, init_state)
+from repro.core import (ChurnEvent, CompressionConfig, CompressionPolicy, DianaState,
+                        FaultEvent, FaultPlan, ParticipationSpec, VRState, aggregate_shardmap,
+                        init_state, parse_rules)
 from repro.core.diana import DOWN_FOLD, PART_FOLD
 from repro.launch.mesh import make_mesh
 
-CASES, SPEC, FAULTS = %(cases)r, %(spec)r, %(faults)r
+CASES, SPEC, FAULTS, GROUPED = %(cases)r, %(spec)r, %(faults)r, %(grouped)r
 data = np.load(sys.argv[1])
 mesh = make_mesh((4, 1), ("data", "model"))
 n, tmap = 4, jax.tree_util.tree_map
@@ -96,6 +106,9 @@ def save(prefix, t):
     if isinstance(t, dict):
         for k, v in t.items():
             save(f"{prefix}/{k}", v)
+    elif isinstance(t, (list, tuple)):
+        for i, v in enumerate(t):
+            save(f"{prefix}/{i}", v)
     else:
         out[prefix] = np.asarray(t)
 
@@ -130,7 +143,34 @@ def fault_fn(cfg, st):
         out_specs=(rep(params), sh(st.h_worker), rep(st.h_server)),
         axis_names={"data"}, check_vma=False)
 
+def grouped_fn(pol, st):
+    def body(g_st, h_w, h_s, h_d, k, step):
+        widx = jax.lax.axis_index("data")
+        ghat, ns = aggregate_shardmap(
+            tmap(lambda x: x[0], g_st), DianaState(h_w, h_s, None, h_d),
+            jax.random.fold_in(k, widx), pol, axis_names=("data",), n_workers=n,
+            down_key=jax.random.fold_in(k, DOWN_FOLD), part_key=jax.random.fold_in(k, PART_FOLD),
+            step=step, worker_index=widx)
+        return ghat, ns.h_worker, ns.h_server, ns.h_down
+    hd = rep(st.h_down)
+    return shard_map(body, mesh=mesh,
+        in_specs=(sh(params), sh(st.h_worker), rep(st.h_server), hd, P(), P()),
+        out_specs=(rep(params), sh(st.h_worker), rep(st.h_server), hd),
+        axis_names={"data"}, check_vma=False)
+
 tree = lambda name, r: {p: jnp.asarray(data[f"{name}/{p}{r}"]) for p in shapes}
+for layout in ("bucketed", "perleaf"):
+    pol = CompressionPolicy(rules=parse_rules(GROUPED %% layout), bucketed=True,
+                            participation=spec)
+    st = init_state(params, pol, n)
+    hw, hs, hd = st.h_worker, st.h_server, st.h_down
+    f = jax.jit(grouped_fn(pol, st))
+    for r in range(%(grouped_rounds)d):
+        ghat, hw, hs, hd = f(tree("gg", r), hw, hs, hd,
+                             jax.random.fold_in(jax.random.PRNGKey(%(grouped_seed)d), r),
+                             jnp.int32(r))
+        for name, t in (("ghat", ghat), ("hw", hw), ("hs", hs), ("hd", hd)):
+            save(f"grouped/{layout}/{r}/{name}", t)
 for method, kw in CASES.items():
     for layout in ("bucketed", "perleaf"):
         cfg = CompressionConfig(method=method, p=math.inf, bucketed=layout == "bucketed",
@@ -183,6 +223,10 @@ def _inputs():
         for r in range(ROUNDS):
             for name in ("g", "gsnap", "mucand"):
                 data[f"{name}/{p}{r}"] = grid((N, *s))
+    rng = np.random.default_rng(14)    # the grouped rounds' own gradients
+    for p, s in SHAPES.items():
+        for r in range(GROUPED_ROUNDS):
+            data[f"gg/{p}{r}"] = grid((N, *s))
     return data
 
 
@@ -199,6 +243,9 @@ def _save(out, prefix, t):
     if isinstance(t, dict):
         for k, v in t.items():
             _save(out, f"{prefix}/{k}", v)
+    elif isinstance(t, (list, tuple)):
+        for i, v in enumerate(t):
+            _save(out, f"{prefix}/{i}", v)
     else:
         out[prefix] = t.detach().numpy()
 
@@ -253,6 +300,18 @@ def _rank_main(rank, tmp, store):
             calls[f"{method}/{r}"] = names
             for name, t in (("ghat", ghat), ("hw", st.h_worker), ("hs", st.h_server)):
                 _save(out, f"faults/{method}/{r}/{name}", t)
+    for layout in ("bucketed", "perleaf"):
+        pol = CompressionPolicy(rules=parse_rules(GROUPED % layout), bucketed=True,
+                                participation=_spec())
+        st = init_state(params, pol, 1)
+        for r in range(GROUPED_ROUNDS):
+            k = prng.fold_in(prng.PRNGKey(GROUPED_SEED), r)
+            ghat, st = aggregate_distributed(own("gg", r), st, worker_key(k, rank), pol,
+                                             down_key=prng.fold_in(k, DOWN_FOLD),
+                                             part_key=prng.fold_in(k, PART_FOLD), step=r)
+            for name, t in (("ghat", ghat), ("hw", st.h_worker), ("hs", st.h_server),
+                            ("hd", st.h_down)):
+                _save(out, f"grouped/{layout}/{r}/{name}", t)
     # the elastic distributed trainer, 3 steps from the same initial state
     for method in TRAIN_METHODS:
         cfg = _train_config(method)
@@ -279,7 +338,8 @@ def runs(tmp_path_factory):
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     script = JAX_SCRIPT % dict(cases=CASES, spec=SPEC, faults=FAULTS, seed=SEED,
-                               shapes=SHAPES, rounds=ROUNDS)
+                               shapes=SHAPES, rounds=ROUNDS, grouped=GROUPED,
+                               grouped_seed=GROUPED_SEED, grouped_rounds=GROUPED_ROUNDS)
     jproc = subprocess.Popen([sys.executable, "-c", script, str(tmp / "inputs.npz"),
                               str(tmp / "jax.npz")], env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True)
@@ -329,6 +389,17 @@ def test_elastic_faults_bitwise_aggregate_shardmap(runs, method):
         for r in range(ROUNDS):
             (shape,) = c[f"{method}/{r}"]
             assert len(shape) == 2 and shape[1] == 1, shape   # (L + 8, 1) bytes
+
+
+@pytest.mark.parametrize("layout", ["bucketed", "perleaf"])
+def test_elastic_grouped_topk_ef_downlink_bitwise_aggregate_shardmap(runs, layout):
+    """Three participants (scale 4/3) at rounds 2 and 3 of ``PRNGKey(5)``."""
+    jax_out, ranks, _ = runs
+    _check(jax_out, ranks, f"grouped/{layout}/")
+    assert any(k.startswith(f"grouped/{layout}/3/hd/") for k in jax_out)
+    masks = [step_ctx(_spec(), prng.fold_in(prng.fold_in(prng.PRNGKey(GROUPED_SEED), r),
+                                            PART_FOLD), N, r) for r in range(GROUPED_ROUNDS)]
+    assert [int(m.mask.sum()) for m in masks if m.ok][1:] == [3, 3]
 
 
 @pytest.mark.parametrize("method", TRAIN_METHODS)

@@ -18,9 +18,13 @@ grid, n = 4, four steps):
 
 The direction ``h + total * scale`` is one FMA, as the jitted reference
 rounds it (``Compressor.scaled_direction``), so three participants are
-bitwise too.  One composition stays an ulp apart, and the keys avoid it: a
-top-k EF uplink under a top-k EF downlink at three participants, where XLA
-also contracts the downlink's ``ghat + h_down`` across the two rounds.
+bitwise too.  Under a top-k EF uplink and a downlink, the jitted reference
+also contracts the uplink's ``total * scale`` into the downlink's input
+(``ghat + h_down``, or ``ghat - h_down`` for the alpha rule) across the two
+rounds; the port's downlink encodes ``compress_input_scaled`` (one FMA) for
+that uplink, so a top-k EF uplink under a top-k EF (or rand-k) downlink at
+three participants is bitwise too (``PRNGKey(5)``: three of four at steps 2
+and 3), with and without VR.
 """
 
 import math
@@ -154,3 +158,45 @@ def test_faults_bitwise_jax(method, kw):
     _assert_steps(_run(jcfg, tcfg, seed=5, faults=(jplan, tplan)))
 
 
+
+
+@pytest.mark.parametrize("down,bucketed,vr", [
+    ("topk_ef", False, False), ("topk_ef", True, False), ("topk_ef", False, True),
+    ("topk_ef", True, True), ("randk", False, False), ("randk", True, False)],
+    ids=["topk_ef-perleaf", "topk_ef-bucketed", "topk_ef-perleaf-vr", "topk_ef-bucketed-vr",
+         "randk-perleaf", "randk-bucketed"])
+def test_topk_ef_uplink_under_downlink_three_participants_bitwise(down, bucketed, vr):
+    """A top-k EF uplink under a top-k EF or rand-k downlink, PRNGKey(5):
+    masks 1111, a degraded step, then 1110 and 1011, so the direction's
+    scale is 4/3 on two steps.  The downlink's input is the one-FMA
+    ``fma(scale, total, +-h_down)`` of the jitted reference: v, every
+    memory and (with VR) the (snapshot, mu) rows bit for bit."""
+    js_, ts_ = _specs(**SPEC)
+    extra = dict(bucketed=bucketed, vr=vr, vr_p=0.5 if vr else None, down_method=down,
+                 down_k=8)
+    jcfg = JCfg(method="topk_ef", p=math.inf, k=8, use_kernel=False, participation=js_, **extra)
+    tcfg = TCfg(method="topk_ef", p=math.inf, k=8, participation=ts_, **extra)
+    out = _run(jcfg, tcfg, seed=5, vr=vr)
+    _assert_steps(out, ("h_worker", "h_server", "h_down"))
+    if vr:
+        for s, (_, js, _, ts) in enumerate(out):
+            _same_state(ts.vr.snapshot, dict(js.vr.snapshot), f"step {s} snapshot")
+            _same_state(ts.vr.mu, dict(js.vr.mu), f"step {s} mu")
+
+
+@pytest.mark.parametrize("down", ["topk_ef", "randk"])
+@pytest.mark.parametrize("layout", ["bucketed", "perleaf"])
+def test_grouped_topk_ef_uplink_under_downlink_three_participants_bitwise(down, layout):
+    """The same composition inside a grouped policy (identity on ``b``, a
+    top-k EF group with a top-k EF or rand-k down rule on ``w``, the group
+    bucketed or per leaf), PRNGKey(5): the group's round defers the scale
+    4/3 to its downlink as the flat round does.  v and every group's
+    memories bit for bit."""
+    js_, ts_ = _specs(**SPEC)
+    rules = f"^b$=identity,*=topk_ef:k=8:layout={layout}/{down}:k=8"
+    jpol = JPol.CompressionPolicy(rules=JPol.parse_rules(rules), bucketed=True,
+                                  participation=js_)
+    tpol = TPol.CompressionPolicy(rules=TPol.parse_rules(rules), bucketed=True,
+                                  participation=ts_)
+    out = _run(jpol, tpol, seed=5)
+    _assert_steps(out, ("h_worker", "h_server", "h_down"))

@@ -224,18 +224,32 @@ def test_state_from_jax_carries_grouped_states():
 
 
 def test_later_slice_fields_refused():
-    """The chunked / hierarchical schedules' fields are not declared:
-    asking for them raises TypeError, as a JSON document that names them
-    does; a participation that is not a ``ParticipationSpec`` raises it
-    too."""
+    """The wire schedule's fields (``chunk_bytes``, ``topology``,
+    ``node_size``) are accepted and round-trip through JSON as the JAX
+    policy's do (the JAX-only ``worker_axes`` aside); invalid values raise
+    the JAX package's ``ValueError``.  A participation that is not a
+    ``ParticipationSpec`` raises TypeError, as anything but a config or a
+    policy does in ``as_policy``."""
     with pytest.raises(TypeError, match="participation"):
         TP.CompressionPolicy(participation=object())
-    for field, value in (("chunk_bytes", 256), ("topology", "hierarchical"), ("node_size", 2)):
-        with pytest.raises(TypeError, match=field):
-            TP.CompressionPolicy(**{field: value})
-        with pytest.raises(TypeError, match=field):
-            TP.CompressionPolicy.from_json_dict({"rules": [{"pattern": ".*", "method": "diana"}],
-                                                 field: value})
+    rules = [{"pattern": ".*", "method": "diana"}]
+    for kw in (dict(chunk_bytes=256), dict(topology="hierarchical", node_size=2),
+               dict(chunk_bytes=1 << 20, topology="hierarchical", node_size=4), dict()):
+        tpol = TP.CompressionPolicy(bucketed=True, **kw)
+        jpol = JP.CompressionPolicy(bucketed=True, **kw)
+        tdoc, jdoc = tpol.to_json_dict(), jpol.to_json_dict()
+        jdoc.pop("worker_axes")
+        assert tdoc == jdoc
+        assert TP.CompressionPolicy.from_json_dict(jpol.to_json_dict()) == tpol
+        assert JP.CompressionPolicy.from_json_dict(tdoc) == jpol
+        for f in ("chunk_bytes", "topology", "node_size"):
+            assert getattr(tpol.flat_config(), f) == getattr(jpol.flat_config(), f)
+    for field, value in (("chunk_bytes", -1), ("topology", "ring"), ("node_size", 0)):
+        for cls in (TP.CompressionPolicy, JP.CompressionPolicy):
+            with pytest.raises(ValueError, match=field):
+                cls(**{field: value})
+            with pytest.raises(ValueError, match=field):
+                cls.from_json_dict({"rules": rules, field: value})
     with pytest.raises(TypeError):
         TP.as_policy(object())
 
