@@ -184,7 +184,23 @@ Phases (each prints its lines; any failure exits non-zero):
    (relative to ``m2``) of a float64 recomputation of ``measure`` on the
    same served direction;
 16. the full depth: the distributed ``diana`` path on all 16 layers,
-   world of one, 3 steps: finite losses, step times and peak memory.
+   world of one, 3 steps: finite losses, step times and peak memory;
+17. models: the other model families through the in-turn trainer at n = 4,
+   batch 8 x 4096, 3 steps each: ``granite-moe-3b-a800m`` at full width
+   (d_model 1536, 24/8 heads, 40 experts top-8 of d_ff 512, vocab 49155,
+   bf16, remat full) cut to 8 of 32 layers (969,401,856 parameters in 13
+   leaves) with ``--comp-policy default --inner adamw`` (identity on the
+   router and the norm scales, top-k EF on ``embed`` / ``lm_head``,
+   natural on the experts, ternary on attention: each group's encode and
+   own decode 4 times and its server decode once per step, exact);
+   ``mamba2-130m`` at full depth and width (24 layers, 172,157,376
+   parameters, 16 SSD chunks of 256 per sequence), flat ``diana`` at its
+   block of 1024 and then its ``--comp-policy default``; step times, peak,
+   held bytes and launches printed; then every other registered arch,
+   reduced (f32; the hybrid ``jamba`` pattern, the vision and audio
+   frontends, GELU and squared ReLU, the three bf16-memory configs), 2
+   workers, 2 steps through the kernels bitwise the same steps through the
+   plain versions.
 
 Each timed step starts from a Python collection (outside its time); its
 line gives the time of the collections inside it and the caching
@@ -273,8 +289,9 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def state_leaves(x):
     """The tensors of a DIANA state (memories, VR slot, h_down; bucketed,
-    per leaf or grouped) in a fixed order."""
-    if x is None:
+    per leaf or grouped) in a fixed order; an optimizer state's step count
+    is no tensor."""
+    if x is None or isinstance(x, int):
         return []
     if isinstance(x, torch.Tensor):
         return [x]
@@ -289,7 +306,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.configs import ShapeConfig, get_config, reduced
+        from repro_torch.configs import ShapeConfig, get_config, list_archs, reduced
         from repro_torch.core import prng
         from repro_torch.core.bucket import BucketedCompressor, ChunkedSchedule, checksum_words
         from repro_torch.core.controller import BudgetController, init_controller_state
@@ -313,7 +330,9 @@ def main() -> None:
         from repro_torch.launch import train as train_mod
         from repro_torch.launch.train import (build_distributed_step, build_train_step,
                                               controller_tick, init_train_state, make_optimizer)
-        from repro_torch.models.transformer import init_model, param_shapes, train_loss
+        from repro_torch.models.transformer import (count_active_params, count_params,
+                                                    init_model, meta_params, param_shapes,
+                                                    train_loss)
     except ImportError as e:
         fail(f"the repro_torch package is not next to this script ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
@@ -2220,6 +2239,165 @@ def main() -> None:
     dist.all_gather_into_tensor = nccl_gather
     dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ the model families
+    # (a) granite-moe-3b-a800m at full width (8 of 32 layers) with its curated
+    # policy and adamw; (b) mamba2-130m at full depth, flat diana and its
+    # policy; (c) every other registered arch, reduced, through the kernels
+    # bitwise the same steps through the plain versions.
+    models_t0 = time.perf_counter()
+
+    def models_run(pcfg, steps, label, policy=None, inner="momentum"):
+        """``steps`` in-turn steps at n = 4 on batch 8 x 4096; prints the
+        step times, peak, held bytes and launches; returns the launches."""
+        shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
+        opt = make_optimizer(pcfg, policy=policy, inner=inner)
+        params, opt_state = init_train_state(pcfg, opt, WORKERS, dev)
+        step_fn = build_train_step(pcfg, opt, WORKERS, dev)
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in make_lm_batch(pcfg, shape, s).items()} for s in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state_bytes = sum(x.numel() * x.element_size()
+                          for x in [*params.values(), *state_leaves(opt_state.diana),
+                                    *state_leaves(opt_state.inner)])
+        build.reset_launches()
+        times, losses = [], []
+        for s in range(steps):
+            gc.collect()
+            t0 = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batches[s],
+                                             prng.fold_in(prng.PRNGKey(0), s))
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        n = count_params(params)
+        # one worker's forward + backward alone (no DIANA round), to split the step
+        shard = {k: v[:BATCH // WORKERS] for k, v in batches[0].items()}
+        leaves = list(params.values())
+        fb = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(train_loss(params, shard, pcfg), leaves)
+            torch.cuda.synchronize()
+            fb.append(time.perf_counter() - t0)
+            del grads
+        print(f"models: {label}: {pcfg.n_layers} layers, {n} parameters in {len(params)} leaves "
+              f"({count_active_params(pcfg, params)} active per token), batch {BATCH} x seq "
+              f"{SEQ}, {WORKERS} workers in turn, inner {inner}: losses {losses}; step times "
+              f"{times} s; one worker's forward+backward {fb[-1]} s; peak memory {peak} B; held "
+              f"before the steps {held} B (parameters, optimizer and DIANA state {state_bytes} "
+              f"B); launches {counts}")
+        if not all(math.isfinite(x) and 0 < x < 20 for x in losses):
+            fail(f"models: {label}: non-finite or implausible losses {losses}")
+        dts = {str(v.dtype) for k, v in params.items()
+               if k.endswith(("router", "A_log", "dt_bias", "/D"))}
+        if dts - {"torch.float32"}:
+            fail(f"models: {label}: the router / SSD scalars are {dts}, not float32")
+        del params, opt_state, step_fn, batches
+        torch.cuda.empty_cache()
+        return n, counts
+
+    def per_step_want(groups, steps, nw=WORKERS):
+        """The launches of ``steps`` in-turn steps of ``nw`` workers: per
+        step each group's encode and own decode per worker, its server
+        decode once."""
+        kernels = {"identity": ({"dense_copy": nw}, {"dense_decode_sum_mean": 1}),
+                   "topk_ef": ({"sparse_gather": nw, "sparse_decode_sum": nw},
+                               {"sparse_decode_sum_mean": 1}),
+                   "natural": ({"nat_pack_prng": nw, "nat_decode_sum": nw},
+                               {"nat_decode_sum_apply": 1}),
+                   "ternary": ({"quantize_pack_prng": nw, "unpack_reduce": nw},
+                               {"unpack_reduce_apply": 1})}
+        want = {}
+        for g in groups:
+            for part in kernels[g]:
+                for k, v in part.items():
+                    want[k] = want.get(k, 0) + v * steps
+        return want
+
+    gcfg = replace(get_config("granite-moe-3b-a800m"), n_layers=LAYERS)
+    gmeta = meta_params(gcfg)
+    glay = grouped_bucket_layout(make_optimizer(gcfg, policy="default").policy, gmeta)
+    print(f"models: granite-moe-3b-a800m ({gcfg.citation}) --comp-policy default = "
+          f"{gcfg.comp_policy!r}: groups "
+          + ", ".join(f"{g} {l.n_leaves} leaves {l.size} coordinates"
+                      for g, l in zip(glay.names, glay.layouts)))
+    n, counts = models_run(gcfg, STEPS, "granite-moe-3b-a800m --comp-policy default --inner "
+                           "adamw", policy="default", inner="adamw")
+    want = per_step_want(("identity", "topk_ef", "natural", "ternary"), STEPS)
+    if n != 969_401_856 or counts != want:
+        fail(f"models: granite-moe: {n} parameters, launches {counts}, expected 969401856 "
+             f"and {want}")
+    also(f"granite-moe {LAYERS} layers --comp-policy default --inner adamw "
+         f"(4 workers, {STEPS} steps)", counts)
+
+    mcfg = get_config("mamba2-130m")
+    n, counts = models_run(mcfg, STEPS, f"mamba2-130m ({mcfg.citation}) diana block "
+                           f"{mcfg.comp_block}")
+    if n != 172_157_376 or counts != per_step_want(("ternary",), STEPS):
+        fail(f"models: mamba2: {n} parameters, launches {counts}")
+    also(f"mamba2-130m {mcfg.n_layers} layers diana (4 workers, {STEPS} steps)", counts)
+    _, counts = models_run(mcfg, STEPS, f"mamba2-130m --comp-policy default = "
+                           f"{mcfg.comp_policy!r}", policy="default")
+    if counts != per_step_want(("identity", "topk_ef", "ternary"), STEPS):
+        fail(f"models: mamba2 --comp-policy default: launches {counts}")
+    also(f"mamba2-130m {mcfg.n_layers} layers --comp-policy default (4 workers, {STEPS} "
+         "steps)", counts)
+
+    mshape = ShapeConfig("smoke", 64, 4, "train")
+    for arch in list_archs():
+        if arch in ("granite-moe-3b-a800m", "mamba2-130m"):
+            continue
+        acfg = reduced(get_config(arch))
+        ainit = init_model(acfg, "cpu", seed=3)
+        abatches = [{k: torch.from_numpy(v).to(dev)
+                     for k, v in make_lm_batch(acfg, mshape, s).items()} for s in range(2)]
+
+        def train_arch():
+            params = {k: torch.nn.Parameter(v.detach().to(dev, copy=True))
+                      for k, v in ainit.items()}
+            opt = make_optimizer(acfg)
+            st = opt.init(params, 2)
+            fn = build_train_step(acfg, opt, 2, dev)
+            losses = []
+            for s, batch in enumerate(abatches):
+                params, st, met = fn(params, st, batch, prng.fold_in(prng.PRNGKey(0), s))
+                losses.append(float(met["loss"]))
+            return losses, params, st.diana
+
+        build.reset_launches()
+        k_loss, k_params, k_diana = train_arch()
+        kcounts = dict(build.LAUNCHES)
+        on_card = ops._on_card
+        ops._on_card = lambda t: False      # the same steps, every kernel -> its plain version
+        try:
+            p_loss, p_params, p_diana = train_arch()
+        finally:
+            ops._on_card = on_card
+        k_leaves, p_leaves = state_leaves(k_diana), state_leaves(p_diana)
+        same = (k_loss == p_loss
+                and all(torch.equal(k_params[k], p_params[k]) for k in k_params)
+                and len(k_leaves) == len(p_leaves)
+                and all(torch.equal(a, b) for a, b in zip(k_leaves, p_leaves)))
+        print(f"models: reduced {arch} ({acfg.arch_type}, act {acfg.act}, pattern "
+              f"{len(acfg.pattern)} x {acfg.n_blocks}, frontend {acfg.frontend}, h_dtype "
+              f"{acfg.h_dtype}), {acfg.compression}, 2 workers, 2 steps on the card: losses "
+              f"{k_loss} with the kernels, {p_loss} with the plain versions (states bitwise "
+              f"equal: {same}, {len(k_leaves)} state tensors, memories "
+              f"{sorted({str(x.dtype) for x in k_leaves})}); kernel launches {kcounts}")
+        if not same or kcounts != per_step_want(("ternary",), 2, 2) or not all(
+                math.isfinite(x) for x in k_loss):
+            fail(f"models: reduced {arch}: the steps through the kernels differ from the plain "
+                 f"versions, or launches {kcounts}")
+        also(f"reduced {arch} (2 workers, 2 steps)", kcounts)
+        del k_params, p_params, k_diana, p_diana, k_leaves, p_leaves, abatches, ainit
+    torch.cuda.empty_cache()
+    print(f"models: the phase took {time.perf_counter() - models_t0:.1f} s")
 
     for r in rows:
         r["launches"], r["path"] = credit.get(r["name"], (0, None))

@@ -22,9 +22,12 @@ def config() -> ModelConfig:
         vocab=128256,
         act="swiglu",
         rope_theta=500_000.0,
-        # The curated policy (--comp-policy default): norm scales exact,
-        # the token-sparse embedding and LM head top-k with error feedback,
-        # the dense bulk the paper's ternary operator.
+        sliding_window=8192,          # engaged only by long_500k
+        # Curated transformer policy (--comp-policy default): norms/biases
+        # are tiny and conditioning-critical -> exact; embedding/unembedding
+        # gradients are token-sparse -> top-k with error feedback; the dense
+        # bulk runs the paper's ternary operator.  Theory-optimal per Def. 2:
+        # each group's rate is governed by its own alpha_p(d_l).
         comp_policy=("scale$|bias=identity,"
                      "^embed$|^lm_head$=topk_ef:k=256,"
                      "*=diana"),

@@ -5,8 +5,11 @@ arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into the port's
 ``{path: nn.Parameter}`` tree; ``state_from_jax`` does the same for a
 ``repro.core.diana.ReferenceState`` (``h_worker``, ``h_server``, ``v``, and
 the VR slot's ``snapshot`` / ``mu`` and ``h_down`` when present), flat or
-grouped (dicts keyed by group name, a list of arrays for a per-leaf group).
-Arrays are copied bit for bit; parameters take ``cfg.param_dtype``.
+grouped (dicts keyed by group name, a list of arrays for a per-leaf group);
+``adam_state_from_jax`` turns the inner optimizer's
+``repro.optim.optimizers.AdamState`` into the port's.  Arrays are copied bit
+for bit and keep their JAX dtypes: a bf16 model's f32 leaves (the MoE
+router, the SSD scalars ``dt_bias`` / ``A_log`` / ``D``) stay f32.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import torch.nn as nn
 from repro_torch.core.diana import ReferenceState
 from repro_torch.core.tree import flatten_nested
 from repro_torch.core.vr import VRState
+from repro_torch.optim.optimizers import AdamState
 
-__all__ = ["params_from_jax", "state_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "state_from_jax", "adam_state_from_jax", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
@@ -35,8 +39,17 @@ def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
 
 
 def params_from_jax(np_tree: Mapping[str, Any], cfg, device) -> Dict[str, nn.Parameter]:
-    return {p: nn.Parameter(tensor_from_numpy(a, device, cfg.param_dtype))
+    """The JAX parameter tree -> ``{path: nn.Parameter}``, each leaf in its
+    JAX dtype (``cfg`` names the model the tree belongs to)."""
+    return {p: nn.Parameter(tensor_from_numpy(a, device))
             for p, a in flatten_nested(np_tree).items()}
+
+
+def adam_state_from_jax(adam_state, device) -> AdamState:
+    """``AdamState(mu, nu, count)`` with numpy leaves (nested ``mu`` / ``nu``
+    trees, a 0-dim int32 ``count``) -> the port's, ``count`` a Python int."""
+    return AdamState(mu=_tree(adam_state.mu, device), nu=_tree(adam_state.nu, device),
+                     count=int(np.asarray(adam_state.count)))
 
 
 def _leaf(a, device):

@@ -760,7 +760,7 @@ def _reference_agg_perleaf(grads_per_worker, h_worker, h_server, key, cfg, gfold
         d = grads_per_worker[p].shape[1:].numel()
         stacked = Payload.stack(payloads[p])
         if part is None:
-            g_flat, new_hs[p] = comp.decode_sum_apply(stacked, n, d, h_server[p])
+            g_flat, new_hs[p] = comp.decode_sum_apply(stacked, n, d, h_server[p].float())
         else:
             g_flat, new_hs[p], scale = _masked_server_tail(
                 comp, h_server[p].float(), comp.decode_sum(stacked.mask_workers(part.mask), n, d),
@@ -821,7 +821,7 @@ def _reference_agg_bucketed(grads_per_worker, h_worker, h_server, key, cfg, gfol
     new_h = torch.stack(new_h)
     stacked = [Payload.stack([pays[c] for pays in payloads]) for c in range(sched.n_chunks)]
     if part is None:
-        ghat_flat, new_hs = _server_chunks(cfg, sched, _taker(stacked), n, h_server)
+        ghat_flat, new_hs = _server_chunks(cfg, sched, _taker(stacked), n, h_server.float())
         if node_size > 1:
             # every worker of a node stores the node's memory row
             new_h = torch.repeat_interleave(new_h, node_size, dim=0)

@@ -50,14 +50,21 @@ class LMStream:
 
 def make_lm_batch(cfg, shape, step: int, seed: int = 0,
                   n_workers: int = 1) -> Dict[str, np.ndarray]:
-    """One int32 batch (tokens, and labels for train shapes)."""
+    """One batch of :func:`~repro_torch.configs.shapes.input_shapes`: int32
+    tokens (and labels for train shapes), and a frontend model's f32 stub
+    embeddings drawn from ``default_rng(seed * 999_983 + step)``, the JAX
+    package's arrays."""
     shapes = input_shapes(cfg, shape)
+    rng = np.random.default_rng(seed * 999_983 + step)
     b, s = shapes["tokens"]
     stream = LMStream(vocab=cfg.vocab, seq_len=s, batch=b, seed=seed + step,
                       n_workers=n_workers)
     out = {"tokens": stream.batch_at(step)["tokens"]}
     if "labels" in shapes:
         out["labels"] = np.roll(out["tokens"], -1, axis=1)
+    for k in ("vision_embeds", "audio_embeds"):
+        if k in shapes:
+            out[k] = rng.standard_normal(shapes[k]).astype(np.float32)
     return out
 
 

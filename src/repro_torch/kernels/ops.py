@@ -109,8 +109,18 @@ def unpack_reduce_mean_op(packed: torch.Tensor, scales: torch.Tensor) -> torch.T
     return ref.ref_unpack_reduce_mean(packed, scales)
 
 
+def _f32_memory(h: torch.Tensor, name: str) -> None:
+    """The apply kernels read and write the server memory in f32; the plain
+    versions hold the callers to the same contract (a bf16 ``h_dtype`` is
+    widened by the round before the server rule, and rounded back after)."""
+    if h.dtype != torch.float32:
+        raise ValueError(f"{name}: the server memory must be float32 (got {h.dtype}); "
+                         "the round widens an h_dtype memory before the server rule")
+
+
 def unpack_reduce_apply_op(packed: torch.Tensor, scales: torch.Tensor, h: torch.Tensor,
                            *, alpha: float):
+    _f32_memory(h, "unpack_reduce_apply")
     if _on_card(packed):
         return unpack_reduce_apply(packed, scales, h, alpha=alpha)
     return ref.ref_unpack_reduce_apply(packed, scales, h, alpha, packed.shape[0])
@@ -147,6 +157,7 @@ def nat_decode_sum_mean_op(codes: torch.Tensor) -> torch.Tensor:
 
 
 def nat_decode_sum_apply_op(codes: torch.Tensor, h: torch.Tensor, *, alpha: float):
+    _f32_memory(h, "nat_decode_sum_apply")
     if _on_card(codes):
         return nat_decode_sum_apply(codes, h, alpha=alpha)
     return ref.ref_nat_decode_sum_apply(codes, h, alpha)

@@ -103,7 +103,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import ShapeConfig, get_config, get_shape, reduced
+from repro_torch.configs import ShapeConfig, get_config, get_shape, list_archs, reduced
 from repro_torch.core import prng
 from repro_torch.core import tree as T
 from repro_torch.core.bucket import (ChunkedSchedule, bucketed_compressor, unfuse_payload,
@@ -127,9 +127,9 @@ from repro_torch.core.telemetry import GroupTelemetry, from_moments, group_momen
 from repro_torch.core.vr import control_variate, reference_coins, resolve_vr_p
 from repro_torch.core.numerics import div_n
 from repro_torch.data.pipeline import make_lm_batch
-from repro_torch.models.transformer import init_model, param_shapes, train_loss
+from repro_torch.models.transformer import init_model, meta_params, train_loss
 from repro_torch.optim.diana_optimizer import DianaOptimizer
-from repro_torch.optim.optimizers import constant_schedule, momentum, sgd
+from repro_torch.optim.optimizers import adamw, constant_schedule, momentum, sgd
 
 __all__ = ["resolve_device", "resolve_policy_arg", "make_optimizer", "init_train_state",
            "build_train_step", "build_distributed_step", "init_distributed", "parse_mesh",
@@ -173,10 +173,9 @@ def resolve_policy_arg(cfg, policy) -> CompressionPolicy:
     model_wide = dict(bucketed=cfg.comp_bucketed, h_dtype=cfg.h_dtype, vr=cfg.vr,
                       vr_p=cfg.vr_p)
     if policy == "size-adaptive":
-        shapes = {p: torch.empty(s, device="meta") for p, s in param_shapes(cfg).items()}
-        return CompressionPolicy.size_adaptive(
-            shapes, large=ChannelSpec(method=cfg.compression, k=cfg.comp_k,
-                                      block_size=cfg.comp_block, p=cfg.comp_p), **model_wide)
+        large = ChannelSpec(method=cfg.compression, k=cfg.comp_k, block_size=cfg.comp_block,
+                            p=cfg.comp_p)
+        return CompressionPolicy.size_adaptive(meta_params(cfg), large=large, **model_wide)
     return load_policy(policy, **model_wide)
 
 
@@ -187,10 +186,12 @@ def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: floa
     (:func:`resolve_policy_arg`), else the model config's flat ``comp_*``
     fields; ``participation`` (a
     :class:`~repro_torch.core.participation.ParticipationSpec`) rides
-    either whole."""
-    if inner not in ("momentum", "sgd"):
-        raise NotImplementedError(f"inner optimizer {inner!r} is not ported yet")
-    inner_opt = momentum(beta) if inner == "momentum" else sgd()
+    either whole.  ``inner`` is ``momentum`` (heavy-ball, ``beta``),
+    ``adamw`` (the JAX package's defaults) or ``sgd``."""
+    inners = {"momentum": lambda: momentum(beta), "adamw": adamw, "sgd": sgd}
+    if inner not in inners:
+        raise ValueError(f"unknown inner optimizer {inner!r}; available: {sorted(inners)}")
+    inner_opt = inners[inner]()
     if policy is not None:
         if compression is not None:
             raise ValueError("pass either compression= or policy=, not both")
@@ -384,12 +385,15 @@ class _BucketedRound:
 
     def finish(self):
         """``(ghat, scale)``: ``ghat`` as f32 leaves, ``scale`` the masked
-        tail's deferred one (or None); ``h_server`` updated in place."""
+        tail's deferred one (or None); ``h_server`` updated in place.  The
+        server rule reads the memory in f32 and writes it back in
+        ``h_dtype``, as the JAX round does (a bf16 memory: an f32 copy in,
+        each chunk's new slice rounded into the held buffer)."""
         self.g_flat = self.pool = None
         part, sched = self.el.part, self.sched
         take = _taker(self.gathered)
         if part is None:
-            ghat_flat, _ = _server_chunks(self.cfg, sched, take, self.rows, self.hs,
+            ghat_flat, _ = _server_chunks(self.cfg, sched, take, self.rows, self.hs.float(),
                                           hs_out=self.hs)
             self.gathered = None
             return self.layout.unflatten(ghat_flat, cast=False), None
@@ -442,7 +446,7 @@ class _PerLeafRound:
             stacked = Payload.stack(self.payloads.pop(p))
             d = self.hs[p].numel()
             if part is None:
-                g, new_hs = self.comp.decode_sum_apply(stacked, self.n, d, self.hs[p])
+                g, new_hs = self.comp.decode_sum_apply(stacked, self.n, d, self.hs[p].float())
             else:
                 total = self.comp.decode_sum(stacked.mask_workers_(part.mask), self.n, d)
                 g, new_hs, scale = _masked_server_tail(self.comp, self.hs[p].float(), total,
@@ -720,11 +724,13 @@ def controller_tick(controller, cstate, opt, opt_state, step_fn, metrics, params
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="DIANA trainer (PyTorch/CUDA port)")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--inner", default="momentum", choices=["momentum", "sgd"])
+    ap.add_argument("--inner", default="momentum", choices=["momentum", "adamw", "sgd"],
+                    help="the inner optimizer on ghat (the JAX CLI's momentum and adamw, "
+                         "and plain sgd)")
     ap.add_argument("--compression", default=None, choices=[None, *available_methods()])
     ap.add_argument("--comp-k", type=int, default=None,
                     help="coordinates kept per leaf by rand-k / top-k (default: the "

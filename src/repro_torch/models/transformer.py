@@ -1,132 +1,264 @@
-"""Dense decoder-only transformer: embeddings, the block stack, LM head, and
-the chunked next-token cross-entropy.
+"""Decoder-only model family: embeddings (with the frontend stubs), the block
+stack, the LM head, and the chunked next-token cross-entropy (plus the MoE
+aux loss).
+
+One code path serves the ten architectures through the config's ``pattern``
+(a repeating tuple of :class:`~repro_torch.configs.base.LayerSpec`): dense
+GQA transformers, MoE, pure SSM (mamba2), the Jamba hybrid interleave and
+the vision / audio frontend-stub models.
 
 Parameters keep the JAX package's tree (``repro.models.transformer``):
-``embed`` (V_pad, D), ``final_norm/scale``, ``lm_head`` (D, V_pad), and every
-block leaf stacked over ``n_blocks`` under ``blocks/layer0/...`` — one
-``nn.Parameter`` per leaf, keyed by its path.  The bucket layout and the
-per-leaf PRNG keys follow that tree's leaf order, so any other layout would
-break payload parity with the JAX package.
+``embed`` (V_pad, D), ``final_norm/scale``, ``lm_head`` (D, V_pad, absent
+with ``tie_embeddings``), ``frontend_proj/{w,b}`` for a frontend model, and
+every block leaf stacked over ``n_blocks`` under ``blocks/layer{i}/...``, one
+per position ``i`` of the pattern: ``norm1/scale``, the mixer (attention's
+``wq`` / ``wk`` / ``wv`` / ``wo`` or Mamba-2's eight leaves), and unless the
+layer has no MLP ``norm2/scale`` and the MLP (``w_in`` / ``w_out`` and
+SwiGLU's ``w_gate``, or the MoE's ``router`` and stacked experts).  One
+``nn.Parameter`` per leaf, keyed by its path, in the JAX leaf's dtype: the
+MoE router and the SSD scalars (``dt_bias``, ``A_log``, ``D``) are f32
+whatever ``param_dtype`` is.  The bucket layout and the per-leaf PRNG keys
+follow that tree's leaf order, so any other layout would break payload
+parity with the JAX package.
 
 ``remat="full"`` recomputes each block in the backward
-(``torch.utils.checkpoint``), like ``jax.checkpoint`` around the scanned block.
+(``torch.utils.checkpoint``), like ``jax.checkpoint`` around the scanned
+block.  ``remat="dots"`` (save only the matrix products) is reachable only
+from the JAX package's dry run and is not ported.
 """
 
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.configs.shapes import FRONTEND_DIM
+
 from . import layers as L
+from . import mamba2 as M
+from .moe import moe_layer
 
-__all__ = ["init_model", "param_shapes", "Transformer", "forward", "train_loss",
-           "CE_SEQ_CHUNK", "BLOCK"]
+__all__ = ["init_model", "param_shapes", "param_dtypes", "meta_params", "Transformer",
+           "forward", "train_loss", "count_params", "count_active_params",
+           "model_flops_per_token", "CE_SEQ_CHUNK", "FRONTEND_DIM"]
 
-BLOCK = "blocks/layer0/"
 CE_SEQ_CHUNK = 512
 
+_ONES, _ZEROS, _A_LOG = "ones", "zeros", "a_log"
 
-def _block_shapes(cfg) -> Dict[str, tuple]:
-    d, f = cfg.d_model, cfg.d_ff
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    shapes = {
-        "norm1/scale": (d,), "norm2/scale": (d,),
-        "mixer/wq": (d, h * dh), "mixer/wk": (d, hkv * dh),
-        "mixer/wv": (d, hkv * dh), "mixer/wo": (h * dh, d),
-        "mlp/w_in": (d, f), "mlp/w_out": (f, d),
-    }
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"activation {cfg.act!r} comes with the other model "
-                                  "families (ROADMAP.md queue 1)")
-    shapes["mlp/w_gate"] = (d, f)
-    return shapes
+
+def _layer_specs(spec, cfg) -> Dict[str, tuple]:
+    """``{name: (shape, init, f32)}`` of one layer (unstacked): ``init`` is
+    a std for a normal draw, or how a constant leaf starts."""
+    d, deep = cfg.d_model, math.sqrt(2 * cfg.n_layers)
+    out = {"norm1/scale": ((d,), _ONES, False)}
+    if spec.mlp != "none":
+        out["norm2/scale"] = ((d,), _ONES, False)
+    if spec.mixer == "attn":
+        h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        s = 1 / math.sqrt(d)
+        out.update({"mixer/wq": ((d, h * dh), s, False), "mixer/wk": ((d, hkv * dh), s, False),
+                    "mixer/wv": ((d, hkv * dh), s, False),
+                    "mixer/wo": ((h * dh, d), s / deep, False)})
+    elif spec.mixer == "mamba":
+        d_in = M.dims(cfg)[1]
+        std = {"in_proj": 1 / math.sqrt(d), "conv_w": 1 / math.sqrt(cfg.ssm.conv_width),
+               "conv_b": _ZEROS, "dt_bias": _ZEROS, "A_log": _A_LOG, "D": _ONES,
+               "norm_scale": _ONES, "out_proj": 1 / math.sqrt(d_in) / deep}
+        out.update({f"mixer/{k}": (shape, std[k], f32)
+                    for k, (shape, f32) in M.mamba_shapes(cfg).items()})
+    else:
+        raise ValueError(spec.mixer)
+    if spec.mlp == "dense":
+        f = cfg.d_ff
+        if cfg.act not in ("swiglu", "gelu", "relu2"):
+            raise ValueError(f"unknown activation {cfg.act}")
+        out.update({"mlp/w_in": ((d, f), 1 / math.sqrt(d), False),
+                    "mlp/w_out": ((f, d), 1 / math.sqrt(f) / deep, False)})
+        if cfg.act == "swiglu":
+            out["mlp/w_gate"] = ((d, f), 1 / math.sqrt(d), False)
+    elif spec.mlp == "moe":
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff
+        out.update({"mlp/router": ((d, e), 1 / math.sqrt(d), True),
+                    "mlp/w_in": ((e, d, f), 1 / math.sqrt(d), False),
+                    "mlp/w_gate": ((e, d, f), 1 / math.sqrt(d), False),
+                    "mlp/w_out": ((e, f, d), 1 / math.sqrt(f) / deep, False)})
+    elif spec.mlp != "none":
+        raise ValueError(spec.mlp)
+    return out
+
+
+def _specs(cfg) -> Dict[str, tuple]:
+    """``{path: (shape, init, f32)}`` of the whole tree, block leaves stacked."""
+    d, vpad, nb = cfg.d_model, cfg.padded_vocab, cfg.n_blocks
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is reachable only from the JAX package's dry run; it is "
+            "queued with the model axis and the benchmarks (ROADMAP.md queue 1 item 11)")
+    specs = {"embed": ((vpad, d), 0.02, False), "final_norm/scale": ((d,), _ONES, False)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((d, vpad), 0.02, False)
+    if cfg.frontend != "none":
+        fdim = FRONTEND_DIM[cfg.frontend]
+        specs["frontend_proj/w"] = ((fdim, d), 1 / math.sqrt(fdim), False)
+        specs["frontend_proj/b"] = ((d,), _ZEROS, False)
+    for i, spec in enumerate(cfg.pattern):
+        for n, (shape, init, f32) in _layer_specs(spec, cfg).items():
+            specs[f"blocks/layer{i}/{n}"] = ((nb, *shape), init, f32)
+    return specs
 
 
 def param_shapes(cfg) -> Dict[str, tuple]:
     """``{path: shape}`` of the parameter tree (block leaves stacked)."""
-    d, vpad, nb = cfg.d_model, cfg.padded_vocab, cfg.n_blocks
-    shapes = {"embed": (vpad, d), "final_norm/scale": (d,), "lm_head": (d, vpad)}
-    shapes.update({BLOCK + n: (nb, *s) for n, s in _block_shapes(cfg).items()})
-    return shapes
+    return {p: s for p, (s, _, _) in _specs(cfg).items()}
+
+
+def param_dtypes(cfg) -> Dict[str, torch.dtype]:
+    """``{path: dtype}``: f32 for the router and the SSD scalars,
+    ``cfg.param_dtype`` for every other leaf (``init_model``'s)."""
+    return {p: torch.float32 if f32 else cfg.param_dtype for p, (_, _, f32) in _specs(cfg).items()}
+
+
+def meta_params(cfg) -> Dict[str, torch.Tensor]:
+    """The tree as ``meta`` tensors (shapes and dtypes, no storage)."""
+    dts = param_dtypes(cfg)
+    return {p: torch.empty(s, dtype=dts[p], device="meta") for p, s in param_shapes(cfg).items()}
 
 
 def init_model(cfg, device, seed: int = 0) -> Dict[str, nn.Parameter]:
-    """Random weights from a ``torch.Generator`` (the JAX package's scales,
-    not its numbers: parity tests load JAX weights through ``convert.py``)."""
+    """Random weights from a ``torch.Generator`` (the JAX package's scales
+    and constants, not its numbers: parity tests load JAX weights through
+    ``convert.py``)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    d, f = cfg.d_model, cfg.d_ff
-    deep = math.sqrt(2 * cfg.n_layers)
-    std = {"embed": 0.02, "lm_head": 0.02,
-           BLOCK + "mixer/wq": 1 / math.sqrt(d), BLOCK + "mixer/wk": 1 / math.sqrt(d),
-           BLOCK + "mixer/wv": 1 / math.sqrt(d), BLOCK + "mixer/wo": 1 / math.sqrt(d) / deep,
-           BLOCK + "mlp/w_in": 1 / math.sqrt(d), BLOCK + "mlp/w_gate": 1 / math.sqrt(d),
-           BLOCK + "mlp/w_out": 1 / math.sqrt(f) / deep}
     params = {}
-    for path, shape in param_shapes(cfg).items():
-        if path.endswith("scale"):
+    for path, (shape, init, f32) in _specs(cfg).items():
+        if init == _ONES:
             x = torch.ones(shape, device=device)
+        elif init == _ZEROS:
+            x = torch.zeros(shape, device=device)
+        elif init == _A_LOG:
+            x = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device)).expand(shape)
         else:
-            x = torch.randn(shape, generator=gen, device=device) * std[path]
-        params[path] = nn.Parameter(x.to(cfg.param_dtype))
+            x = torch.randn(shape, generator=gen, device=device) * init
+        params[path] = nn.Parameter(x.to(torch.float32 if f32 else cfg.param_dtype).contiguous())
     return params
 
 
-def _block(x, positions, lp, cfg):
-    h = L.rms_norm(lp["norm1/scale"], x, cfg.norm_eps)
-    x = x + L.attention({k[6:]: v for k, v in lp.items() if k.startswith("mixer/")},
-                        h, cfg, positions)
-    h2 = L.rms_norm(lp["norm2/scale"], x, cfg.norm_eps)
-    return x + L.mlp({k[4:]: v for k, v in lp.items() if k.startswith("mlp/")}, h2, cfg)
+def _block(x, aux, positions, lp, cfg, window):
+    """One pattern block over ``lp`` (``{layer{i}/...: tensor}``)."""
+    for i, spec in enumerate(cfg.pattern):
+        pre = f"layer{i}/"
+        sub = lambda part: {k[len(pre) + len(part):]: v for k, v in lp.items()  # noqa: E731
+                            if k.startswith(pre + part)}
+        h = L.rms_norm(lp[pre + "norm1/scale"], x, cfg.norm_eps)
+        if spec.mixer == "attn":
+            x = x + L.attention(sub("mixer/"), h, cfg, positions, window)
+        else:
+            x = x + M.mamba_layer(sub("mixer/"), h, cfg)
+        if spec.mlp != "none":
+            h2 = L.rms_norm(lp[pre + "norm2/scale"], x, cfg.norm_eps)
+            if spec.mlp == "moe":
+                y, a = moe_layer(sub("mlp/"), h2, cfg)
+                aux = aux + a
+            else:
+                y = L.mlp(sub("mlp/"), h2, cfg)
+            x = x + y
+    return x, aux
 
 
-def forward(params: Mapping[str, torch.Tensor], tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """tokens (B, S) -> final hidden states (B, S, D) after the final norm."""
-    b, s = tokens.shape
-    x = torch.nn.functional.embedding(tokens.long(), params["embed"].to(cfg.compute_dtype))
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    names = list(_block_shapes(cfg))
-    stacked = {n: params[BLOCK + n].unbind(0) for n in names}
-    body = partial(_block, cfg=cfg)
+def _embed_inputs(params, batch, cfg) -> torch.Tensor:
+    """The input sequence: the frontend stub's projected embeddings, then
+    the token embeddings."""
+    cdt = cfg.compute_dtype
+    parts = []
+    key = f"{cfg.frontend}_embeds"
+    if cfg.frontend != "none" and key in batch:
+        w, b = params["frontend_proj/w"].to(cdt), params["frontend_proj/b"].to(cdt)
+        parts.append(batch[key].to(cdt) @ w + b)
+    if "tokens" in batch:
+        parts.append(torch.nn.functional.embedding(batch["tokens"].long(),
+                                                   params["embed"].to(cdt)))
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def forward(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor], cfg,
+            window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch -> (final hidden states (B, S, D) after the final norm, the
+    summed MoE aux loss, a 0-dim f32)."""
+    x = _embed_inputs(params, batch, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    names = [p[len("blocks/"):] for p in params if p.startswith("blocks/")]
+    stacked = {n: params["blocks/" + n].unbind(0) for n in names}
+    body = partial(_block, cfg=cfg, window=window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):
         lp = {n: stacked[n][i] for n in names}
         if cfg.remat == "full":
-            x = checkpoint(body, x, positions, lp, use_reentrant=False)
+            x, aux = checkpoint(body, x, aux, positions, lp, use_reentrant=False)
         else:
-            x = body(x, positions, lp)
-    return L.rms_norm(params["final_norm/scale"], x, cfg.norm_eps)
+            x, aux = body(x, aux, positions, lp)
+    return L.rms_norm(params["final_norm/scale"], x, cfg.norm_eps), aux
 
 
 def _ce_chunk(xc, lc, head):
-    logits = (xc @ head).float()
+    logits = L.wide(xc @ head)
     logz = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, lc[..., None].long())[..., 0]
     return torch.sum(logz - picked)
 
 
 def train_loss(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor],
-               cfg) -> torch.Tensor:
-    """Mean next-token cross-entropy, computed per sequence chunk of
-    ``CE_SEQ_CHUNK`` so the (B, S, V) logits never exist at once."""
-    x = forward(params, batch["tokens"], cfg)
+               cfg, window: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy plus the MoE aux loss, the CE computed
+    per sequence chunk of ``CE_SEQ_CHUNK`` so the (B, S, V) logits never
+    exist at once.  A frontend model's loss covers the token span only (its
+    frontend positions are context)."""
+    x, aux = forward(params, batch, cfg, window)
     if "labels" in batch:
         labels = batch["labels"]
     else:
         labels = batch["tokens"][:, 1:]
         x = x[:, :-1]
-    head = params["lm_head"].to(cfg.compute_dtype)
+    if cfg.frontend != "none" and "tokens" in batch and x.shape[1] != labels.shape[1]:
+        x = x[:, -labels.shape[1]:]                      # drop the frontend positions
+    head = (params["embed"].t() if cfg.tie_embeddings else params["lm_head"]).to(cfg.compute_dtype)
     s, cs = x.shape[1], CE_SEQ_CHUNK
     if s > cs and s % cs == 0:
         total = sum(checkpoint(_ce_chunk, x[:, i:i + cs], labels[:, i:i + cs], head,
                                use_reentrant=False) for i in range(0, s, cs))
     else:
         total = _ce_chunk(x, labels, head)
-    return total / labels.numel()
+    return total / labels.numel() + aux
+
+
+def count_params(params: Mapping[str, torch.Tensor]) -> int:
+    return sum(x.numel() for x in params.values())
+
+
+def count_active_params(cfg, params: Mapping[str, torch.Tensor]) -> int:
+    """Active parameters per token (MoE: ``top_k`` of ``n_experts``; the
+    router counts whole)."""
+    total = count_params(params)
+    if cfg.moe is None:
+        return total
+    moe_leaves = sum(x.numel() for p, x in params.items()
+                     if any(p.startswith(f"blocks/layer{i}/mlp/")
+                            for i, spec in enumerate(cfg.pattern) if spec.mlp == "moe")
+                     and p.rsplit("/", 1)[-1] != "router")
+    frac = cfg.moe.top_k / cfg.moe.n_experts
+    return int(total - moe_leaves * (1 - frac))
+
+
+def model_flops_per_token(cfg, params: Mapping[str, torch.Tensor]) -> float:
+    """``6 * N_active`` per token."""
+    return 6.0 * count_active_params(cfg, params)
 
 
 class Transformer(nn.Module):

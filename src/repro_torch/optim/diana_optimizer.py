@@ -97,11 +97,13 @@ class DianaOptimizer:
                         new_diana: DianaState) -> DianaOptState:
         """Steps 3-4: inner update on ``ghat``, then ``p <- prox_{lr R}(
         (p.float() + u))`` rounded to the parameter dtype, written into the
-        parameters.  The prox reads lr as an f32 scalar, the JAX schedule's
-        value, so ``lr * lam`` rounds in f32 as there."""
+        parameters.  The schedule gives lr as a float or a 0-dim f32 tensor;
+        the prox reads it as an f32 scalar, the JAX schedule's value, so
+        ``lr * lam`` rounds in f32 as there."""
         lr = self.schedule(state.step)
         updates, inner = self.inner.update(ghat, state.inner, params, lr)
-        gamma = torch.tensor(lr, dtype=torch.float32)
+        gamma = (lr.float() if isinstance(lr, torch.Tensor)
+                 else torch.tensor(lr, dtype=torch.float32))
         for p, u in updates.items():
             x = (params[p].float() + u).to(params[p].dtype)
             params[p].copy_(self.regularizer.prox(x, gamma))
