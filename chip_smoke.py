@@ -200,7 +200,21 @@ Phases (each prints its lines; any failure exits non-zero):
    reduced (f32; the hybrid ``jamba`` pattern, the vision and audio
    frontends, GELU and squared ReLU, the three bf16-memory configs), 2
    workers, 2 steps through the kernels bitwise the same steps through the
-   plain versions.
+   plain versions;
+18. serve: serving, which launches none of the kernels (:func:`serve_phase`):
+   ``llama3.2-1b`` at full width and depth, decoding 16 tokens at batch 32
+   against caches of 32,768 positions through ``build_serve_step`` (ms per
+   token against the byte bound of reading the whole cache and the
+   weights, twice from the same state bitwise, the logits against the
+   forward over the same tokens), its prefill of one 32,768-token prompt
+   through ``build_prefill``, and ``long_500k`` through the CLI (the
+   8192-slot ring buffer); ``mamba2-130m`` at full depth, decode_32k at
+   its batch of 128 in process (the same checks) and through the CLI, then
+   its prefill; ``granite-moe-3b-a800m`` at all 32 layers decoding 8
+   tokens at batch 8 (capacity 2 per expert: the decode drops choices);
+   every other arch reduced (f32) decoding 16 tokens within 1e-5 of the
+   same decode on the CPU and within 2e-4 of the forward, and reduced
+   llama through a ring buffer of 6.
 
 Each timed step starts from a Python collection (outside its time); its
 line gives the time of the collections inside it and the caching
@@ -218,6 +232,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -231,6 +246,7 @@ import torch.distributed as dist
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM non-tensor f32 peak (an FMA counts 2): float work
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (f32 accumulation)
 CIPHER_INSTRUCTIONS = 68       # threefry2x32-20 per word, from its specification (bound_int)
 LANES_PER_SM_CLOCK = 128       # 4 warp-instructions dispatched per SM per clock
 LAYERS, BATCH, SEQ, WORKERS, STEPS = 8, 8, 4096, 4, 3
@@ -298,6 +314,282 @@ def state_leaves(x):
     if isinstance(x, dict):
         return [t for k in sorted(x) for t in state_leaves(x[k])]
     return [t for f in x for t in state_leaves(f)]
+
+SERVE_TOKENS = 16
+BF16_EPS = 2.0 ** -7
+# decode - forward, in bf16 epsilons of the largest logit: twice the CPU
+# bound of tests/test_torch_serve_prefill.py::test_bf16_decode_equals_forward
+SERVE_PARITY = {"llama3.2-1b": 8, "mamba2-130m": 32}
+
+
+def serve_phase(dev, card: str, get_cfg=None, sizes=None, cli_args=()) -> None:
+    """Serving on the card (no kernel of the port runs here).
+
+    ``get_cfg(arch)`` gives the full-width config and ``sizes`` the
+    (batch, cache length) per path and the prefill length; a CPU rehearsal
+    passes reduced configs, small sizes and the CLI's ``--reduced --device
+    cpu`` as ``cli_args``."""
+    import numpy as np
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config, list_archs, reduced
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch.serve import build_prefill, build_serve_step, decode_window
+    from repro_torch.models.transformer import (count_active_params, count_params, decode_step,
+                                                forward, head_logits, init_caches, init_model)
+
+    get_cfg = get_cfg or get_config
+    sizes = sizes or {"llama": (32, SHAPES["decode_32k"].seq_len),
+                      "mamba": (SHAPES["decode_32k"].global_batch, SHAPES["decode_32k"].seq_len),
+                      "granite": (8, SHAPES["decode_32k"].seq_len),
+                      "prefill": SHAPES["prefill_32k"].seq_len}
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def leaves(caches):
+        return [t for c in caches for t in c]
+
+    def bit_sums(caches):
+        """Each cache leaf's bits summed as int64, block by block (exact)."""
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        return [int(sum(int(t[i].view(ints[t.element_size()]).long().sum())
+                        for i in range(t.shape[0]))) for t in leaves(caches)]
+
+    def decode(label, cfg, params, batch, cache_len, steps):
+        """``steps`` greedy tokens from empty caches through
+        ``build_serve_step``, twice from the same state; returns the tokens
+        fed (B, steps), the logits (B, steps, V_pad), the final caches and
+        each run's per-token times."""
+        shape = ShapeConfig("serve", cache_len, batch, "decode")
+        caches = init_caches(cfg, batch, cache_len, device=dev)
+        step = build_serve_step(cfg, shape)
+        first = prng.randint(prng.PRNGKey(0), (batch, 1), 0, cfg.vocab).to(dev)
+        runs = []
+        for _ in range(2):
+            for t in leaves(caches):
+                t.zero_()
+            toks, fed, out, evs = first, [], [], []
+            sync()
+            with torch.inference_mode():
+                for _ in range(steps):
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)) if on_card else None
+                    if ev:
+                        ev[0].record()
+                    lg, caches = step(params, caches, toks)
+                    fed.append(toks)
+                    out.append(lg)
+                    toks = torch.argmax(lg[:, -1:], dim=-1) % cfg.vocab
+                    if ev:
+                        ev[1].record()
+                    evs.append(ev)
+            sync()
+            ms = [a.elapsed_time(b) for a, b in evs] if on_card else []
+            runs.append((torch.cat(fed, 1), torch.cat(out, 1), ms, bit_sums(caches)))
+        (fed, out, ms, sums), (fed2, out2, ms2, sums2) = runs
+        same = torch.equal(fed, fed2) and torch.equal(out, out2) and sums == sums2
+        pos = [int(c.pos[0]) for c in caches]
+        if not same or not bool(torch.isfinite(out).all()) or set(pos) != {steps}:
+            fail(f"serve: {label}: the two decodes differ ({not same}), non-finite logits or "
+                 f"cache positions {pos} (expected {steps})")
+        if on_card:
+            profile_step(label, lambda: step(params, caches, toks))
+        return fed, out, caches, ms, ms2
+
+    def profile_step(label, fn):
+        """One more step under torch.profiler: the device's busy time
+        against the step's wall time, and the kernels that take it."""
+        sync()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = [(ev.key, ev.device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and ev.device_time_total > 0]
+        busy = sum(t for _, t, _ in kern)
+        top = sorted(kern, key=lambda k: -k[1])[:8]
+        print(f"serve: {label} one more step under torch.profiler: device busy {busy} ms of "
+              f"{wall} ms wall ({len(kern)} kernel names, {sum(c for *_, c in kern)} "
+              f"launches); top by device time: "
+              + "; ".join(f"{k[:60]} {t:.3f} ms x{c}" for k, t, c in top))
+        del prof
+
+    def full_decode(arch, key, steps, parity_bound=None):
+        cfg = get_cfg(arch)
+        batch, cache_len = sizes[key]
+        params = init_model(cfg, dev, seed=0)
+        n = count_params(params)
+        pbytes = nbytes(params.values())
+        free()
+        t0 = time.perf_counter()
+        fed, out, caches, ms, ms2 = decode(arch, cfg, params, batch, cache_len, steps)
+        wall = time.perf_counter() - t0
+        top = peak()
+        cbytes = nbytes(leaves(caches))
+        bound_ms = (cbytes + pbytes) / HBM_BYTES_PER_S * 1e3
+        med = statistics.median(ms2) if ms2 else float("nan")
+        print(f"serve: {arch} ({cfg.citation}) decode: {cfg.n_layers} layers, {n} parameters "
+              f"({pbytes} B), batch {batch} x cache {cache_len}: {steps} tokens from empty "
+              f"caches through build_serve_step, twice, the same bits (logits, tokens, caches); "
+              f"ms per token (CUDA events, second run) median {med}, all {ms2}; first run "
+              f"{ms}; {batch / med * 1e3 if ms2 else float('nan')} tokens/s; cache {cbytes} B "
+              f"({[str(t.dtype) for t in leaves(caches)][:3]}); byte bound per token "
+              f"(cache + weights) / {HBM_BYTES_PER_S:.3g} B/s = {bound_ms} ms "
+              f"({bound_ms / med if ms2 else float('nan')} of it); peak {top} B; both runs "
+              f"{wall} s; {card}")
+        if parity_bound is not None:
+            # the decode's logits against the forward over the same tokens
+            with torch.inference_mode():
+                x, _ = forward(params, {"tokens": fed}, cfg)
+                full = head_logits(params, x, cfg)
+            err, scale = float((out - full).abs().max()), float(full.abs().max())
+            agree = float((out.argmax(-1) == full.argmax(-1)).float().mean())
+            del x, full
+            print(f"serve: {arch} decode vs forward over the same {batch} x {steps} tokens: "
+                  f"max |difference| {err} on logits up to {scale} ({err / (BF16_EPS * scale)} "
+                  f"bf16 epsilons of the largest; bound {parity_bound}); argmax agrees on "
+                  f"{agree} of the tokens")
+            if not err <= parity_bound * BF16_EPS * scale:
+                fail(f"serve: {arch}: the decode's logits differ from the forward's by {err}, "
+                     f"more than {parity_bound} bf16 epsilons of {scale}")
+        del caches, out, fed
+        return cfg, params
+
+    def prefill(arch, cfg, params):
+        seq = sizes["prefill"]
+        shape = ShapeConfig("prefill_32k", seq, 1, "prefill")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(cfg, shape, 0).items()}
+        fn = build_prefill(cfg, shape)
+        free()
+        outs, secs = [], []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            outs.append(fn(params, batch))
+            sync()
+            secs.append(time.perf_counter() - t0)
+        top = peak()
+        lg = outs[0]
+        # the least time: every matrix product at the bf16 tensor-core rate
+        # (its operands are bf16, its sums f32) -- the projections of each
+        # prompt token (the MoE's active experts; not the embedding, and the
+        # head for the last token only) and the causal half of the attention
+        # products -- or the weights read once, whichever is longer
+        heads = [k for k in params if k in ("embed", "lm_head")]
+        proj = count_active_params(cfg, params) - sum(params[k].numel() for k in heads)
+        n_attn = sum(spec.mixer == "attn" for spec in cfg.pattern) * cfg.n_blocks
+        ops = 2 * proj * seq + n_attn * 2 * seq * seq * cfg.n_heads * cfg.resolved_head_dim
+        bound_ms = max(ops / BF16_OPS_PER_S, nbytes(params.values()) / HBM_BYTES_PER_S) * 1e3
+        ok = (tuple(lg.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(lg).all())
+              and torch.equal(outs[0], outs[1]))
+        print(f"serve: {arch} prefill: one {seq}-token prompt through build_prefill "
+              f"({cfg.n_layers} layers), next-token logits {tuple(lg.shape)}, twice the same "
+              f"bits: {ok}; seconds {secs}; {seq / secs[-1]} prompt tokens/s; bound {bound_ms} ms "
+              f"({ops:.4g} matrix-product operations at {BF16_OPS_PER_S:.3g}/s); peak {top} B; "
+              f"{card}")
+        if not ok:
+            fail(f"serve: {arch} prefill: bad or non-deterministic logits")
+
+    def cli(args):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args,
+                              *cli_args], capture_output=True, text=True, env=env,
+                             timeout=900, cwd=str(ROOT))
+        line = (res.stdout.strip().splitlines() or [""])[-1]
+        print(f"serve: python -m repro_torch.launch.serve {' '.join(args)}: exit "
+              f"{res.returncode}, {time.perf_counter() - t0} s with the process's start: {line}")
+        if res.returncode != 0 or not line.startswith("decoded "):
+            fail(f"serve: the CLI failed ({args}): {res.stderr[-2000:]}")
+
+    # (a) llama3.2-1b, full width and depth
+    cfg, params = full_decode("llama3.2-1b", "llama", SERVE_TOKENS, SERVE_PARITY["llama3.2-1b"])
+    prefill("llama3.2-1b", cfg, params)
+    del params
+    free()
+    cli(["--arch", "llama3.2-1b", "--shape", "long_500k", "--tokens", str(SERVE_TOKENS)])
+
+    # (b) mamba2-130m, full depth
+    cfg, params = full_decode("mamba2-130m", "mamba", SERVE_TOKENS, SERVE_PARITY["mamba2-130m"])
+    del params
+    free()
+    cli(["--arch", "mamba2-130m", "--shape", "decode_32k", "--tokens", str(SERVE_TOKENS)])
+    cfg = get_cfg("mamba2-130m")
+    params = init_model(cfg, dev, seed=0)
+    prefill("mamba2-130m", cfg, params)
+    del params
+    free()
+
+    # (c) granite-moe-3b-a800m, all 32 layers, batch 8: capacity 2 per expert
+    gcfg = get_cfg("granite-moe-3b-a800m")
+    batch = sizes["granite"][0]
+    cap = max(1, int(gcfg.moe.capacity_factor * batch * gcfg.moe.top_k / gcfg.moe.n_experts))
+    print(f"serve: granite-moe-3b-a800m decode capacity per expert at batch {batch}: {cap} "
+          f"(top-{gcfg.moe.top_k} of {gcfg.moe.n_experts}, capacity factor "
+          f"{gcfg.moe.capacity_factor})")
+    _, params = full_decode("granite-moe-3b-a800m", "granite", 8)
+    del params
+    free()
+
+    # (d) every other arch reduced (f32): the card against the CPU and the forward
+    def teacher(cfg, params, tokens, window=None):
+        caches = init_caches(cfg, tokens.shape[0], tokens.shape[1], window=window,
+                             device=tokens.device)
+        out = []
+        with torch.inference_mode():
+            for t in range(tokens.shape[1]):
+                lg, caches = decode_step(params, tokens[:, t:t + 1], caches, cfg, window)
+                out.append(lg)
+        return torch.cat(out, 1), caches
+
+    cases = [(a, None) for a in list_archs()
+             if a not in ("llama3.2-1b", "mamba2-130m", "granite-moe-3b-a800m")]
+    cases.append(("llama3.2-1b", 6))
+    for arch, window in cases:
+        cfg = reduced(get_config(arch))
+        host = init_model(cfg, "cpu", seed=3)
+        tokens = torch.from_numpy(
+            np.random.default_rng(4).integers(0, cfg.vocab, (2, SERVE_TOKENS)))
+        want, _ = teacher(cfg, host, tokens, window)
+        params = {k: v.detach().to(dev) for k, v in host.items()}
+        got, caches = teacher(cfg, params, tokens.to(dev), window)
+        again, _ = teacher(cfg, params, tokens.to(dev), window)
+        with torch.inference_mode():
+            x, _ = forward(params, {"tokens": tokens.to(dev)}, cfg, window)
+            full = head_logits(params, x, cfg)
+        err_cpu = float((got.cpu() - want).abs().max())
+        tol_cpu = 1e-5 * max(1.0, float(want.abs().max()))
+        err_fwd = float((got - full).abs().max())
+        rows = caches[0].k.shape[2] if window else None
+        print(f"serve: reduced {arch}{f' window {window} ({rows} cache rows)' if window else ''}"
+              f": {SERVE_TOKENS} tokens decoded on the card, max |card - CPU| {err_cpu} (bound "
+              f"{tol_cpu}), max |decode - forward| {err_fwd} (bound 2e-4), twice the same bits: "
+              f"{torch.equal(got, again)}")
+        if not (err_cpu <= tol_cpu and err_fwd <= 2e-4 and torch.equal(got, again)):
+            fail(f"serve: reduced {arch}: the card's decode is off")
+        if window and not (rows == window < SERVE_TOKENS):
+            fail(f"serve: reduced {arch}: the ring buffer has {rows} rows, not {window}")
+    print(f"serve: the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2398,6 +2690,11 @@ def main() -> None:
         del k_params, p_params, k_diana, p_diana, k_leaves, p_leaves, abatches, ainit
     torch.cuda.empty_cache()
     print(f"models: the phase took {time.perf_counter() - models_t0:.1f} s")
+
+    # ------------------------------------------------------------------ serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_phase(dev, card)
 
     for r in rows:
         r["launches"], r["path"] = credit.get(r["name"], (0, None))

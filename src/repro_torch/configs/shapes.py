@@ -1,4 +1,12 @@
-"""The assigned input shapes and the input layout of a training batch."""
+"""The assigned input shapes, which of them an architecture can run, and
+the input layout of a batch (the port's copy of ``repro.configs.shapes``).
+
+Decode shapes run the serve step (ONE new token per sequence against a
+KV/SSM cache of ``seq_len``); train and prefill shapes run the forward over
+the whole sequence.  ``long_500k`` takes each architecture's sub-quadratic
+path: native for SSM and hybrid models, the sliding window
+(``cfg.sliding_window``) for attention models.
+"""
 
 from __future__ import annotations
 
@@ -6,10 +14,13 @@ from typing import Dict, Tuple
 
 from .base import ModelConfig, ShapeConfig
 
-__all__ = ["SHAPES", "FRONTEND_DIM", "get_shape", "input_shapes"]
+__all__ = ["SHAPES", "FRONTEND_DIM", "get_shape", "shape_applicable", "input_shapes"]
 
 SHAPES: Dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode"),
 }
 
 FRONTEND_DIM = {"vision": 1024, "audio": 128}   # stub encoder output dims
@@ -17,17 +28,30 @@ FRONTEND_DIM = {"vision": 1024, "audio": 128}   # stub encoder output dims
 
 def get_shape(name: str) -> ShapeConfig:
     if name not in SHAPES:
-        raise NotImplementedError(
-            f"shape {name!r} is not ported yet (prefill/decode shapes come with "
-            f"serving, ROADMAP.md queue 1); available: {sorted(SHAPES)}")
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
     return SHAPES[name]
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(applicable, reason).  long_500k needs a sub-quadratic path."""
+    if shape.name == "long_500k" and not cfg.supports_long_context():
+        return False, (
+            f"{cfg.name} is pure full-attention with no sliding_window configured; "
+            "long_500k requires a sub-quadratic variant (DESIGN.md §Arch-applicability)"
+        )
+    return True, ""
+
+
 def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Tuple[int, ...]]:
-    """Shapes of every model input of a train/prefill batch (the JAX
-    package's ``input_specs``): a frontend model gets its stub embeddings
-    for a ``cfg.frontend_tokens`` prefix and tokens for the rest."""
+    """Shapes of every model input (the JAX package's ``input_specs``).
+
+    train / prefill: the whole (B, S) batch; a frontend model gets its stub
+    embeddings for a ``cfg.frontend_tokens`` prefix and tokens for the rest,
+    and a train shape adds the labels.  decode: one token per sequence (the
+    cache is serving state, not input)."""
     b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": (b, 1)}
     out: Dict[str, Tuple[int, ...]] = {}
     s_tokens = s
     if cfg.frontend in FRONTEND_DIM:
@@ -37,4 +61,3 @@ def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Tuple[int, .
     if shape.kind == "train":
         out["labels"] = (b, s_tokens)
     return out
-

@@ -7,7 +7,9 @@ arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``) into the port's
 the VR slot's ``snapshot`` / ``mu`` and ``h_down`` when present), flat or
 grouped (dicts keyed by group name, a list of arrays for a per-leaf group);
 ``adam_state_from_jax`` turns the inner optimizer's
-``repro.optim.optimizers.AdamState`` into the port's.  Arrays are copied bit
+``repro.optim.optimizers.AdamState`` into the port's, and
+``caches_from_jax`` the serving caches of ``repro.models.init_caches``
+(after decode steps or not) into the port's.  Arrays are copied bit
 for bit and keep their JAX dtypes: a bf16 model's f32 leaves (the MoE
 router, the SSD scalars ``dt_bias`` / ``A_log`` / ``D``) stay f32.
 """
@@ -23,9 +25,12 @@ import torch.nn as nn
 from repro_torch.core.diana import ReferenceState
 from repro_torch.core.tree import flatten_nested
 from repro_torch.core.vr import VRState
+from repro_torch.models.layers import AttnCache
+from repro_torch.models.mamba2 import MambaCache
 from repro_torch.optim.optimizers import AdamState
 
-__all__ = ["params_from_jax", "state_from_jax", "adam_state_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "state_from_jax", "adam_state_from_jax", "caches_from_jax",
+           "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
@@ -76,3 +81,24 @@ def state_from_jax(ref_state, device) -> ReferenceState:
                           h_server=_tree(ref_state.h_server, device),
                           v=_tree(ref_state.v, device), vr=vr,
                           h_down=_tree(ref_state.h_down, device))
+
+
+def _cache_leaf(a, device) -> torch.Tensor:
+    """A cache leaf; the JAX package stores a bf16 KV cache's bits as
+    uint16, read here as the bf16 it holds (through int16: torch has little
+    uint16 support)."""
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return tensor_from_numpy(a, device)
+
+
+def caches_from_jax(np_caches, device) -> tuple:
+    """The JAX caches (per pattern position an ``AttnCache`` (k, v, pos) or
+    a ``MambaCache`` (conv, ssm, pos), numpy leaves stacked over the blocks)
+    -> the port's, ``pos`` carried across."""
+    out = []
+    for c in np_caches:
+        kind = AttnCache if hasattr(c, "k") else MambaCache
+        out.append(kind(*(_cache_leaf(getattr(c, f), device) for f in kind._fields)))
+    return tuple(out)

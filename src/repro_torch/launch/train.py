@@ -809,6 +809,9 @@ def main(argv=None):
     if args.comp_k:
         cfg = replace(cfg, comp_k=args.comp_k)
     shape = get_shape(args.shape)
+    if shape.kind == "decode":
+        ap.error(f"--shape {args.shape} is a decode shape (one token per sequence); serve it "
+                 "with python -m repro_torch.launch.serve")
     if args.batch or args.seq:
         shape = ShapeConfig(shape.name, args.seq or shape.seq_len,
                             args.batch or shape.global_batch, shape.kind)

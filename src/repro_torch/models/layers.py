@@ -1,19 +1,24 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention (train path,
-optionally sliding-window), the dense MLP variants (SwiGLU, GELU, squared
-ReLU).  Plain tensor functions over ``{name: tensor}`` parameter
-dicts, in the JAX package's layouts (``repro.models.layers``): activations
-(B, S, D), heads (B, S, H, Dh), weights (in, out).
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention (train and
+prefill path, optionally sliding-window, and the cached single-token
+decode over a KV cache or its ring buffer), the dense MLP variants (SwiGLU,
+GELU, squared ReLU).  Plain tensor functions over ``{name: tensor}``
+parameter dicts, in the JAX package's layouts (``repro.models.layers``):
+activations (B, S, D), heads (B, S, H, Dh), weights (in, out).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["wide", "rms_norm", "rope_freqs", "apply_rope", "sdpa", "causal_mask", "attention", "mlp"]
+__all__ = ["wide", "rms_norm", "rope_freqs", "apply_rope", "sdpa", "causal_mask", "attention",
+           "mlp", "AttnCache", "init_attn_cache", "DECODE_KV_CHUNK"]
+
+DECODE_KV_CHUNK = 4096
 
 
 def wide(x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +81,8 @@ def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window=None) -> torch.
 
 def _sdpa_qchunked(q, k, v, compute_dtype, chunk: int, window=None):
     """Causal attention over query chunks (full keys per chunk), each chunk
-    recomputed in the backward so only one chunk's (B, H, cq, S) scores live."""
+    recomputed in the backward so only one chunk's (B, H, cq, S) scores live
+    (without autograd, as in a prefill, the chunks just run in turn)."""
     s = q.shape[1]
     idx_k = torch.arange(s, device=q.device)
 
@@ -84,14 +90,103 @@ def _sdpa_qchunked(q, k, v, compute_dtype, chunk: int, window=None):
         q_pos = start + torch.arange(qc.shape[1], device=q.device)
         return sdpa(qc, k, v, causal_mask(q_pos, idx_k, window), compute_dtype)
 
+    if not torch.is_grad_enabled():
+        return torch.cat([one(q[:, i:i + chunk], i) for i in range(0, s, chunk)], dim=1)
     outs = [checkpoint(one, q[:, i:i + chunk], i, use_reentrant=False)
             for i in range(0, s, chunk)]
     return torch.cat(outs, dim=1)
 
 
-def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, window=None) -> torch.Tensor:
-    """Causal self-attention (the train path), masked to a sliding
-    ``window`` when one is given.  ``p`` holds wq, wk, wv, wo."""
+class AttnCache(NamedTuple):
+    """A KV cache (``repro.models.layers.AttnCache``), written in place by
+    the decode.  The sliding window is not stored: pass the same ``window=``
+    to :func:`attention` as to :func:`init_attn_cache`.  A bf16 cache is
+    held as bf16 (the JAX package stores its bits as uint16, a workaround
+    for XLA's CPU backend)."""
+
+    k: torch.Tensor       # (B, S_cache, Hkv, Dh); S_cache = max_len, or the window
+    v: torch.Tensor
+    pos: torch.Tensor     # () int32 on the cache's device: the next token's position
+
+
+def init_attn_cache(cfg, batch: int, max_len: int, dtype, window: Optional[int] = None,
+                    device=None) -> AttnCache:
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    w = int(window or 0)
+    s_cache = min(max_len, w) if w else max_len
+    return AttnCache(k=torch.zeros((batch, s_cache, hkv, dh), dtype=dtype, device=device),
+                     v=torch.zeros((batch, s_cache, hkv, dh), dtype=dtype, device=device),
+                     pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _decode_attention(q, k_cache, v_cache, valid, compute_dtype):
+    """Flash-decoding (``_decode_attention``): one query token (B, 1, H, Dh)
+    against the cache, in chunks of :data:`DECODE_KV_CHUNK` rows (one chunk
+    when that does not divide the cache) combined by their running
+    (max, numerator, denominator).
+
+    The JAX package's roundings: q scaled in f32 and rounded to the compute
+    dtype; the scores summed in f32 from the (bf16) operands, the invalid
+    rows -1e30; ``e = exp(s - m)`` rounded to the value dtype for the second
+    product while the denominator sums it unrounded; the chunks combine
+    through ``exp(m_c - max m)`` and the output is ``num / max(den,
+    1e-30)``.  Only one chunk of K and V is widened at a time: widening the
+    whole cache would hold it twice over in f32."""
+    b, _, h, dh = q.shape
+    s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = h // hkv
+    ck = min(DECODE_KV_CHUNK, s_cache)
+    if s_cache % ck:
+        ck = s_cache
+    qg = wide((wide(q) / math.sqrt(dh)).to(compute_dtype)).reshape(b, hkv, rep, dh)
+    neg = torch.tensor(-1e30, dtype=qg.dtype, device=q.device)
+    ms, nums, dens = [], [], []
+    for c0 in range(0, s_cache, ck):
+        kc, vc = k_cache[:, c0:c0 + ck], v_cache[:, c0:c0 + ck]
+        s = torch.einsum("bgrd,bkgd->bgrk", qg, wide(kc))
+        s = torch.where(valid[c0:c0 + ck], s, neg)
+        m = torch.amax(s, dim=-1, keepdim=True)                   # (B,g,r,1)
+        e = torch.exp(s - m)
+        nums.append(torch.einsum("bgrk,bkgd->bgrd", wide(e.to(vc.dtype)), wide(vc)))
+        dens.append(torch.sum(e, dim=-1))
+        ms.append(m[..., 0])
+    ms = torch.stack(ms)                                          # (nk,B,g,r)
+    scale = torch.exp(ms - torch.amax(ms, dim=0, keepdim=True))
+    num = torch.sum(torch.stack(nums) * scale[..., None], dim=0)
+    den = torch.sum(torch.stack(dens) * scale, dim=0)
+    out = num / torch.clamp(den[..., None], min=1e-30)
+    return out.reshape(b, 1, h, dh).to(compute_dtype)
+
+
+def _decode_update(cache: AttnCache, k, v, window):
+    """Write the new token's K / V (B, 1, Hkv, Dh) into their slot, in
+    place, and return which cache rows hold a position at or before it.
+
+    Without a window the slot is ``pos``; with one it is ``pos % w`` and the
+    cache is a ring buffer: row ``j`` holds position ``pos - ((slot - j) mod
+    w)`` (floor modulo), valid once that is >= 0.  ``pos`` stays on the
+    device, so no step waits for the host."""
+    w = int(window or 0)
+    slot = torch.remainder(cache.pos, w) if w else cache.pos
+    idx = slot.reshape(1).long()
+    cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
+    rows = torch.arange(cache.k.shape[1], device=cache.k.device)
+    if w:
+        return cache.pos - torch.remainder(slot - rows, w) >= 0
+    return rows <= cache.pos
+
+
+def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, window=None,
+              cache: Optional[AttnCache] = None) -> torch.Tensor:
+    """Causal self-attention, masked to a sliding ``window`` when one is
+    given.  ``p`` holds wq, wk, wv, wo.
+
+    ``cache=None``: over the whole of ``x`` (the train and prefill path).
+    Otherwise ``x`` is one new token per sequence (S = 1): its K and V go
+    into the cache in place (the ring buffer with a window) and it attends
+    to every valid row of the cache (the decode path); the caller advances
+    ``cache.pos``."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     cdt = cfg.compute_dtype
@@ -100,6 +195,12 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, window=None) -> 
     v = (x @ p["wv"].to(cdt)).reshape(b, s, hkv, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"the decode path takes one new token per sequence, not {s}")
+        valid = _decode_update(cache, k, v, window)
+        out = _decode_attention(q, cache.k, cache.v, valid, cdt)
+        return out.reshape(b, s, h * dh) @ p["wo"].to(cdt)
     cq = max(int(cfg.attn_q_chunk or 0), 0)
     if cq and s > cq and s % cq == 0:
         out = _sdpa_qchunked(q, k, v, cdt, cq, window)

@@ -17,14 +17,21 @@ enter an ``exp``, are formed in float64 and rounded once to f32: over a
 chunk the decays add up to hundreds, an f32 cumsum's rounding error grows
 with that sum, and ``exp`` turns it into relative error of the decay
 (~1e-5 on the reduced ``jamba``'s gradients, where the JAX package's f32
-cumsum keeps it).  The recurrent decode (``MambaCache``) comes with serving.
-The sequence length must be a multiple of the chunk (or shorter than one).
+cumsum keeps it).  The sequence length must be a multiple of the chunk (or
+shorter than one).
+
+The decode (``cache`` given, one token per sequence) is the recurrence
+itself, in place on a :class:`MambaCache`: the conv history takes the new
+inputs (held in the compute dtype, as the JAX package holds it), and the
+f32 state decays by ``exp(A * dt)`` and takes ``x * dt`` times ``B``; the
+output contracts the state with ``C``.  It has no prefix sum.
 "In f32" means at least f32 (:func:`~repro_torch.models.layers.wide`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +39,15 @@ import torch.nn.functional as F
 from .layers import wide
 
 __all__ = ["mamba_layer", "ssd_chunked", "conv_full", "gated_rms_norm", "dims",
-           "mamba_shapes"]
+           "mamba_shapes", "MambaCache", "init_mamba_cache"]
+
+
+class MambaCache(NamedTuple):
+    """``repro.models.mamba2.MambaCache``, written in place by the decode."""
+
+    conv: torch.Tensor    # (B, W-1, conv channels): the last inputs of the causal conv
+    ssm: torch.Tensor     # (B, H, P, N) f32: the recurrent state
+    pos: torch.Tensor     # () int32 on the cache's device
 
 
 def dims(cfg):
@@ -57,6 +72,16 @@ def mamba_shapes(cfg):
             "D": ((h,), True),
             "norm_scale": ((d_in,), False),
             "out_proj": ((d_in, cfg.d_model), False)}
+
+
+def init_mamba_cache(cfg, batch: int, dtype, device=None) -> MambaCache:
+    sc, d_in, h, p, n, g = dims(cfg)
+    conv_ch = d_in + 2 * g * n
+    return MambaCache(
+        conv=torch.zeros((batch, sc.conv_width - 1, conv_ch), dtype=dtype, device=device),
+        ssm=torch.zeros((batch, h, p, n), dtype=torch.promote_types(dtype, torch.float32),
+                        device=device),
+        pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def _segsum(at: torch.Tensor) -> torch.Tensor:
@@ -138,15 +163,34 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def mamba_layer(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x (B, S, D) -> out (B, S, D), the chunked SSD over the sequence."""
+def _conv_step(conv_w, conv_b, cache: MambaCache, u: torch.Tensor, cdt) -> torch.Tensor:
+    """One step of the causal conv: the history (the cache's last W-1
+    inputs, then ``u`` (B, 1, CH)) against the taps in f32, then SiLU,
+    rounded to ``cdt``; the history moves on by one in place."""
+    hist = torch.cat([cache.conv.to(cdt), u], dim=1)              # (B,W,CH)
+    out = torch.einsum("bwc,wc->bc", wide(hist), wide(conv_w))
+    cache.conv.copy_(hist[:, 1:])
+    return F.silu(out + wide(conv_b))[:, None].to(cdt)
+
+
+def mamba_layer(p, x: torch.Tensor, cfg, cache: Optional[MambaCache] = None) -> torch.Tensor:
+    """x (B, S, D) -> out (B, S, D).  ``cache=None``: the chunked SSD over
+    the sequence (train and prefill); otherwise one token per sequence
+    through the recurrence, the cache updated in place (the caller advances
+    ``cache.pos``)."""
     sc, d_in, h, hp, n, g = dims(cfg)
     bsz, s, _ = x.shape
     cdt = cfg.compute_dtype
 
     proj = x @ p["in_proj"].to(cdt)                               # (B,S,dproj)
     z, xr, braw, craw, dt_raw = torch.split(proj, [d_in, d_in, g * n, g * n, h], dim=-1)
-    conv_out = conv_full(p["conv_w"], p["conv_b"], torch.cat([xr, braw, craw], dim=-1), cdt)
+    conv_in = torch.cat([xr, braw, craw], dim=-1)
+    if cache is None:
+        conv_out = conv_full(p["conv_w"], p["conv_b"], conv_in, cdt)
+    elif s != 1:
+        raise ValueError(f"the decode path takes one new token per sequence, not {s}")
+    else:
+        conv_out = _conv_step(p["conv_w"], p["conv_b"], cache, conv_in, cdt)
     xr, braw, craw = torch.split(conv_out, [d_in, g * n, g * n], dim=-1)
 
     xt = xr.reshape(bsz, s, h, hp)
@@ -158,7 +202,14 @@ def mamba_layer(p, x: torch.Tensor, cfg) -> torch.Tensor:
 
     dt = _softplus(wide(dt_raw) + p["dt_bias"])                  # (B,S,H)
     a = -torch.exp(p["A_log"])                                    # (H,)
-    y = ssd_chunked(wide(xt) * dt[..., None], a * dt, bh, ch, min(sc.chunk_size, s))
+    if cache is None:
+        y = ssd_chunked(wide(xt) * dt[..., None], a * dt, bh, ch, min(sc.chunk_size, s))
+    else:
+        dt0 = dt[:, 0]                                            # (B,H)
+        xin = wide(xt[:, 0]) * dt0[..., None]                     # (B,H,P)
+        cache.ssm.mul_(torch.exp(a * dt0)[:, :, None, None])
+        cache.ssm.add_(xin[..., None] * wide(bh[:, 0, :, None, :]))
+        y = torch.einsum("bhpn,bhn->bhp", cache.ssm, wide(ch[:, 0]))[:, None]
     y = y + p["D"][:, None] * wide(xt)
     yn = gated_rms_norm(y.reshape(bsz, s, d_in), z, p["norm_scale"], cfg.norm_eps)
     return yn.to(cdt) @ p["out_proj"].to(cdt)

@@ -102,8 +102,9 @@ def moe_layer(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     (D, E) f32 and the stacked expert weights ``w_in`` / ``w_gate`` (E, D,
     F) and ``w_out`` (E, F, D).  Above ``token_chunk`` (default
     :data:`MOE_TOKEN_CHUNK`) tokens that it divides, the tokens run in
-    chunks, each recomputed in the backward, and the aux loss is the chunks'
-    mean (``_moe_chunked``)."""
+    chunks, each recomputed in the backward (when autograd records), and the
+    aux loss is the chunks' mean (``_moe_chunked``).  At decode T = B, so
+    the capacity, and the drops, are those of B tokens."""
     b, s, d = x.shape
     t = b * s
     cdt = cfg.compute_dtype
@@ -115,7 +116,10 @@ def moe_layer(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     else:
         outs, auxs = [], []
         for i in range(0, t, chunk):
-            o, a = checkpoint(_run_chunk, xf[i:i + chunk], *ws, cfg, use_reentrant=False)
+            if torch.is_grad_enabled():
+                o, a = checkpoint(_run_chunk, xf[i:i + chunk], *ws, cfg, use_reentrant=False)
+            else:
+                o, a = _run_chunk(xf[i:i + chunk], *ws, cfg)
             outs.append(o)
             auxs.append(a)
         combined, aux = torch.cat(outs, dim=0), torch.mean(torch.stack(auxs))

@@ -21,10 +21,18 @@ whatever ``param_dtype`` is.  The bucket layout and the per-leaf PRNG keys
 follow that tree's leaf order, so any other layout would break payload
 parity with the JAX package.
 
+Serving (``repro_torch.launch.serve``) runs :func:`forward` over the
+prompt with ``last_token_only`` (the prefill) and :func:`decode_step` one
+token at a time against :func:`init_caches` (per pattern position an
+``AttnCache`` or a ``MambaCache``, each leaf stacked over ``n_blocks`` as in
+the JAX package), which the step updates in place.
+
 ``remat="full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), like ``jax.checkpoint`` around the scanned
-block.  ``remat="dots"`` (save only the matrix products) is reachable only
-from the JAX package's dry run and is not ported.
+block; without autograd (a prefill under ``torch.inference_mode``) and on
+the decode path the blocks just run.  ``remat="dots"`` (save only the
+matrix products) is reachable only from the JAX package's dry run and is
+not ported.
 """
 
 from __future__ import annotations
@@ -44,8 +52,9 @@ from . import mamba2 as M
 from .moe import moe_layer
 
 __all__ = ["init_model", "param_shapes", "param_dtypes", "meta_params", "Transformer",
-           "forward", "train_loss", "count_params", "count_active_params",
-           "model_flops_per_token", "CE_SEQ_CHUNK", "FRONTEND_DIM"]
+           "forward", "head_logits", "train_loss", "init_caches", "decode_step",
+           "count_params", "count_active_params", "model_flops_per_token", "CE_SEQ_CHUNK",
+           "FRONTEND_DIM"]
 
 CE_SEQ_CHUNK = 512
 
@@ -150,17 +159,37 @@ def init_model(cfg, device, seed: int = 0) -> Dict[str, nn.Parameter]:
     return params
 
 
-def _block(x, aux, positions, lp, cfg, window):
-    """One pattern block over ``lp`` (``{layer{i}/...: tensor}``)."""
+def init_caches(cfg, batch: int, max_len: int, *, window: Optional[int] = None,
+                device=None) -> tuple:
+    """The decode caches (``init_caches``): per pattern position an
+    ``AttnCache`` (a ring buffer of ``window`` rows when one is given) or a
+    ``MambaCache``, every leaf stacked over ``n_blocks``, in the compute
+    dtype (the SSM state and ``pos`` in f32 and int32).  ``device="meta"``
+    gives the shapes and dtypes without allocating."""
+    out = []
+    for spec in cfg.pattern:
+        if spec.mixer == "attn":
+            one = L.init_attn_cache(cfg, batch, max_len, cfg.compute_dtype, window, device="meta")
+        else:
+            one = M.init_mamba_cache(cfg, batch, cfg.compute_dtype, device="meta")
+        out.append(type(one)(*(torch.zeros((cfg.n_blocks, *t.shape), dtype=t.dtype,
+                                           device=device) for t in one)))
+    return tuple(out)
+
+
+def _block(x, aux, positions, lp, cfg, window, caches=None):
+    """One pattern block over ``lp`` (``{layer{i}/...: tensor}``); on the
+    decode path ``caches`` holds this block's cache per pattern position."""
     for i, spec in enumerate(cfg.pattern):
         pre = f"layer{i}/"
         sub = lambda part: {k[len(pre) + len(part):]: v for k, v in lp.items()  # noqa: E731
                             if k.startswith(pre + part)}
+        cache = caches[i] if caches is not None else None
         h = L.rms_norm(lp[pre + "norm1/scale"], x, cfg.norm_eps)
         if spec.mixer == "attn":
-            x = x + L.attention(sub("mixer/"), h, cfg, positions, window)
+            x = x + L.attention(sub("mixer/"), h, cfg, positions, window, cache=cache)
         else:
-            x = x + M.mamba_layer(sub("mixer/"), h, cfg)
+            x = x + M.mamba_layer(sub("mixer/"), h, cfg, cache=cache)
         if spec.mlp != "none":
             h2 = L.rms_norm(lp[pre + "norm2/scale"], x, cfg.norm_eps)
             if spec.mlp == "moe":
@@ -188,23 +217,65 @@ def _embed_inputs(params, batch, cfg) -> torch.Tensor:
 
 
 def forward(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor], cfg,
-            window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            window: Optional[int] = None, *, caches: Optional[tuple] = None,
+            positions: Optional[torch.Tensor] = None,
+            last_token_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch -> (final hidden states (B, S, D) after the final norm, the
-    summed MoE aux loss, a 0-dim f32)."""
+    summed MoE aux loss, a 0-dim f32).
+
+    ``positions`` (B, S) default to ``0 .. S-1``.  ``caches``
+    (:func:`init_caches`) take the decode path, one token per sequence,
+    updating them in place (:func:`decode_step` advances their ``pos``).
+    ``last_token_only`` keeps the last position alone, sliced before the
+    final norm: the prefill, whose logits (:func:`head_logits`) are then
+    (B, 1, V) and never (B, S, V)."""
     x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
     names = [p[len("blocks/"):] for p in params if p.startswith("blocks/")]
     stacked = {n: params["blocks/" + n].unbind(0) for n in names}
     body = partial(_block, cfg=cfg, window=window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_blocks):
         lp = {n: stacked[n][i] for n in names}
-        if cfg.remat == "full":
+        if caches is not None:
+            x, aux = body(x, aux, positions, lp,
+                          caches=tuple(type(c)(*(t[i] for t in c)) for c in caches))
+        elif cfg.remat == "full" and torch.is_grad_enabled():
             x, aux = checkpoint(body, x, aux, positions, lp, use_reentrant=False)
         else:
             x, aux = body(x, aux, positions, lp)
+    if last_token_only:
+        x = x[:, -1:]
     return L.rms_norm(params["final_norm/scale"], x, cfg.norm_eps), aux
+
+
+def _head(params: Mapping[str, torch.Tensor], cfg) -> torch.Tensor:
+    """The LM head (D, V_pad) in the compute dtype: the tied embedding's
+    transpose, or ``lm_head``."""
+    return (params["embed"].t() if cfg.tie_embeddings else params["lm_head"]).to(cfg.compute_dtype)
+
+
+def head_logits(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
+    """Final hidden states -> logits over the padded vocabulary: ``x @
+    head`` in the compute dtype, widened to f32."""
+    return L.wide(x @ _head(params, cfg))
+
+
+def decode_step(params: Mapping[str, torch.Tensor], tokens: torch.Tensor, caches: tuple, cfg,
+                window: Optional[int] = None) -> Tuple[torch.Tensor, tuple]:
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V_pad) f32, the
+    caches), the caches updated in place and their ``pos`` advanced by one.
+    The position is read from the first cache (every layer's ``pos`` moves
+    together) and stays on the device."""
+    pos = caches[0].pos[0]
+    positions = pos.expand(tokens.shape[0], 1)
+    x, _ = forward(params, {"tokens": tokens}, cfg, window, caches=caches, positions=positions)
+    out = head_logits(params, x, cfg)
+    for c in caches:
+        c.pos.add_(1)
+    return out, caches
 
 
 def _ce_chunk(xc, lc, head):
@@ -228,7 +299,7 @@ def train_loss(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Ten
         x = x[:, :-1]
     if cfg.frontend != "none" and "tokens" in batch and x.shape[1] != labels.shape[1]:
         x = x[:, -labels.shape[1]:]                      # drop the frontend positions
-    head = (params["embed"].t() if cfg.tie_embeddings else params["lm_head"]).to(cfg.compute_dtype)
+    head = _head(params, cfg)
     s, cs = x.shape[1], CE_SEQ_CHUNK
     if s > cs and s % cs == 0:
         total = sum(checkpoint(_ce_chunk, x[:, i:i + cs], labels[:, i:i + cs], head,
