@@ -201,6 +201,27 @@ Phases (each prints its lines; any failure exits non-zero):
    frontends, GELU and squared ReLU, the three bf16-memory configs), 2
    workers, 2 steps through the kernels bitwise the same steps through the
    plain versions;
+17a. checkpoint (:func:`checkpoint_phase`): the CLI's params-only
+   ``--checkpoint-dir`` save of llama3.2-1b at full width and depth (one
+   step at n = 1): its seconds and bytes, and the restore onto the card,
+   bitwise; save-restore-step on the reduced model through the kernels (3
+   steps, a save, the 4th step from the restore bitwise the 4th step in
+   memory) for the five operators, ``--per-leaf-agg``, the curated policy,
+   VR with a diana downlink, adamw, an elastic churn join and a world of
+   one over NCCL; one full-state resume at full width cut to one layer, n
+   = 1 (~8.4 GB), into a temporary directory deleted after, free disk
+   printed before;
+17b. helpers (:func:`helpers_phase`): ``compress_tree`` /
+   ``decompress_tree`` for the five operators on the 8-layer full-width
+   tree (12 bf16 leaves): each leaf's encode kernel and one-worker decode
+   (``none`` decodes with a view), launches exact, every payload and
+   decoded leaf bitwise the same calls through the plain versions, rand-k's
+   tags (``threefry_bits`` at each leaf's size) bitwise theirs;
+17c. remat (:func:`remat_phase`): the aten ops the ``remat="dots"`` policy
+   sees in one block of reduced llama, granite-moe, mamba2 and jamba and
+   of full-width llama, and the products it saves (as on the CPU); two
+   ``diana`` steps of the slice under ``remat="full"`` and then ``"dots"``
+   from the same state, bitwise, with step times, peaks and launches;
 18. serve: serving, which launches none of the kernels (:func:`serve_phase`):
    ``llama3.2-1b`` at full width and depth, decoding 16 tokens at batch 32
    against caches of 32,768 positions through ``build_serve_step`` (ms per
@@ -590,6 +611,503 @@ def serve_phase(dev, card: str, get_cfg=None, sizes=None, cli_args=()) -> None:
         if window and not (rows == window < SERVE_TOKENS):
             fail(f"serve: reduced {arch}: the ring buffer has {rows} rows, not {window}")
     print(f"serve: the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+
+# ----------------------------------------------- the checkpoint, helpers and remat phases
+
+def _flat(tree, prefix=""):
+    """``{key path: leaf}`` of a tree of tensors and ints (dicts,
+    NamedTuples, lists, tuples; ``None`` dropped), as the checkpoint keys
+    it."""
+    if tree is None:
+        return {}
+    if isinstance(tree, (torch.Tensor, int)):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    else:
+        items = enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors (or ints) with the same dtype, shape and bits."""
+    if not isinstance(a, torch.Tensor):
+        return type(a) is type(b) and a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.is_floating_point():
+        a, b = a.detach().view(ints[a.element_size()]), b.detach().view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def _same_trees(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return sorted(fa) == sorted(fb) and all(_same_bits(fa[k], fb[k]) for k in fa)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _flat(tree).values()
+               if isinstance(t, torch.Tensor))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak(dev) -> int:
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def _reset_peak(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def checkpoint_phase(dev, card: str, get_cfg=None, cli_args=(), backend="nccl",
+                     full_layers=1, seq=SEQ) -> dict:
+    """The checkpoint (``repro_torch.checkpoint``) on the card:
+
+    1. the CLI's params-only save (``--checkpoint-dir``) of llama3.2-1b at
+       full width and depth after one step at n = 1: the save's seconds and
+       bytes, then the restore onto the card into a template of another
+       seed, bitwise the saved parameters;
+    2. save-restore-step on the reduced model through the kernels: 3 steps,
+       a save, the 4th step continued in memory and again from the
+       checkpoint restored into a template of another seed, bitwise
+       (losses, parameters, every optimizer-state leaf), for the five
+       operators, ``--per-leaf-agg``, the curated policy, VR with a diana
+       downlink, adamw, an elastic run whose 4th step is a churn join, and
+       a world of one over ``backend``;
+    3. one full-state resume at full width cut to ``full_layers`` layers at
+       n = 1 (~8 GB on disk at one layer), into a ``tempfile.mkdtemp()``
+       deleted after, free disk printed before.
+
+    ``get_cfg(arch)`` gives the full-width config; a CPU rehearsal passes a
+    reduced one, ``cli_args=("--reduced", "--device", "cpu")``, ``gloo`` and
+    a short ``seq``.  Returns ``{path: launches}``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import (participation_restore_hint, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.core import prng
+    from repro_torch.core.participation import ChurnEvent, ParticipationSpec
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.transformer import count_params, init_model
+
+    get_cfg = get_cfg or get_config
+    t_phase = time.perf_counter()
+    paths = {}
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # (1) the CLI's params-only save at full width
+        free_b = shutil.disk_usage(scratch).free
+        kept = {}
+        cli_save = train_mod.save_checkpoint
+
+        def timed_save(directory, step, tree, metadata=None):
+            _sync(dev)
+            t0 = time.perf_counter()
+            path = cli_save(directory, step, tree, metadata=metadata)
+            kept.update(tree=tree, seconds=time.perf_counter() - t0, path=path)
+            return path
+        train_mod.save_checkpoint = timed_save
+        cli_dir = os.path.join(scratch, "cli")
+        try:
+            train_mod.main(["--arch", "llama3.2-1b", "--mesh", "1x1", "--steps", "1",
+                            "--batch", "1", "--seq", str(seq), "--checkpoint-dir", cli_dir,
+                            *cli_args])
+        finally:
+            train_mod.save_checkpoint = cli_save
+        nbytes = os.path.getsize(kept["path"])
+        cfg = get_cfg("llama3.2-1b")
+        saved = kept["tree"]["params"]
+        tmpl = init_model(cfg, dev, seed=1)
+        _sync(dev)
+        t0 = time.perf_counter()
+        back, step = restore_checkpoint(cli_dir, {"params": tmpl})
+        _sync(dev)
+        t_restore = time.perf_counter() - t0
+        same = step == 1 and all(_same_bits(back["params"][p], saved[p]) for p in saved)
+        pbytes = _tree_bytes(saved)
+        print(f"checkpoint: the CLI's params-only save (--checkpoint-dir) of llama3.2-1b "
+              f"({cfg.n_layers} layers, {count_params(saved)} parameters, {pbytes} B of "
+              f"{sorted({str(t.dtype) for t in saved.values()})}): {nbytes} B in "
+              f"{kept['seconds']:.3f} s ({nbytes / kept['seconds'] / 1e9:.3f} GB/s; "
+              f"{free_b} B free before); restored onto {dev.type} into a template of another "
+              f"seed in {t_restore:.3f} s ({nbytes / t_restore / 1e9:.3f} GB/s), bitwise the "
+              f"saved parameters: {same}")
+        if not same:
+            fail("checkpoint: the CLI's saved parameters did not restore bitwise")
+        del kept, saved, tmpl, back
+        shutil.rmtree(cli_dir)
+        _reset_peak(dev)
+
+        # (2) save-restore-step on the reduced model, through the kernels
+        rcfg = replace(reduced(get_config("llama3.2-1b")), comp_k=4096)
+        rshape = ShapeConfig("smoke", 64, 4, "train")
+        rbatches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                     make_lm_batch(rcfg, rshape, s).items()} for s in range(4)]
+
+        def steps(fn, params, state, start, stop):
+            losses = []
+            for s in range(start, stop):
+                params, state, met = fn(params, state, rbatches[s],
+                                        prng.fold_in(prng.PRNGKey(0), s))
+                losses.append(met["loss"])
+            return losses, params, state
+
+        def resume(label, cfg_r, opt, build_fn, rows):
+            d = os.path.join(scratch, "resume")
+            build.reset_launches()
+            params = init_model(cfg_r, dev, seed=3)
+            _, params, state = steps(build_fn(), params, opt.init(params, rows), 0, 3)
+            save_checkpoint(d, 3, {"params": params, "opt_state": state},
+                            metadata={"policy": opt.policy.to_json_dict()})
+            ref_loss, ref_params, ref_state = steps(build_fn(), params, state, 3, 4)
+            tparams = init_model(cfg_r, dev, seed=11)
+            tree, step = restore_checkpoint(d, {"params": tparams,
+                                                "opt_state": opt.init(tparams, rows)})
+            loss, params, state = steps(build_fn(), tree["params"], tree["opt_state"], 3, 4)
+            counts = dict(build.LAUNCHES)
+            same = (step == 3 and torch.equal(loss[0], ref_loss[0])
+                    and _same_trees(params, ref_params) and _same_trees(state, ref_state)
+                    and participation_restore_hint(d, opt.policy) is None)
+            print(f"checkpoint: resume, reduced llama3.2-1b, {label}, n = {rows}: step 3's "
+                  f"loss {float(loss[0])!r}, bitwise the uninterrupted step (loss, parameters, "
+                  f"{len(_flat(state))} optimizer-state leaves): {same}; launches {counts}")
+            if not same:
+                fail(f"checkpoint: the {label} resume is not bitwise the uninterrupted run")
+            shutil.rmtree(d)
+            paths[f"checkpoint resume {label} (reduced, 5 steps)"] = counts
+
+        churn = ParticipationSpec(q=0.7, dropout=0.1, min_workers=1,
+                                  churn=(ChurnEvent(1, 1, "leave"), ChurnEvent(3, 1, "join")))
+        variants = [(m, {"compression": m}, {}) for m in
+                    ("diana", "natural", "randk", "topk_ef", "none")]
+        variants += [(f"{m} --per-leaf-agg", {"compression": m, "comp_bucketed": False}, {})
+                     for m in ("diana", "topk_ef")]
+        variants += [("--comp-policy default", {}, {"policy": "default"}),
+                     ("--vr --down-method diana", {"vr": True, "vr_p": 0.5,
+                                                   "comp_down_method": "diana"}, {}),
+                     ("--inner adamw", {}, {"inner": "adamw"}),
+                     ("elastic, churn join at step 3", {}, {"participation": churn})]
+        for label, over, kw in variants:
+            c = replace(rcfg, **over)
+            opt = train_mod.make_optimizer(c, **kw)
+            resume(label, c, opt, lambda c=c, opt=opt: train_mod.build_train_step(c, opt, 2, dev),
+                   2)
+        own_group = not dist.is_initialized()
+        if own_group:
+            kw = {"device_id": dev} if backend == "nccl" else {}
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1, **kw)
+        try:
+            opt = train_mod.make_optimizer(rcfg)
+            resume(f"world of one ({backend})", rcfg, opt,
+                   lambda: train_mod.build_distributed_step(rcfg, opt), 1)
+        finally:
+            if own_group:
+                dist.destroy_process_group()
+        del rbatches
+        _reset_peak(dev)
+
+        # (3) one full-state resume at full width
+        fcfg = replace(get_cfg("llama3.2-1b"), n_layers=full_layers)
+        fshape = ShapeConfig("train_4k", seq, 1, "train")
+        fbatches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                     make_lm_batch(fcfg, fshape, s).items()} for s in range(3)]
+        opt = train_mod.make_optimizer(fcfg)
+        params, state = train_mod.init_train_state(fcfg, opt, 1, dev, seed=0)
+        fn = train_mod.build_train_step(fcfg, opt, 1, dev)
+        for s in range(2):
+            params, state, _ = fn(params, state, fbatches[s], prng.fold_in(prng.PRNGKey(0), s))
+        d = os.path.join(scratch, "full")
+        free_b = shutil.disk_usage(scratch).free
+        _sync(dev)
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, 2, {"params": params, "opt_state": state})
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        held = _tree_bytes(params) + _tree_bytes(state)
+        params, state, met = fn(params, state, fbatches[2], prng.fold_in(prng.PRNGKey(0), 2))
+        ref = (float(met["loss"]), params, state)
+        tparams, tstate = train_mod.init_train_state(fcfg, opt, 1, dev, seed=5)
+        _sync(dev)
+        t0 = time.perf_counter()
+        tree, step = restore_checkpoint(d, {"params": tparams, "opt_state": tstate})
+        _sync(dev)
+        t_restore = time.perf_counter() - t0
+        del tparams, tstate
+        fn = train_mod.build_train_step(fcfg, opt, 1, dev)
+        params, state, met = fn(tree["params"], tree["opt_state"], fbatches[2],
+                                prng.fold_in(prng.PRNGKey(0), 2))
+        same = (step == 2 and float(met["loss"]) == ref[0] and _same_trees(params, ref[1])
+                and _same_trees(state, ref[2]))
+        print(f"checkpoint: full-state resume, llama3.2-1b at full width cut to {full_layers} "
+              f"layer(s) ({count_params(params)} parameters), n = 1, diana: {free_b} B free on "
+              f"disk before; save of parameters and optimizer state ({held} B on {dev.type}) "
+              f"{nbytes} B in {t_save:.3f} s ({nbytes / t_save / 1e9:.3f} GB/s); restore "
+              f"{t_restore:.3f} s ({nbytes / t_restore / 1e9:.3f} GB/s); step 2 from the "
+              f"restore bitwise the uninterrupted step (loss {ref[0]!r}): {same}")
+        if not same:
+            fail("checkpoint: the full-width resume is not bitwise the uninterrupted run")
+        del params, state, tree, ref, fbatches, fn
+        _reset_peak(dev)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    print(f"checkpoint: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def helpers_phase(dev, card: str, get_cfg=None, comp_k=COMP_K, layers=LAYERS) -> dict:
+    """The paper's tree helpers on the card: ``compress_tree`` /
+    ``decompress_tree`` (``repro_torch.core.compression``) for the five
+    operators on llama3.2-1b's full-width tree cut to ``layers`` layers
+    (bf16 leaves of seeded normals): one encode kernel per leaf and one
+    one-worker decode per leaf (``none`` decodes with a view), launches
+    exact; every payload field and decoded leaf bitwise the same calls
+    through the plain versions (each kernel at the per-leaf shapes); the
+    ternary family's ``QuantizedBlocks``, and ``payload_nbits`` against
+    ``bits_per_dim``.  Returns ``{path: launches}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.compression import CompressionConfig, compress_tree, decompress_tree
+    from repro_torch.core.compressors.base import payload_nbits
+    from repro_torch.kernels import build, ops
+    from repro_torch.models.transformer import param_shapes
+
+    get_cfg = get_cfg or get_config
+    t_phase = time.perf_counter()
+    cfg = replace(get_cfg("llama3.2-1b"), n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {p: torch.randn(s, generator=gen, device=dev).to(cfg.param_dtype)
+            for p, s in param_shapes(cfg).items()}
+    n_leaves, d = len(tree), sum(t.numel() for t in tree.values())
+    key = prng.fold_in(prng.PRNGKey(0), 7)
+    want = {
+        "diana": {"quantize_pack_prng": n_leaves, "unpack_reduce": n_leaves},
+        "natural": {"nat_pack_prng": n_leaves, "nat_decode_sum": n_leaves},
+        "randk": {"threefry_bits": n_leaves, "sparse_gather": n_leaves,
+                  "sparse_decode_sum": n_leaves},
+        "topk_ef": {"sparse_gather": n_leaves, "sparse_decode_sum": n_leaves},
+        "none": {"dense_copy": n_leaves},
+    }
+    paths = {}
+    for method, expected in want.items():
+        ccfg = CompressionConfig(method=method, block_size=cfg.comp_block, k=comp_k)
+        runs = []
+        for plain in (False, True):
+            on_card = ops._on_card
+            if plain:
+                # the same calls, every kernel on a tensor -> its plain version; rand-k's
+                # tags (threefry_bits, asked for by device) stay on the card, held to
+                # their plain version below
+                ops._on_card = lambda t: False if isinstance(t, torch.Tensor) else on_card(t)
+            try:
+                build.reset_launches()
+                _sync(dev)
+                t0 = time.perf_counter()
+                pay, loc = compress_tree(tree, key, ccfg)
+                _sync(dev)
+                t1 = time.perf_counter()
+                out = decompress_tree(pay, tree, ccfg)
+                _sync(dev)
+                runs.append((pay, loc, out, t1 - t0, time.perf_counter() - t1,
+                             dict(build.LAUNCHES)))
+            finally:
+                ops._on_card = on_card
+        (pay, loc, out, c_s, d_s, counts), (ppay, ploc, pout, pc_s, pd_s, _) = runs
+        same = (_same_trees(pay, ppay) and _same_trees(out, pout) and _same_trees(loc, ploc)
+                and all(out[p].dtype == tree[p].dtype and out[p].shape == tree[p].shape
+                        for p in tree))
+        nbits = sum(payload_nbits(pay[p]) for p in pay)
+        print(f"helpers: compress_tree / decompress_tree {method} over {n_leaves} leaves "
+              f"({d} coordinates, {cfg.param_dtype}): compress {c_s * 1e3:.1f} ms, decompress "
+              f"{d_s * 1e3:.1f} ms with the kernels; {pc_s * 1e3:.1f} / {pd_s * 1e3:.1f} ms "
+              f"through the plain versions; payloads, locals and decoded leaves bitwise the "
+              f"plain versions': {same}; payload_nbits {nbits} ({nbits / d:.4f} bits per "
+              f"coordinate in containers; the wire's bits_per_dim({d}) "
+              f"{ccfg.make().bits_per_dim(d):.4f}); "
+              f"launches {counts}")
+        if not same:
+            fail(f"helpers: {method}: the kernels' tree helpers differ from the plain versions")
+        if counts != expected:
+            fail(f"helpers: {method}: launches {counts}, expected {expected}")
+        if method == "diana" and not all(set(loc[p].signs.unique().tolist()) <= {-1, 0, 1}
+                                         for p in loc):
+            fail("helpers: the ternary locals are not signs in {-1, 0, 1}")
+        if method == "randk":
+            # the tags at each leaf's shape: threefry_bits against its plain version
+            keys = prng.split(key, n_leaves)
+            tags = all(torch.equal(ops.bits_op(keys[i], (tree[p].numel(),), dev),
+                                   prng.bits(keys[i], (tree[p].numel(),), device=dev))
+                       for i, p in enumerate(sorted(tree, key=lambda q: tuple(q.split("/")))))
+            print(f"helpers: randk's tags, threefry_bits at each leaf's size, bitwise the "
+                  f"plain version: {tags}")
+            if not tags:
+                fail("helpers: threefry_bits at a leaf's size differs from its plain version")
+        paths[f"helpers {method} ({layers} layers, per leaf)"] = counts
+        del pay, loc, out, ppay, ploc, pout, runs
+        _reset_peak(dev)
+    del tree
+    _reset_peak(dev)
+    print(f"helpers: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# The products a remat="dots" block saves, per block of the reduced archs
+# (tests/test_torch_remat.py: the no-batch dot_general outputs of the JAX
+# block): llama q, k, v, o, w_in, w_gate, w_out; granite-moe q, k, v, o and
+# the router; mamba2 in_proj, out_proj; jamba's eight layers
+REMAT_SAVED = {"llama3.2-1b": 7, "granite-moe-3b-a800m": 5, "mamba2-130m": 2,
+               "jamba-v0.1-52b": 34}
+
+
+def remat_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ,
+                workers=WORKERS) -> dict:
+    """``remat="dots"`` on the card:
+
+    1. which aten ops the selective checkpoint's policy sees in one block of
+       each reduced family on this device, and which it saves (every
+       ``aten.mm``; the batched einsums reach ``aten.bmm``): the saved count
+       per block as on the CPU (:data:`REMAT_SAVED`);
+    2. two ``diana`` steps of the slice (llama3.2-1b at full width cut to
+       ``layers`` layers, ``batch`` x ``seq``, ``workers`` in turn) under
+       ``remat="full"`` and then ``"dots"`` from the same initial state:
+       losses, parameters, momentum and memories bitwise, each step's time
+       and the peak printed side by side, launches exact per step.
+    Returns ``{path: launches}``."""
+    from collections import Counter
+
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import build_train_step, init_train_state, make_optimizer
+    from repro_torch.models import transformer as T
+
+    get_cfg = get_cfg or get_config
+    t_phase = time.perf_counter()
+    policy = T.dots_policy
+
+    def audit(cfg, params, batch_):
+        seen, saved = Counter(), []
+
+        def counting(ctx, op, *args, **kwargs):
+            decision = policy(ctx, op, *args, **kwargs)
+            if not ctx.is_recompute:
+                seen[str(op)] += 1
+                if decision == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+                    saved.append((args[-2].shape[0], args[-1].shape[1]))
+            return decision
+        T.dots_policy = counting
+        try:
+            T.train_loss(params, batch_, replace(cfg, remat="dots"))
+        finally:
+            T.dots_policy = policy
+        prods = {k: v // cfg.n_blocks for k, v in seen.items() if "mm" in k}
+        return prods, saved[:len(saved) // cfg.n_blocks]
+
+    for arch, want in REMAT_SAVED.items():
+        cfg = reduced(get_config(arch))
+        params = T.init_model(cfg, dev, seed=1)
+        seqlen = 128 if cfg.has_mamba() else 64
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_lm_batch(cfg, ShapeConfig("t", seqlen, 2, "train"), 0).items()}
+        prods, saved = audit(cfg, params, b)
+        print(f"remat: {arch} reduced, one block on {dev.type}: products seen {prods}; saved "
+              f"{len(saved)} (rows, columns) {saved}")
+        if len(saved) != want:
+            fail(f"remat: {arch}: the dots policy saves {len(saved)} products per block, "
+                 f"{want} on the CPU")
+    paths = {}
+    cfg = replace(get_cfg("llama3.2-1b"), n_layers=layers)
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(cfg, shape, s).items()}
+               for s in range(2)]
+    one = replace(cfg, n_layers=1)
+    prods, saved = audit(one, T.init_model(one, dev, seed=0),
+                         {k: v[:batch // workers] for k, v in batches[0].items()})
+    print(f"remat: llama3.2-1b full width, one block of one worker's batch: products seen "
+          f"{prods}; saved {len(saved)} {saved}")
+    if len(saved) != REMAT_SAVED["llama3.2-1b"]:
+        fail(f"remat: the full-width block saves {len(saved)} products")
+    _reset_peak(dev)
+    runs = {}
+    alloc = (lambda: torch.cuda.memory_allocated()) if dev.type == "cuda" else (lambda: 0)
+    for remat in ("full", "dots"):
+        base = alloc()
+        rcfg = replace(cfg, remat=remat)
+        opt = make_optimizer(rcfg)
+        params, state = init_train_state(rcfg, opt, workers, dev, seed=0)
+        fn = build_train_step(rcfg, opt, workers, dev)
+        _reset_peak(dev)
+        held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        build.reset_launches()
+        losses, times = [], []
+        for s in range(2):
+            gc.collect()
+            _sync(dev)
+            t0 = time.perf_counter()
+            params, state, met = fn(params, state, batches[s], prng.fold_in(prng.PRNGKey(0), s))
+            losses.append(float(met["loss"]))
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        counts, peak = dict(build.LAUNCHES), _peak(dev)
+        want = {"quantize_pack_prng": 2 * workers, "unpack_reduce": 2 * workers,
+                "unpack_reduce_apply": 2}
+        print(f"remat: {remat}, llama3.2-1b {layers} layers, batch {batch} x seq {seq}, "
+              f"{workers} workers, diana, 2 steps: losses {losses}; step times {times} s; "
+              f"peak memory {peak} B (held before the steps {held} B, the steps' own "
+              f"{peak - held} B); launches {counts}")
+        if counts != want:
+            fail(f"remat: {remat}: launches {counts}, expected {want}")
+        if remat == "full":
+            # kept on the host while the dots run holds the card
+            runs[remat] = (losses, {k: v.to("cpu", copy=True) for k, v in _flat(
+                {"params": params, "opt_state": state}).items() if isinstance(v, torch.Tensor)})
+        else:
+            runs[remat] = (losses, _flat({"params": params, "opt_state": state}))
+        paths[f"remat {remat} (diana, {layers} layers)"] = counts
+        del params, state, fn, met
+        _reset_peak(dev)
+        left = alloc() - base   # the full run keeps host copies only: nothing should stay
+        if left and remat == "full":
+            live = [o for o in gc.get_objects()
+                    if isinstance(o, torch.Tensor) and o.device.type == "cuda"]
+            live.sort(key=lambda o: o.numel() * o.element_size(), reverse=True)
+            top = [(o.numel() * o.element_size(), tuple(o.shape), str(o.dtype))
+                   for o in live[:4]]
+            holders = [type(r).__name__ + (f" {sorted(map(str, r))[:4]}" if isinstance(r, dict)
+                                           else "")
+                       for r in gc.get_referrers(live[0]) if r is not live] if live else []
+            del live
+            print(f"remat: {remat}: {left} B still allocated after the run's tensors were "
+                  f"dropped; the largest live tensors {top}, the largest held by {holders}")
+    (f_loss, f_tree), (d_loss, d_tree) = runs["full"], runs["dots"]
+    same = f_loss == d_loss and all(_same_bits(d_tree[k].to("cpu"), f_tree[k]) for k in f_tree)
+    print(f"remat: dots bitwise full from the same state (losses, parameters, momentum, "
+          f"h_worker, h_server: {len(f_tree)} tensors): {same}")
+    if not same:
+        fail("remat: the dots steps differ from the full steps")
+    del runs, f_tree, d_tree, batches
+    _reset_peak(dev)
+    print(f"remat: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def main() -> None:
@@ -2690,6 +3208,13 @@ def main() -> None:
         del k_params, p_params, k_diana, p_diana, k_leaves, p_leaves, abatches, ainit
     torch.cuda.empty_cache()
     print(f"models: the phase took {time.perf_counter() - models_t0:.1f} s")
+
+    # ------------------------------- the checkpoint, the tree helpers and remat="dots"
+    gc.collect()
+    torch.cuda.empty_cache()
+    for phase in (checkpoint_phase, helpers_phase, remat_phase):
+        for path, counts in phase(dev, card).items():
+            also(path, counts)
 
     # ------------------------------------------------------------------ serving
     gc.collect()

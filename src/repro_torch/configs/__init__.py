@@ -2,7 +2,7 @@
 
 from .base import (LayerSpec, ModelConfig, MoEConfig, SSMConfig, ShapeConfig, get_config,
                    list_archs, reduced)
-from .shapes import FRONTEND_DIM, SHAPES, get_shape, input_shapes, shape_applicable
+from .shapes import FRONTEND_DIM, SHAPES, get_shape, input_shapes, input_specs, shape_applicable
 
 # Register every assigned architecture (order = the JAX package's assignment table).
 from . import granite_moe_3b_a800m  # noqa: F401
@@ -31,5 +31,5 @@ ASSIGNED_ARCHS = (
 
 __all__ = ["LayerSpec", "ModelConfig", "MoEConfig", "SSMConfig", "ShapeConfig", "get_config",
            "list_archs", "reduced", "FRONTEND_DIM", "SHAPES", "get_shape", "input_shapes",
-           "shape_applicable",
+           "input_specs", "shape_applicable",
            "ASSIGNED_ARCHS"]

@@ -89,7 +89,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
-    remat: str = "full"            # none | full (torch.utils.checkpoint per block) | dots
+    remat: str = "full"            # none | full (recompute each block) | dots (save the products)
     attn_q_chunk: int = 2048       # query-chunked attention above this seq len
     # --- DIANA / training defaults (overridable from the CLI) ---
     compression: str = "diana"

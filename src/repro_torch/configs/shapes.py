@@ -12,9 +12,12 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import torch
+
 from .base import ModelConfig, ShapeConfig
 
-__all__ = ["SHAPES", "FRONTEND_DIM", "get_shape", "shape_applicable", "input_shapes"]
+__all__ = ["SHAPES", "FRONTEND_DIM", "get_shape", "shape_applicable", "input_shapes",
+           "input_specs"]
 
 SHAPES: Dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train"),
@@ -61,3 +64,12 @@ def input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Tuple[int, .
     if shape.kind == "train":
         out["labels"] = (b, s_tokens)
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                                         torch.dtype]]:
+    """``{name: (shape, dtype)}`` of every model input: the JAX package's
+    ``ShapeDtypeStruct`` stand-ins (f32 frontend embeddings, int32 tokens and
+    labels)."""
+    return {name: (dims, torch.float32 if name.endswith("_embeds") else torch.int32)
+            for name, dims in input_shapes(cfg, shape).items()}

@@ -3,7 +3,8 @@
 The port's copy of ``repro.core.compression.CompressionConfig`` with the
 fields the flat (uniform) round reads, VR-DIANA's, the compressed
 downlink's, elastic participation's and the wire schedule's (chunks and the
-two-level topology) included.
+two-level topology) included, and the tree-level helpers over the
+compressor interface (:func:`compress_tree`, :func:`decompress_tree`).
 """
 
 from __future__ import annotations
@@ -15,11 +16,16 @@ from typing import Optional
 
 import torch
 
+from . import prng
 from .compressors import make_compressor
 from .compressors.registry import canonical_name
+from .compressors.ternary import TernaryCompressor
+from .packing import unpack2bit
 from .participation import ParticipationSpec
+from .quantization import QuantizedBlocks
+from .tree import paths
 
-__all__ = ["CompressionConfig", "payload_bits_per_dim"]
+__all__ = ["CompressionConfig", "compress_tree", "decompress_tree", "payload_bits_per_dim"]
 
 
 @dataclass(frozen=True)
@@ -118,6 +124,41 @@ class CompressionConfig:
 @functools.lru_cache(maxsize=None)
 def _make_cached(cfg: CompressionConfig):
     return make_compressor(cfg)
+
+
+def compress_tree(tree, key: torch.Tensor, cfg: CompressionConfig):
+    """Compress a ``{path: tensor}`` gradient (difference) leaf by leaf: leaf
+    ``i`` (in :func:`~repro_torch.core.tree.paths` order), flattened to f32,
+    through ``cfg``'s compressor with ``split(key, n_leaves)[i]``.
+
+    Returns ``(payloads, locals)``: one :class:`Payload` per leaf (the wire
+    format), and the worker's decode-ready form, a
+    :class:`~repro_torch.core.quantization.QuantizedBlocks` for the ternary
+    family and the payload itself otherwise.  On the card each leaf runs the
+    operator's encode kernel."""
+    comp = cfg.make()
+    order = paths(tree)
+    keys = prng.split(key, len(order))
+    payloads, locals_ = {}, {}
+    for i, path in enumerate(order):
+        pay = comp.compress(tree[path].reshape(-1).float(), keys[i])
+        payloads[path] = pay
+        locals_[path] = (QuantizedBlocks(signs=unpack2bit(pay.packed), scales=pay.scales)
+                         if isinstance(comp, TernaryCompressor) else pay)
+    return payloads, locals_
+
+
+def decompress_tree(payload, like, cfg: CompressionConfig):
+    """Decode ``{path: Payload}`` back to dense leaves in the shapes and
+    dtypes of ``like``'s (one worker's decode per leaf: a kernel on the
+    card)."""
+    comp = cfg.make()
+    out = {}
+    for path in paths(like):
+        leaf = like[path]
+        dense = comp.decode(payload[path], leaf.numel())
+        out[path] = dense.to(leaf.dtype).reshape(leaf.shape)
+    return out
 
 
 def payload_bits_per_dim(cfg: CompressionConfig, d: Optional[int] = None) -> float:

@@ -16,7 +16,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.numerics import SegmentRates, div_n, fma32
 
-__all__ = ["Payload", "Compressor", "index_dtype", "index_nbits"]
+__all__ = ["Payload", "Compressor", "index_dtype", "index_nbits", "payload_nbits"]
 
 
 def index_dtype(d: int) -> torch.dtype:
@@ -109,6 +109,12 @@ class Payload(NamedTuple):
                     self.indices[w].copy_(torch.arange(k, device=self.indices.device)
                                           .to(self.indices.dtype))
         return self
+
+
+def payload_nbits(payload: Payload) -> int:
+    """Container bits of one payload (an upper bound on the logical wire
+    cost): every field that is set, at its dtype's width."""
+    return sum(f.numel() * f.element_size() * 8 for f in payload if f is not None)
 
 
 class Compressor:

@@ -9,10 +9,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pack2bit", "unpack2bit", "PACK_FACTOR"]
+__all__ = ["pack2bit", "unpack2bit", "packed_nbytes", "PACK_FACTOR"]
 
 PACK_FACTOR = 4  # ternary values per byte
 _SHIFTS = (0, 2, 4, 6)
+
+
+def packed_nbytes(n: int) -> int:
+    """Bytes needed for ``n`` ternary values."""
+    return -(-n // PACK_FACTOR)
 
 
 def pack2bit(signs: torch.Tensor) -> torch.Tensor:

@@ -73,7 +73,11 @@ averages each node's K gradients before one encode per node, keyed
 ``--controller-interval`` and ``--warmup-dense-steps``) runs the bit-budget
 controller between steps (:func:`controller_tick`): the steps report each
 policy group's telemetry, and a switch migrates the memories and rebuilds
-the step.
+the step.  ``--checkpoint-dir`` saves ``{"params": params}`` at step
+``--steps`` when the run ends (rank 0 under ``torchrun``), the policy's JSON
+(and the controller's state) in the manifest's metadata, as the JAX trainer
+does; like it, the CLI has no resume flag (``repro_torch.checkpoint``'s
+``restore_checkpoint`` takes any template).
 
 The logged loss is the mean over the workers (all-reduced across ranks).
 Entry points run on ``cuda`` and raise without a GPU unless the caller asks
@@ -103,6 +107,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ShapeConfig, get_config, get_shape, list_archs, reduced
 from repro_torch.core import prng
 from repro_torch.core import tree as T
@@ -111,8 +116,9 @@ from repro_torch.core.bucket import (ChunkedSchedule, bucketed_compressor, unfus
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import available_methods
 from repro_torch.core.compressors.base import Payload
-from repro_torch.core.controller import (BudgetController, init_controller_state,
-                                         maybe_reallocate, migrate_diana_state, observe)
+from repro_torch.core.controller import (BudgetController, controller_metadata,
+                                         init_controller_state, maybe_reallocate,
+                                         migrate_diana_state, observe)
 from repro_torch.core.diana import (DOWN_FOLD, GROUP_FOLD, PART_FOLD, _check_topology,
                                     _chunk_decode_own, _chunk_payloads, _chunk_wire_meta,
                                     _frozen_downlink, _group_downlink,
@@ -797,6 +803,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None, help="override global batch")
     ap.add_argument("--seq", type=int, default=None, help="override sequence length")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="at the end of the run, save the parameters there (repro_torch."
+                         "checkpoint: the JAX trainer's files), the policy (and the "
+                         "controller's state) in the manifest's metadata")
     args = ap.parse_args(argv)
 
     from dataclasses import replace
@@ -898,6 +908,16 @@ def main(argv=None):
                 opt, opt_state, step_fn, cstate = controller_tick(
                     controller, cstate, opt, opt_state, step_fn, metrics, params, rows, build,
                     log=log)
+        if args.checkpoint_dir and log:
+            # the policy rides in the metadata, so a restore can rebuild the
+            # matching (possibly grouped) state template; with the controller
+            # on, its state and telemetry EMAs ride along
+            metadata = {"policy": opt.policy.to_json_dict()}
+            if controller is not None:
+                metadata["controller"] = controller_metadata(controller, cstate)
+            save_checkpoint(args.checkpoint_dir, args.steps, {"params": params},
+                            metadata=metadata)
+            print(f"checkpoint written to {args.checkpoint_dir}")
     finally:
         if distributed and dist.is_initialized():
             dist.destroy_process_group()

@@ -29,10 +29,19 @@ the JAX package), which the step updates in place.
 
 ``remat="full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), like ``jax.checkpoint`` around the scanned
-block; without autograd (a prefill under ``torch.inference_mode``) and on
-the decode path the blocks just run.  ``remat="dots"`` (save only the
-matrix products) is reachable only from the JAX package's dry run and is
-not ported.
+block.  ``remat="dots"`` is ``jax.checkpoint`` with
+``dots_with_no_batch_dims_saveable``: a selective checkpoint whose policy
+(:func:`dots_policy`) saves the outputs of the products with no batch
+dimension and recomputes everything else.  A ``x @ W`` projection of a
+(B, S, D) activation folds into one ``aten.mm`` (the attention and MLP
+projections, Mamba-2's ``in_proj`` / ``out_proj``, the MoE router); the
+batched einsums (attention scores and values, the MoE experts, the SSD)
+reach ``aten.bmm`` and are recomputed.  The saved set is the block's
+no-batch ``dot_general`` outputs; XLA keeps a product as a residual only
+where the backward reads it, so it drops the block's last one (the MLP's
+``w_out``, which feeds only the residual add), which the port holds until
+its recompute.  Without autograd (a prefill under ``torch.inference_mode``)
+and on the decode path the blocks just run.
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.shapes import FRONTEND_DIM
 
@@ -54,9 +64,26 @@ from .moe import moe_layer
 __all__ = ["init_model", "param_shapes", "param_dtypes", "meta_params", "Transformer",
            "forward", "head_logits", "train_loss", "init_caches", "decode_step",
            "count_params", "count_active_params", "model_flops_per_token", "CE_SEQ_CHUNK",
-           "FRONTEND_DIM"]
+           "FRONTEND_DIM", "SAVED_PRODUCTS", "dots_policy"]
 
 CE_SEQ_CHUNK = 512
+
+# remat="dots": the aten ops of the products with no batch dimension
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable`` as a selective-checkpoint policy:
+    save the output of an op of :data:`SAVED_PRODUCTS`, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+_REMATS = ("none", "full", "dots")
 
 _ONES, _ZEROS, _A_LOG = "ones", "zeros", "a_log"
 
@@ -105,10 +132,8 @@ def _layer_specs(spec, cfg) -> Dict[str, tuple]:
 def _specs(cfg) -> Dict[str, tuple]:
     """``{path: (shape, init, f32)}`` of the whole tree, block leaves stacked."""
     d, vpad, nb = cfg.d_model, cfg.padded_vocab, cfg.n_blocks
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is reachable only from the JAX package's dry run; it is "
-            "queued with the model axis and the benchmarks (ROADMAP.md queue 1 item 11)")
+    if cfg.remat not in _REMATS:
+        raise ValueError(f"unknown remat {cfg.remat!r}; choose from {_REMATS}")
     specs = {"embed": ((vpad, d), 0.02, False), "final_norm/scale": ((d,), _ONES, False)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, vpad), 0.02, False)
@@ -244,6 +269,9 @@ def forward(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Tensor
                           caches=tuple(type(c)(*(t[i] for t in c)) for c in caches))
         elif cfg.remat == "full" and torch.is_grad_enabled():
             x, aux = checkpoint(body, x, aux, positions, lp, use_reentrant=False)
+        elif cfg.remat == "dots" and torch.is_grad_enabled():
+            x, aux = checkpoint(body, x, aux, positions, lp, use_reentrant=False,
+                                context_fn=_dots_context)
         else:
             x, aux = body(x, aux, positions, lp)
     if last_token_only:

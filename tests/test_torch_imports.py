@@ -1,5 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``."""
+``chip_smoke.py`` or ``tools/chip_phases.py``, imports ``jax``, the JAX
+package ``repro`` or ``ml_dtypes`` (which the machine with the card does
+not have: the checkpoint stores bf16 and float8 through torch's bit
+views)."""
 
 import ast
 from pathlib import Path
@@ -7,8 +10,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "chip_phases.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported(path):

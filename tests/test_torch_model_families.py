@@ -113,7 +113,10 @@ def test_frontend_positions_drop_out_of_the_loss():
 
 
 def test_remat_dots_is_refused():
-    cfg = replace(reduced(get_config("llama3.2-1b")), remat="dots")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        from repro_torch.models.transformer import init_model
-        init_model(cfg, "cpu")
+    """``remat="dots"`` was refused until the port had it; now it builds
+    (``tests/test_torch_remat.py`` holds it to the JAX package), and what is
+    refused is a mode the JAX package does not know."""
+    from repro_torch.models.transformer import init_model
+    init_model(replace(reduced(get_config("llama3.2-1b")), remat="dots"), "cpu")
+    with pytest.raises(ValueError, match="unknown remat"):
+        init_model(replace(reduced(get_config("llama3.2-1b")), remat="offload"), "cpu")
