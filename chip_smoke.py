@@ -188,8 +188,8 @@ Phases (each prints its lines; any failure exits non-zero):
 17. models: the other model families through the in-turn trainer at n = 4,
    batch 8 x 4096, 3 steps each: ``granite-moe-3b-a800m`` at full width
    (d_model 1536, 24/8 heads, 40 experts top-8 of d_ff 512, vocab 49155,
-   bf16, remat full) cut to 8 of 32 layers (969,401,856 parameters in 13
-   leaves) with ``--comp-policy default --inner adamw`` (identity on the
+   bf16, remat full) cut to 4 of 32 layers (566,490,624 parameters in 13
+   leaves; 8 layers until the ``mesh:`` phase needed the time) with ``--comp-policy default --inner adamw`` (identity on the
    router and the norm scales, top-k EF on ``embed`` / ``lm_head``,
    natural on the experts, ternary on attention: each group's encode and
    own decode 4 times and its server decode once per step, exact);
@@ -222,6 +222,17 @@ Phases (each prints its lines; any failure exits non-zero):
    of full-width llama, and the products it saves (as on the CPU); two
    ``diana`` steps of the slice under ``remat="full"`` and then ``"dots"``
    from the same state, bitwise, with step times, peaks and launches;
+17d. mesh (:func:`mesh_phase`): the model axis, ``--mesh 2x2`` as four
+   processes sharing the card over gloo (which collectives gloo takes CUDA
+   tensors for is probed; the others cross the host, named on the line),
+   llama3.2-1b at full width cut to 8 layers, 8 x 4096 global: 3 steps of
+   ``diana`` (downgraded per leaf, its warning printed) and of ``none``,
+   per rank the step times, peak, the round's time and collectives and the
+   tensor-parallel ones, launches exact per rank; replicated leaves
+   bitwise across model ranks; step 0's round bitwise its plain version
+   on the same shards; the four compressing operators on the reduced model
+   over the mesh through the kernels bitwise the plain versions; ``none``
+   against the in-turn trainer at n = 2 within its stated tolerance;
 18. serve: serving, which launches none of the kernels (:func:`serve_phase`):
    ``llama3.2-1b`` at full width and depth, decoding 16 tokens at batch 32
    against caches of 32,768 positions through ``build_serve_step`` (ms per
@@ -271,6 +282,7 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (f32 accum
 CIPHER_INSTRUCTIONS = 68       # threefry2x32-20 per word, from its specification (bound_int)
 LANES_PER_SM_CLOCK = 128       # 4 warp-instructions dispatched per SM per clock
 LAYERS, BATCH, SEQ, WORKERS, STEPS = 8, 8, 4096, 4, 3
+GRANITE_LAYERS = 4             # models: granite-moe-3b-a800m's depth (of 32)
 COMP_K = 1 << 20               # rand-k / top-k: coordinates kept per leaf
 
 
@@ -1107,6 +1119,418 @@ def remat_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SE
     del runs, f_tree, d_tree, batches
     _reset_peak(dev)
     print(f"remat: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# ------------------------------------------------------------------ the model axis
+
+MESH = "2x2"
+# per leaf and rank, per step: the kernel launches of each operator's
+# shard-local per-leaf round (the encode, the rank's own decode, the server's
+# sum over the data group)
+MESH_LAUNCHES = {"diana": {"quantize_pack_prng": 1, "unpack_reduce": 2},
+                 "natural": {"nat_pack_prng": 1, "nat_decode_sum": 2},
+                 "randk": {"threefry_bits": 1, "sparse_gather": 1, "sparse_decode_sum": 2},
+                 "topk_ef": {"sparse_gather": 1, "sparse_decode_sum": 2}}
+
+
+def _mesh_probe(dev) -> dict:
+    """Whether the process group takes CUDA tensors for each collective of
+    the mesh path: each is tried on small card tensors (bf16 and f32 sums,
+    an f32 max, a uint8 gather) and its values checked, and every rank
+    learns whether all ranks passed.  Returns ``{collective: passed on every
+    rank}``; nothing falls back to the host."""
+    if dev.type != "cuda":
+        return {}
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def reduce_ok():
+        ok = True
+        for dt, op, want in ((torch.bfloat16, dist.ReduceOp.SUM, world * (world + 1) / 2),
+                             (torch.float32, dist.ReduceOp.SUM, world * (world + 1) / 2),
+                             (torch.float32, dist.ReduceOp.MAX, world)):
+            x = torch.full((8,), rank + 1.0, dtype=dt, device=dev)
+            dist.all_reduce(x, op=op)
+            ok &= bool((x.float() == want).all())
+        return ok
+
+    def gather_ok():
+        x = torch.full((8,), rank, dtype=torch.uint8, device=dev)
+        out = torch.empty((world * 8,), dtype=torch.uint8, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return bool((out.view(world, 8).cpu() == torch.arange(world)[:, None]).all())
+
+    took = {}
+    for name, probe in (("all_reduce", reduce_ok), ("all_gather_into_tensor", gather_ok)):
+        try:
+            ok = probe()
+        except Exception as e:  # noqa: BLE001 - the backend's refusal, reported
+            ok = False
+            print(f"mesh: rank {rank}: {name} on CUDA tensors: {type(e).__name__}: {e}")
+        flag = torch.tensor([int(ok)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)     # the same verdict on every rank
+        took[name] = bool(int(flag))
+    return took
+
+
+def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, prepare):
+    """One rank of the ``mesh:`` phase (see :func:`mesh_phase`); writes its
+    readings to ``tmp/rank{rank}.json`` and its ``none`` shards to
+    ``tmp/none{rank}.pt``."""
+    import datetime
+    import warnings
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.core import prng, transport
+    from repro_torch.core.diana import aggregate_distributed, init_state
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import mesh_groups, parse_mesh
+    from repro_torch.launch.sharding_rules import param_specs
+    from repro_torch.models.transformer import meta_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    if prepare is not None:
+        prepare()
+    get_cfg = get_cfg or get_config
+    res = {"rank": rank, "probe": _mesh_probe(dev)}
+    if not all(res["probe"].values()):
+        raise RuntimeError(f"mesh: gloo does not take CUDA tensors for {res['probe']}")
+    if dev.type == "cuda":
+        build.library()            # built by the parent: loaded, never compiled here
+    mesh = parse_mesh(MESH)
+    groups = mesh_groups(mesh)
+    res["coords"] = [groups.worker, groups.shard]
+    cfg = replace(get_cfg("llama3.2-1b"), n_layers=layers)
+    specs = param_specs(meta_params(cfg), cfg, mesh.model)
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(cfg, shape, s).items()}
+               for s in range(steps)]
+    orig_round = train_mod.aggregate_distributed
+
+    def run(method, record=None):
+        """``steps`` steps of ``method`` at the phase's width on the mesh:
+        losses, step times, peak, launches, and per step the round's time
+        and the collectives inside and outside it."""
+        mcfg = replace(cfg, compression=method)
+        opt = train_mod.make_optimizer(mcfg)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            opt = train_mod.resolve_bucketed(opt, mesh)
+        params, state = train_mod.init_train_state(mcfg, opt, 1, dev, seed=0, model=mesh.model,
+                                                   shard=groups.shard)
+        step_fn = train_mod.build_distributed_step(mcfg, opt, mesh=mesh)
+        held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        rounds = []
+
+        def timed_round(grads, st, key, c, **kw):
+            if record is not None and not rounds:
+                record.update(grads={p: g.to("cpu", copy=True) for p, g in grads.items()},
+                              key=key.to("cpu", copy=True))
+            _sync(dev)
+            before, t0 = dict(transport.STATS), time.perf_counter()
+            out = orig_round(grads, st, key, c, **kw)
+            _sync(dev)
+            rounds.append({"ms": (time.perf_counter() - t0) * 1e3,
+                           "stats": {f"{k[0]} {k[1]}": v - before.get(k, 0)
+                                     for k, v in transport.STATS.items()
+                                     if v != before.get(k, 0)}})
+            if record is not None and len(rounds) == 1:
+                record.update(ghat={p: g.to("cpu", copy=True) for p, g in out[0].items()},
+                              hw={p: h.to("cpu", copy=True) for p, h in out[1].h_worker.items()},
+                              hs={p: h.to("cpu", copy=True) for p, h in out[1].h_server.items()})
+            return out
+        train_mod.aggregate_distributed = timed_round
+        _reset_peak(dev)
+        build.reset_launches()
+        losses, times, outside = [], [], []
+        try:
+            for s in range(steps):
+                gc.collect()
+                _sync(dev)
+                before, t0 = dict(transport.STATS), time.perf_counter()
+                params, state, met = step_fn(params, state, batches[s],
+                                             prng.fold_in(prng.PRNGKey(0), s))
+                losses.append(float(met["loss"]))
+                _sync(dev)
+                times.append(time.perf_counter() - t0)
+                outside.append({f"{k[0]} {k[1]}": v - before.get(k, 0) - rounds[s]["stats"].get(
+                    f"{k[0]} {k[1]}", 0) for k, v in transport.STATS.items()})
+        finally:
+            train_mod.aggregate_distributed = orig_round
+        out = {"losses": losses, "times": times, "peak": _peak(dev), "held": held,
+               "launches": dict(build.LAUNCHES), "rounds": rounds, "outside": outside,
+               "warnings": [str(w.message) for w in caught]}
+        return out, params, state
+
+    def replicated_same(tree):
+        """Each replicated leaf's bits equal on every rank of the model group."""
+        ok = True
+        for p, x in tree.items():
+            if specs.get(p, 0) is None:
+                parts = transport.all_gather_bytes(x.detach(), mesh.model, groups.model.group)
+                ok &= all(torch.equal(parts[0], parts[i]) for i in range(1, mesh.model))
+        return ok
+
+    rec = {}
+    res["diana"], params, state = run("diana", record=rec)
+    res["diana"]["replicated_bitwise"] = bool(
+        replicated_same(params) and replicated_same(state.inner)
+        and replicated_same(state.diana.h_worker) and replicated_same(state.diana.h_server))
+    del params, state
+    _reset_peak(dev)
+    # step 0's round again on the same shards with every kernel swapped for its
+    # plain version, one data group at a time (its ranks gather together)
+    dcfg = train_mod.make_optimizer(replace(cfg, compression="diana", comp_bucketed=False))
+    plain = None
+    for s in range(mesh.model):
+        dist.barrier()
+        if groups.shard != s:
+            continue
+        grads = {p: g.to(dev) for p, g in rec["grads"].items()}
+        st0 = init_state(grads, dcfg.policy, 1)
+        on_card = ops._on_card
+        ops._on_card = lambda t: False
+        build.reset_launches()
+        try:
+            ghat, new = aggregate_distributed(grads, st0, rec["key"].to(dev), dcfg.policy,
+                                              group=groups.data)
+        finally:
+            ops._on_card = on_card
+        plain = (all(_same_bits(ghat[p].cpu(), rec["ghat"][p]) for p in ghat)
+                 and all(_same_bits(new.h_worker[p].cpu(), rec["hw"][p]) for p in ghat)
+                 and all(_same_bits(new.h_server[p].cpu(), rec["hs"][p]) for p in ghat)
+                 and not build.LAUNCHES)
+        del grads, st0, ghat, new
+    dist.barrier()
+    res["diana"]["round_plain_bitwise"] = bool(plain)
+    del rec
+    _reset_peak(dev)
+    res["none"], params, state = run("none")
+    torch.save({"params": {p: v.detach().to("cpu", copy=True) for p, v in params.items()},
+                "momentum": {p: v.to("cpu", copy=True) for p, v in state.inner.items()}},
+               tmp / f"none{rank}.pt")
+    del params, state
+    _reset_peak(dev)
+
+    # every compressing operator on the reduced model over the mesh: 2 steps
+    # through the kernels, then through the plain versions, bitwise
+    rcfg = reduced(get_config("llama3.2-1b"))
+    rshape = ShapeConfig("smoke", 64, 4, "train")
+    rbatches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                 make_lm_batch(rcfg, rshape, s).items()} for s in range(2)]
+    res["reduced"] = {}
+    for method in MESH_LAUNCHES:
+        mcfg = replace(rcfg, compression=method, comp_bucketed=False)
+
+        def two_steps():
+            opt = train_mod.make_optimizer(mcfg)
+            p, st = train_mod.init_train_state(mcfg, opt, 1, dev, seed=3, model=mesh.model,
+                                               shard=groups.shard)
+            fn = train_mod.build_distributed_step(mcfg, opt, mesh=mesh)
+            ls = []
+            for s, b in enumerate(rbatches):
+                p, st, met = fn(p, st, b, prng.fold_in(prng.PRNGKey(0), s))
+                ls.append(float(met["loss"]))
+            return ls, p, st
+        build.reset_launches()
+        k_loss, k_p, k_st = two_steps()
+        counts = dict(build.LAUNCHES)
+        on_card = ops._on_card
+        ops._on_card = lambda t: False
+        try:
+            p_loss, p_p, p_st = two_steps()
+        finally:
+            ops._on_card = on_card
+        same = (k_loss == p_loss and all(_same_bits(k_p[x], p_p[x]) for x in k_p)
+                and _same_trees(k_st, p_st))
+        res["reduced"][method] = {"losses": k_loss, "bitwise": bool(same), "launches": counts,
+                                  "leaves": len(k_p)}
+    res["leaves"] = len(specs)
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ, steps=STEPS,
+               world=4, prepare=None, tol=1e-2, mtol=2.0 ** -5) -> dict:
+    """The model axis on the card: ``--mesh 2x2`` (2 DIANA workers x 2
+    model shards) as ``world`` = 4 processes sharing the one card, each one
+    rank over gloo (NCCL runs one rank per GPU), llama3.2-1b at full width
+    cut to ``layers`` layers, ``batch`` x ``seq`` global (``batch / 2`` rows
+    per worker):
+
+    1. the parent builds the kernels (no child runs nvcc), frees its card
+       memory and prints what it still holds, then spawns the ranks;
+    2. each rank checks that gloo takes CUDA tensors for the collectives of
+       the path (:func:`_mesh_probe`; it does on the H100 machine, so no
+       collective crosses the host);
+    3. ``steps`` steps of ``diana`` (bucketed asked, downgraded per leaf by
+       ``resolve_bucketed``: its warning printed) and of ``none``: per rank
+       the step times, the peak, the round's time and collectives, the
+       tensor-parallel collectives outside it, launches exact per rank (per
+       leaf: :data:`MESH_LAUNCHES`; ``none`` none);
+    4. the replicated leaves (parameters, momentum, memories) bitwise equal
+       across each worker's model ranks; step 0's round, replayed on the
+       same shards with every kernel swapped for its plain version, bitwise;
+    5. every compressing operator on the reduced model over the same mesh, 2
+       steps through the kernels bitwise through the plain versions,
+       launches exact;
+    6. the ``none`` run against the in-turn trainer (``build_train_step``) at
+       n = 2 on the card from the same weights and batches, after the ranks
+       exit: the losses within ``tol`` (1e-2) relative, each leaf's
+       parameters within ``tol / 10`` normwise, and each leaf's f32 momentum
+       (the applied directions summed) within ``mtol`` normwise, 2^-5 = 8
+       bf16 epsilons: the tensor-parallel sums round in another order in
+       bf16, through the 8 layers' backward (the embedding's momentum, the
+       farthest, reads ~2.2e-2 on an H100).
+
+    Returns ``{path: launches}`` (rank 0's; every rank's are checked)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch.sharding_rules import param_specs, shard_leaf
+    from repro_torch.launch.train import build_train_step, init_train_state, make_optimizer
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        build.library()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"mesh: the parent holds {torch.cuda.memory_reserved()} B reserved "
+              f"({torch.cuda.memory_allocated()} B allocated) at the spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    # four ranks share the card: each one's allocator grows its segments in
+    # place rather than holding fragments the others need
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _mesh_rank, args=(tmp, world, dev.type, get_cfg, layers, batch, seq, steps, prepare),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + 900
+        try:
+            while not ctx.join(timeout=2):
+                if time.monotonic() > deadline:
+                    fail("mesh: the ranks did not finish in 900 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        t_ranks = time.perf_counter() - t0
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        res = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(world)]
+        r0 = res[0]
+        print(f"mesh: --mesh {MESH} = 2 workers x 2 model shards, {world} processes on one "
+              f"{dev.type} device over gloo; llama3.2-1b {layers} layers, batch {batch} x seq "
+              f"{seq}; the ranks ran {t_ranks:.1f} s (spawn included)")
+        print(f"mesh: gloo takes CUDA tensors for (probed with their values): {r0['probe']}; "
+              f"no collective crosses the host")
+        print(f"mesh: {r0['diana']['warnings'][0] if r0['diana']['warnings'] else 'no warning'}")
+        for method in ("diana", "none"):
+            for r in res:
+                m = r[method]
+                tp = {k: v for k, v in m["outside"][-1].items() if v}
+                rd = m["rounds"][-1]
+                print(f"mesh: {method} rank {r['rank']} (worker, shard) {tuple(r['coords'])}: "
+                      f"losses {m['losses']}; step times {m['times']} s; peak {m['peak']} B "
+                      f"(held before the steps {m['held']} B); the round {rd['ms']:.1f} ms, "
+                      f"its collectives {rd['stats']}; outside it (tensor-parallel, loss, "
+                      f"norm) per step {tp}; launches {m['launches']}")
+        leaves = r0["leaves"]
+        want = {k: v * leaves * steps for k, v in MESH_LAUNCHES["diana"].items()}
+        for r in res:
+            if r["diana"]["launches"] != want or r["none"]["launches"]:
+                fail(f"mesh: rank {r['rank']} launches {r['diana']['launches']} (diana, "
+                     f"expected {want}), {r['none']['launches']} (none, expected none)")
+            if len(r["diana"]["warnings"]) != 1:
+                fail(f"mesh: rank {r['rank']}: expected one downgrade warning, got "
+                     f"{r['diana']['warnings']}")
+        rep = [r["diana"]["replicated_bitwise"] for r in res]
+        plain = [r["diana"]["round_plain_bitwise"] for r in res]
+        print(f"mesh: replicated leaves (parameters, momentum, h_worker, h_server) bitwise "
+              f"across each worker's model ranks: {rep}; step 0's round through the kernels "
+              f"bitwise its plain version on the same shards, per rank: {plain}")
+        if not all(rep) or not all(plain):
+            fail("mesh: replicated leaves differ across model ranks, or a round through the "
+                 "kernels differs from its plain version")
+        for method, per in MESH_LAUNCHES.items():
+            rows = [r["reduced"][method] for r in res]
+            wl = {k: v * rows[0]["leaves"] * 2 for k, v in per.items()}
+            print(f"mesh: reduced llama3.2-1b, {method}, 2 steps on the mesh: losses "
+                  f"{rows[0]['losses']}; through the kernels bitwise the plain versions per "
+                  f"rank {[x['bitwise'] for x in rows]}; launches per rank "
+                  f"{[x['launches'] for x in rows]}")
+            if not all(x["bitwise"] for x in rows) or any(x["launches"] != wl for x in rows):
+                fail(f"mesh: reduced {method}: kernels differ from the plain versions, or "
+                     f"launches differ from {wl}")
+        # the none run against the in-turn trainer at n = 2 on this device
+        get = get_cfg or get_config
+        cfg = replace(get("llama3.2-1b"), n_layers=layers, compression="none")
+        shape = ShapeConfig("train_4k", seq, batch, "train")
+        opt = make_optimizer(cfg)
+        params, state = init_train_state(cfg, opt, 2, dev, seed=0)
+        step_fn = build_train_step(cfg, opt, 2, dev)
+        losses = []
+        for s in range(steps):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(cfg, shape, s).items()}
+            params, state, met = step_fn(params, state, b, prng.fold_in(prng.PRNGKey(0), s))
+            losses.append(float(met["loss"]))
+        specs = param_specs(params, cfg, 2)
+        worst = {"params": {}, "momentum": {}}
+        differ, total = 0, 0
+        for r in range(world):
+            m = res[r]["coords"][1]
+            mine = torch.load(Path(tmp, f"none{r}.pt"))
+            for name, ref_tree in (("params", params), ("momentum", state.inner)):
+                for p, v in mine[name].items():     # compared on the device, in float64
+                    ref_ = shard_leaf(ref_tree[p].detach(), specs[p], 2, m).double()
+                    v = v.to(dev).double()
+                    d = float((v - ref_).norm() / ref_.norm().clamp(min=1e-30))
+                    worst[name][p] = max(worst[name].get(p, 0.0), d)
+                    if name == "params":
+                        differ += int((v != ref_).sum())
+                        total += v.numel()
+                    del v, ref_
+        del params, state
+        _reset_peak(dev)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res[0]["none"]["losses"], losses))
+        mom = {p: f"{d:.3e}" for p, d in worst["momentum"].items()}
+        wm, wp = max(worst["momentum"].values()), max(worst["params"].values())
+        print(f"mesh: none against build_train_step at n = 2 from the same weights and batches: "
+              f"losses {res[0]['none']['losses']} vs {losses} (largest relative difference "
+              f"{rel:.3e}, tolerance {tol}); the f32 momentum's normwise relative difference "
+              f"per leaf {mom} (tolerance {mtol}); the parameters' largest {wp:.3e} "
+              f"(tolerance {tol / 10}), {differ} of {total} coordinates differ")
+        if rel > tol or wm > mtol or wp > tol / 10:
+            fail("mesh: the none run on the mesh is outside its tolerance of the in-turn "
+                 "trainer")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"mesh: the phase took {time.perf_counter() - t_phase:.1f} s")
+    paths = {f"mesh {MESH} diana ({layers} layers, per rank, {steps} steps)":
+             res[0]["diana"]["launches"]}
+    for method in MESH_LAUNCHES:
+        paths[f"mesh {MESH} reduced {method} (per rank, 2 steps)"] = \
+            res[0]["reduced"][method]["launches"]
     return paths
 
 
@@ -3051,7 +3475,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ the model families
-    # (a) granite-moe-3b-a800m at full width (8 of 32 layers) with its curated
+    # (a) granite-moe-3b-a800m at full width (4 of 32 layers) with its curated
     # policy and adamw; (b) mamba2-130m at full depth, flat diana and its
     # policy; (c) every other registered arch, reduced, through the kernels
     # bitwise the same steps through the plain versions.
@@ -3130,7 +3554,7 @@ def main() -> None:
                     want[k] = want.get(k, 0) + v * steps
         return want
 
-    gcfg = replace(get_config("granite-moe-3b-a800m"), n_layers=LAYERS)
+    gcfg = replace(get_config("granite-moe-3b-a800m"), n_layers=GRANITE_LAYERS)
     gmeta = meta_params(gcfg)
     glay = grouped_bucket_layout(make_optimizer(gcfg, policy="default").policy, gmeta)
     print(f"models: granite-moe-3b-a800m ({gcfg.citation}) --comp-policy default = "
@@ -3140,10 +3564,10 @@ def main() -> None:
     n, counts = models_run(gcfg, STEPS, "granite-moe-3b-a800m --comp-policy default --inner "
                            "adamw", policy="default", inner="adamw")
     want = per_step_want(("identity", "topk_ef", "natural", "ternary"), STEPS)
-    if n != 969_401_856 or counts != want:
-        fail(f"models: granite-moe: {n} parameters, launches {counts}, expected 969401856 "
+    if n != 566_490_624 or counts != want:
+        fail(f"models: granite-moe: {n} parameters, launches {counts}, expected 566490624 "
              f"and {want}")
-    also(f"granite-moe {LAYERS} layers --comp-policy default --inner adamw "
+    also(f"granite-moe {GRANITE_LAYERS} layers --comp-policy default --inner adamw "
          f"(4 workers, {STEPS} steps)", counts)
 
     mcfg = get_config("mamba2-130m")
@@ -3215,6 +3639,10 @@ def main() -> None:
     for phase in (checkpoint_phase, helpers_phase, remat_phase):
         for path, counts in phase(dev, card).items():
             also(path, counts)
+
+    # ------------------------------------------------------------------ the model axis
+    for path, counts in mesh_phase(dev, card).items():
+        also(path, counts)
 
     # ------------------------------------------------------------------ serving
     gc.collect()

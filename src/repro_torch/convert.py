@@ -12,6 +12,15 @@ grouped (dicts keyed by group name, a list of arrays for a per-leaf group);
 (after decode steps or not) into the port's.  Arrays are copied bit
 for bit and keep their JAX dtypes: a bf16 model's f32 leaves (the MoE
 router, the SSD scalars ``dt_bias`` / ``A_log`` / ``D``) stay f32.
+
+On a model mesh (``--mesh NxM``, M > 1) a rank holds shards:
+``params_shard_from_jax`` takes its shard of each global JAX array, and
+``gather_train_state`` / ``shard_train_state`` move a trainer's state
+between the ranks' shards and the global arrays of the JAX trainer's state
+on the same mesh (parameters and the inner optimizer's buffers whole; a
+per-leaf memory ``h_worker`` ``(N, d)`` and ``h_server`` ``(d,)`` whose
+model-split leaves lay the shards' flattened memories end to end, shard 0
+first, as ``h_flat_specs``' ``P("model")`` lays them out).
 """
 
 from __future__ import annotations
@@ -22,15 +31,19 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from repro_torch.core.diana import ReferenceState
+from repro_torch.core import transport
+from repro_torch.core.diana import DianaState, ReferenceState
 from repro_torch.core.tree import flatten_nested
+from repro_torch.launch.sharding_rules import gather_leaf, h_flat_specs, param_specs, shard_leaf
 from repro_torch.core.vr import VRState
 from repro_torch.models.layers import AttnCache
 from repro_torch.models.mamba2 import MambaCache
+from repro_torch.models.transformer import param_shapes
 from repro_torch.optim.optimizers import AdamState
 
 __all__ = ["params_from_jax", "state_from_jax", "adam_state_from_jax", "caches_from_jax",
-           "tensor_from_numpy"]
+           "tensor_from_numpy", "params_shard_from_jax", "gather_train_state",
+           "shard_train_state"]
 
 
 def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
@@ -48,6 +61,63 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg, device) -> Dict[str, nn.Par
     JAX dtype (``cfg`` names the model the tree belongs to)."""
     return {p: nn.Parameter(tensor_from_numpy(a, device))
             for p, a in flatten_nested(np_tree).items()}
+
+
+def params_shard_from_jax(np_tree: Mapping[str, Any], cfg, device, model: int,
+                          index: int) -> Dict[str, nn.Parameter]:
+    """Shard ``index`` of a model axis of size ``model`` of each leaf of the
+    JAX parameter tree (global numpy arrays), by ``param_specs``."""
+    flat = flatten_nested(np_tree)
+    specs = param_specs({p: np.shape(a) for p, a in flat.items()}, cfg, model)
+    return {p: nn.Parameter(shard_leaf(tensor_from_numpy(a, device), specs[p], model, index))
+            for p, a in flat.items()}
+
+
+def _map_inner(inner, fn):
+    """The inner optimizer's state with ``fn(path, tensor)`` on each
+    parameter-shaped buffer (momentum's dict, AdamW's ``mu`` / ``nu``)."""
+    if isinstance(inner, AdamState):
+        return inner._replace(mu={p: fn(p, x) for p, x in inner.mu.items()},
+                              nu={p: fn(p, x) for p, x in inner.nu.items()})
+    return {p: fn(p, x) for p, x in inner.items()}
+
+
+def gather_train_state(params, opt_state, cfg, mesh, groups):
+    """This rank's shards (parameters and a per-leaf ``DianaOptState`` with
+    its own ``h_worker`` row) -> ``(params, opt_state)`` as the JAX trainer's
+    global arrays on the same mesh; collective over the rank's model and
+    data groups (a :class:`~repro_torch.launch.mesh.MeshGroups`), every
+    rank gets the whole."""
+    specs = param_specs(param_shapes(cfg), cfg, mesh.model)
+    hspecs = h_flat_specs(specs)
+    whole = lambda p, x: gather_leaf(x, specs[p], groups.model)  # noqa: E731
+    # a memory's flat dimension is its last (h_worker's row leads)
+    flat = lambda p, h: gather_leaf(h, None if hspecs[p] is None else h.dim() - 1,  # noqa: E731
+                                    groups.model)
+    d = opt_state.diana
+    h_w = {p: transport.all_gather_bytes(flat(p, h)[0], mesh.n_workers, groups.data)
+           for p, h in d.h_worker.items()}
+    diana = DianaState(h_worker=h_w, h_server={p: flat(p, h) for p, h in d.h_server.items()})
+    return ({p: whole(p, x) for p, x in params.items()},
+            opt_state._replace(inner=_map_inner(opt_state.inner, whole), diana=diana))
+
+
+def shard_train_state(params, opt_state, cfg, mesh, worker: int, shard: int):
+    """The inverse of :func:`gather_train_state`: the global arrays ->
+    worker ``worker``'s shard ``shard`` (parameters as ``nn.Parameter``,
+    ``h_worker`` the worker's row)."""
+    m = mesh.model
+    specs = param_specs(params, cfg, m)
+    hspecs = h_flat_specs(specs)
+    part = lambda p, x: shard_leaf(x, specs[p], m, shard)  # noqa: E731
+    flat = lambda p, h: shard_leaf(h, None if hspecs[p] is None else h.dim() - 1,  # noqa: E731
+                                   m, shard)
+    d = opt_state.diana
+    diana = DianaState(h_worker={p: flat(p, h[worker:worker + 1]) for p, h in d.h_worker.items()},
+                       h_server={p: flat(p, h) for p, h in d.h_server.items()})
+    return ({p: nn.Parameter(part(p, x.detach()).clone()) for p, x in params.items()},
+            opt_state._replace(inner=_map_inner(opt_state.inner,
+                                                lambda p, x: part(p, x).clone()), diana=diana))
 
 
 def adam_state_from_jax(adam_state, device) -> AdamState:

@@ -100,6 +100,7 @@ import torch
 import torch.distributed as dist
 
 from . import prng
+from . import transport
 from . import tree as T
 from .bucket import (BucketLayout, ChunkedSchedule, add_checksum, bucketed_compressor,
                      fuse_payload, payload_recipe, unfuse_payload, verify_checksum,
@@ -880,7 +881,7 @@ def _gather_field_async(a: torch.Tensor, n: int, group=None, async_op: bool = Tr
     codes) crosses gloo and NCCL alike."""
     src = a.contiguous().view(torch.uint8).reshape(a.shape[0], -1)
     out = torch.empty((n * src.shape[0], src.shape[1]), dtype=torch.uint8, device=src.device)
-    work = dist.all_gather_into_tensor(out, src, group=group, async_op=async_op)
+    work = transport.all_gather_into_tensor(out, src, group=group, async_op=async_op)
     return _Pending([work], lambda: out.view(n, *src.shape).view(a.dtype).reshape(n, *a.shape))
 
 
@@ -889,24 +890,23 @@ def _gather_field(a: torch.Tensor, n: int, group=None) -> torch.Tensor:
     return _gather_field_async(a, n, group, async_op=False).wait()
 
 
-def _gather_payloads(payloads: Mapping[str, Payload], n: int):
-    """All-gather every field of every per-leaf payload (one collective per
-    field per leaf, ``:336``)."""
-    return {p: Payload(*(None if f is None else _gather_field(f, n) for f in pay))
-            for p, pay in payloads.items()}
+def _gather_payload(pay: Payload, n: int, group=None) -> Payload:
+    """All-gather every field of one leaf's payload over ``group`` (one
+    collective per field, ``:336``)."""
+    return Payload(*(None if f is None else _gather_field(f, n, group) for f in pay))
 
 
-def _gathered_sum(payloads, like, n: int, comp):
-    """``sum_i decode(payload_i)`` per leaf: the gathered payloads through
-    the operator's ``decode_sum`` (``:347``)."""
-    gathered = _gather_payloads(payloads, n)
-    return {p: comp.decode_sum(gathered[p], n, like[p].numel()) for p in payloads}
+def _gather_payloads(payloads: Mapping[str, Payload], n: int, group=None):
+    """:func:`_gather_payload` for every leaf, in leaf order."""
+    return {p: _gather_payload(pay, n, group) for p, pay in payloads.items()}
 
 
-def _gathered_mean(payloads, like, n: int, comp):
-    """``mean_i decode(payload_i)``, shaped and typed like ``like`` (``:372``)."""
-    return {p: div_n(t, n).reshape(like[p].shape).to(like[p].dtype)
-            for p, t in _gathered_sum(payloads, like, n, comp).items()}
+def _gathered_mean(pay: Payload, d: int, n: int, comp, group=None) -> torch.Tensor:
+    """``mean_i decode(payload_i)`` of one leaf of ``d`` coordinates, flat
+    f32: the gathered payloads through the operator's ``decode_sum``, then
+    ``/ n`` (``:347``, ``:372``)."""
+    return div_n(comp.decode_sum(_gather_payload(pay, n, group), n, d), n).reshape(d).to(
+        torch.float32)
 
 
 def _gather_fused_async(payload: Payload, n: int, group=None, async_op: bool = True) -> _Pending:
@@ -967,7 +967,8 @@ def _intranode_mean(g_flat: torch.Tensor, node_size: int, group) -> torch.Tensor
     return _ordered_node_sum([rows[i] for i in range(node_size)], node_size)
 
 
-def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None, defer=False):
+def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None, defer=False,
+                     group=None):
     """The per-leaf Algorithm-1 round on this rank's leaves (``:381``): leaf
     ``i`` encodes with ``split(key, n_leaves)[i]``, each payload field is
     gathered on its own, and the server side is ``_gathered_mean``, then
@@ -975,32 +976,38 @@ def _aggregate_local(grads_local, h_worker, h_server, key, cfg, n, part=None, de
     ``decode_sum_apply``), as the JAX package composes it.  ``ghat`` comes
     back f32, shaped like the grads.  With a participation context the
     masked sum and :func:`_masked_server_tail`; the rank's row advances
-    only if it participates on a non-degraded step."""
+    only if it participates on a non-degraded step.  ``group`` is the
+    workers' process group (the default group when None)."""
     comp = cfg.make()
     paths = T.paths(grads_local)
-    g_flat = {p: grads_local[p].reshape(-1).float() for p in paths}
-    h_local = {p: h_worker[p][0].float() for p in paths}
-    if part is not None:
-        h_local = _reinit_zero(part.reinit_own, h_local)
-    delta = {p: comp.compress_input(g_flat[p], h_local[p]) for p in paths}
     keys = prng.split(key, len(paths))
-    payloads = {p: comp.compress(delta[p], k) for p, k in zip(paths, keys)}
     if part is not None:
+        g_flat = {p: grads_local[p].reshape(-1).float() for p in paths}
+        h_local = _reinit_zero(part.reinit_own, {p: h_worker[p][0].float() for p in paths})
+        delta = {p: comp.compress_input(g_flat[p], h_local[p]) for p in paths}
+        payloads = {p: comp.compress(delta[p], k) for p, k in zip(paths, keys)}
         return _aggregate_local_masked(grads_local, g_flat, h_local, delta, payloads, h_server,
                                        comp, cfg, n, part, defer)
-    dhat_mean = _gathered_mean(payloads, g_flat, n, comp)
-    ghat, new_hw, new_hs = {}, {}, {}
-    for p in paths:
-        # The rank's own estimate, decoded from its payload (bitwise the
-        # transmitted value); memoryless rules ignore it (XLA drops the decode).
+    # Leaf by leaf, so that one leaf's f32 input and decodes live at a time
+    # (the values are those of the whole-tree order): each encode, then the
+    # rank's own estimate, decoded from its payload (bitwise the transmitted
+    # value; memoryless rules ignore it, as XLA drops the decode).
+    payloads, new_hw = {}, {}
+    for p, k in zip(paths, keys):
+        h = h_worker[p][0].float()
+        delta = comp.compress_input(grads_local[p].reshape(-1).float(), h)
+        payloads[p] = comp.compress(delta, k)
+        new_hw[p] = h_worker[p]
         if comp.carries_state:
-            dhat_own = comp.decode(payloads[p], g_flat[p].numel())
-            new_hw[p] = comp.next_memory(h_local[p], dhat_own, delta[p]).to(cfg.h_dtype)[None]
-        else:
-            new_hw[p] = h_worker[p]
+            new_hw[p] = comp.next_memory(h, comp.decode(payloads[p], delta.numel()),
+                                         delta).to(cfg.h_dtype)[None]
+        del delta
+    ghat, new_hs = {}, {}
+    for p in paths:
         hs = h_server[p].float()
-        new_hs[p] = comp.next_server_memory(hs, dhat_mean[p]).to(cfg.h_dtype)
-        ghat[p] = comp.server_direction(hs, dhat_mean[p]).reshape(grads_local[p].shape)
+        dhat_mean = _gathered_mean(payloads.pop(p), hs.numel(), n, comp, group)
+        new_hs[p] = comp.next_server_memory(hs, dhat_mean).to(cfg.h_dtype)
+        ghat[p] = comp.server_direction(hs, dhat_mean).reshape(grads_local[p].shape)
     return ghat, new_hw, new_hs, None
 
 
@@ -1151,7 +1158,7 @@ def _aggregate_bucketed_masked(layout, comp, h_local, delta, pays, h_server, cfg
     return layout.unflatten(ghat_flat, cast=False), new_hw, new_hs.to(cfg.h_dtype), scale
 
 
-def _allreduce_mean(grads_local, cfg, n):
+def _allreduce_mean(grads_local, cfg, n, group=None):
     """Identity's round (``prefers_allreduce``, ``:1206-1214``): the
     gathered mean IS an all-reduce.  f32, as every other round: ONE
     ``all_reduce(SUM)`` of the flat buffer in the bucketed layout, one per
@@ -1160,33 +1167,35 @@ def _allreduce_mean(grads_local, cfg, n):
     if cfg.bucketed:
         layout = bucket_layout(cfg, grads_local)
         flat = layout.flatten(grads_local)
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        transport.all_reduce(flat, group=group)
         return layout.unflatten(div_n(flat, n), cast=False)
     out = {}
     for p, g in grads_local.items():
         s = g.to(torch.float32, copy=True)
-        dist.all_reduce(s, op=dist.ReduceOp.SUM)
+        transport.all_reduce(s, group=group)
         out[p] = div_n(s, n)
     return out
 
 
 def _dispatch_round(grads_local, state, key, cfg, n, part=None, faults=None, step=None,
-                    defer=False):
+                    defer=False, group=None):
     """Route the gradient tree through the layout's round (``:1198``);
     returns ``(ghat, new_hw, new_hs, scale)``, ``scale`` the masked tail's
     deferred one (:func:`_masked_server_tail`) or None.  The per-leaf layout is
-    ``_perleaf_round``'s local branch (``:1242-1251``): its nested
-    fully-manual shard_map, where each inner device encodes its own shard of
-    every leaf, is a GSPMD specialisation with no ``torch.distributed``
-    counterpart, since a rank holds whole leaves.  Under participation
-    identity is gathered and summed like every operator (``:1208``)."""
+    ``_perleaf_round`` (``:1235-1283``): on a mesh without a model axis its
+    local branch; on a model mesh (``group`` the rank's data group) its
+    nested fully-manual mode, where each model rank runs the same round on
+    its own shards of the leaves with the same per-leaf keys, and the
+    payloads meet over the data group.  Under participation identity is
+    gathered and summed like every operator (``:1208``)."""
     if cfg.make().prefers_allreduce and part is None:
-        return _allreduce_mean(grads_local, cfg, n), state.h_worker, state.h_server, None
+        return (_allreduce_mean(grads_local, cfg, n, group), state.h_worker, state.h_server,
+                None)
     if cfg.bucketed:
         return _aggregate_bucketed(grads_local, state.h_worker, state.h_server, key, cfg, n,
                                    part, faults, step, defer)
     return _aggregate_local(grads_local, state.h_worker, state.h_server, key, cfg, n, part,
-                            defer)
+                            defer, group)
 
 
 def _aggregate_grouped(grads_local, state, key, policy: CompressionPolicy, n, down_key,
@@ -1235,9 +1244,9 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
                           params_local=None, vr_force_refresh: bool = False,
                           down_key: Optional[torch.Tensor] = None,
                           part_key: Optional[torch.Tensor] = None, step: Optional[int] = None,
-                          faults=None, telemetry: bool = False):
+                          faults=None, telemetry: bool = False, group=None):
     """One DIANA aggregation round across the ranks of the default process
-    group, one worker per rank — the port of
+    group (or of ``group``), one worker per rank — the port of
     ``repro.core.diana.aggregate_shardmap`` (``repro/core/diana.py:891``)
     with ``torch.distributed`` collectives in place of shard_map's.
 
@@ -1272,13 +1281,25 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
     ``key`` must be folded with the rank's NODE index ``rank // node_size``
     (``repro/launch/train.py:455-459``), not its rank.
 
+    ``group`` (a model mesh's data group: the ranks holding the same model
+    shard of every worker) runs the round over those ranks on this rank's
+    gradient shards, with shard-local flat memories, as the JAX package's
+    nested fully-manual per-leaf round (``:1235-1283``, ``inner_axes=
+    ("model",)``): a flat per-leaf config (its ternary, natural, rand-k,
+    top-k EF and identity rounds) without VR, a downlink or participation.
+
     Returns ``(ghat, new_state)``: ``ghat`` equal on every rank, cast back to
     the gradients' dtypes (``:1102``).  ``telemetry=True`` returns ``(ghat,
     new_state, telem)``, measured on the f32 served direction before the
     cast (no collective: ``ghat`` is replicated)."""
-    n = dist.get_world_size()
-    part = step_part(cfg, faults, part_key, n, step, dist.get_rank())
+    n = dist.get_world_size(group)
+    part = step_part(cfg, faults, part_key, n, step, dist.get_rank(group))
     policy, cfg = _split_spec(cfg)
+    if group is not None and (policy is not None or cfg.bucketed or state.vr is not None
+                              or state.h_down is not None or part is not None):
+        raise NotImplementedError(
+            "the round over a model mesh's data group runs a flat per-leaf config without VR, "
+            "a downlink or participation (ROADMAP.md queue 1 item 12)")
     _check_topology(policy, cfg, _resolve_participation(policy, cfg), faults, state.vr, n)
     grads_in, coin = grads_local, False
     if state.vr is not None:
@@ -1299,7 +1320,8 @@ def aggregate_distributed(grads_local: Mapping[str, torch.Tensor], state: DianaS
     else:
         ghat, new_hw, new_hs, scale = _dispatch_round(grads_in, state, key, cfg, n, part,
                                                       faults, step,
-                                                      defer=state.h_down is not None)
+                                                      defer=state.h_down is not None,
+                                                      group=group)
     del grads_in
     new_vr = state.vr
     if state.vr is not None:

@@ -16,8 +16,8 @@ Usage::
     python -m repro_torch.launch.serve --arch llama3.2-1b --reduced --device cpu --tokens 4
 
 The JAX package's ``serve_cache_shardings`` and the ``mesh`` argument of its
-builders are GSPMD shardings over a model axis, which the port does not
-have (ROADMAP.md).
+builders are GSPMD shardings over a model axis; the port serves on one
+device (serving over the model axis is ROADMAP.md queue 1 item 12(d)).
 """
 
 from __future__ import annotations

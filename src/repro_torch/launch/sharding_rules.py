@@ -1,0 +1,123 @@
+"""Which dimension of each leaf the model axis splits: the counterpart of
+``repro.launch.sharding_rules`` (``param_specs``, ``batch_specs``) and of
+``repro.launch.train.h_flat_specs``.
+
+The JAX package writes a ``PartitionSpec`` per leaf; the port holds one
+worker axis and no FSDP, so a spec here is the index of the dimension split
+over the model axis, or None for a replicated leaf.  The rules are the JAX
+package's, rule for rule (``repro/launch/sharding_rules.py:47-103``), with
+its divisibility fallback (``_fits`` / ``_dim``): a dimension the model axis
+does not divide stays whole.  The JAX meshes always carry a ``model`` axis
+(of size 1 on ``--mesh Nx1``), and so do these rules: at ``model = 1`` a
+"split" leaf is its own single shard.
+
+A rank holds shard ``m`` of a split leaf: the ``m``-th of ``model``
+contiguous, equal slices along that dimension (``torch.chunk``), as a
+``NamedSharding`` lays a global array out over the model axis.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence
+
+import torch
+
+from repro_torch.core import transport
+
+__all__ = ["param_specs", "batch_specs", "h_flat_specs", "shard_leaf", "shard_tree",
+           "gather_leaf", "gather_tree"]
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def _spec_for(names: Sequence[str], shape: tuple, cfg, model: int) -> Optional[int]:
+    """One leaf's rule (``spec_for`` in ``param_specs``); ``names`` its path
+    components, ``shape`` its (stacked) shape."""
+    name, nd = names[-1], len(shape)
+    lead = 1 if "blocks" in names else 0     # the stacked layer dimension
+
+    def split(index: int, size: int) -> Optional[int]:
+        return index if size % model == 0 else None
+
+    if name == "embed":
+        # the vocabulary stays whole (the token gather), the features split
+        return split(1, shape[1])
+    if name == "lm_head":
+        return split(1, shape[1])
+    if name in ("wq", "wk", "wv", "w_in", "w_gate", "in_proj") and nd - lead == 2:
+        return split(lead + 1, shape[-1])          # column-parallel
+    if name in ("wo", "w_out", "out_proj") and nd - lead == 2:
+        return split(lead, shape[-2])              # row-parallel
+    if "mlp" in names and name in ("w_in", "w_gate", "w_out") and nd - lead == 3:
+        # MoE experts (E, D, F) / (E, F, D)
+        if cfg.moe and cfg.moe.partition == "expert" and shape[-3] % model == 0:
+            return lead
+        if name == "w_out":
+            return split(lead + 1, shape[-2])
+        return split(lead + 2, shape[-1])
+    if name == "conv_w":
+        return split(lead + 1, shape[-1])
+    if name == "w" and "frontend_proj" in names:
+        return split(1, shape[1])
+    # norms, biases, the router, the SSD scalars ...
+    return None
+
+
+def param_specs(tree: Mapping[str, object], cfg, model: int) -> Dict[str, Optional[int]]:
+    """``{path: the dimension split over a model axis of size model, or
+    None}`` for a parameter tree (``{path: tensor}`` or ``{path: shape}``),
+    as ``repro.launch.sharding_rules.param_specs`` on a ``("data",
+    "model")`` mesh with no FSDP axes."""
+    return {p: _spec_for(p.split("/"), _shape(leaf), cfg, model) for p, leaf in tree.items()}
+
+
+def batch_specs(batch: Mapping[str, object], mesh) -> Dict[str, Optional[int]]:
+    """``{key: 0 when the batch dimension splits over the mesh's ``pod`` and
+    ``data`` axes, else None}`` (``batch_specs``: the rows over those axes
+    when they divide; a ``node`` axis is not among them, and a mesh with
+    neither replicates the batch)."""
+    if "pod" not in mesh.axes and "data" not in mesh.axes:
+        return {k: None for k in batch}
+    rows = mesh.size("pod") * mesh.size("data")
+    return {k: 0 if _shape(v)[0] % rows == 0 else None for k, v in batch.items()}
+
+
+def h_flat_specs(specs: Mapping[str, Optional[int]]) -> Dict[str, Optional[int]]:
+    """The flat DIANA memories' specs (``repro/launch/train.py:325``): a
+    split leaf's memory splits its one dimension, a replicated leaf's stays
+    whole, so that each memory's local length is the flattened local
+    gradient shard's."""
+    return {p: None if s is None else 0 for p, s in specs.items()}
+
+
+def shard_leaf(x: torch.Tensor, spec: Optional[int], model: int, index: int) -> torch.Tensor:
+    """Shard ``index`` of ``x`` (a contiguous copy; ``x`` itself when
+    replicated)."""
+    if spec is None:
+        return x
+    return x.chunk(model, dim=spec)[index].contiguous()
+
+
+def shard_tree(tree: Mapping[str, torch.Tensor], specs: Mapping[str, Optional[int]],
+               model: int, index: int) -> Dict[str, torch.Tensor]:
+    """Shard ``index`` of every leaf of ``tree``."""
+    return {p: shard_leaf(x, specs[p], model, index) for p, x in tree.items()}
+
+
+def gather_leaf(x: torch.Tensor, spec: Optional[int], mp) -> torch.Tensor:
+    """The whole leaf from every shard of ``mp`` (a
+    :class:`~repro_torch.models.sharding.ModelGroup`; collective over it),
+    ``x`` itself when replicated."""
+    if spec is None:
+        return x
+    parts = transport.all_gather_bytes(x.detach(), mp.size, mp.group)
+    return torch.cat(parts.unbind(0), dim=spec)
+
+
+def gather_tree(tree: Mapping[str, torch.Tensor], specs: Mapping[str, Optional[int]],
+                mp) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``tree`` gathered whole (the global arrays of the JAX
+    package's ``NamedSharding`` over the model axis)."""
+    return {p: gather_leaf(x, specs[p], mp) for p, x in tree.items()}

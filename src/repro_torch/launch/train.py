@@ -1,7 +1,8 @@
 """The DIANA trainer (CLI + step builders).
 
-``--mesh NxM`` reads the JAX CLI's flag as N data-parallel DIANA workers
-(M, the model axis, must be 1).  Two step builders share the step:
+``--mesh`` reads the JAX CLI's flag (:mod:`repro_torch.launch.mesh`):
+``NxM`` is N data-parallel DIANA workers times M model shards each.  Two
+step builders share the step:
 
 * :func:`build_train_step` — one process runs the N workers in turn on one
   device, writing their payloads straight into the rows of one stacked
@@ -12,6 +13,17 @@
   runs ``aggregate_shardmap``: the CLI's mode under ``torchrun``
   (``WORLD_SIZE`` set), N must equal the world size, NCCL on
   ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``).
+
+On a model mesh (M > 1, the dense transformers, one rank per shard: N·M
+ranks) each rank holds its shards of the parameters
+(:mod:`~repro_torch.launch.sharding_rules`), runs the model tensor-parallel
+over its worker's model group (:mod:`repro_torch.models.sharding`), and
+runs the per-leaf round on its gradient shards with shard-local memories
+over its data group (``aggregate_distributed(group=)``, the JAX package's
+nested fully-manual mode).  A bucketed config runs per leaf there
+(:func:`resolve_bucketed`, one ``RuntimeWarning``), and what this slice
+does not hold to the JAX trainer on such a mesh is refused
+(:func:`check_model_axis`).
 
 Each step:
 
@@ -99,9 +111,9 @@ for the CPU (``--device cpu``), where the kernels' plain versions run.
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import time
+import warnings
 from typing import Optional
 
 import torch
@@ -109,7 +121,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ShapeConfig, get_config, get_shape, list_archs, reduced
-from repro_torch.core import prng
+from repro_torch.core import prng, transport
 from repro_torch.core import tree as T
 from repro_torch.core.bucket import (ChunkedSchedule, bucketed_compressor, unfuse_payload,
                                      verify_checksum)
@@ -133,13 +145,17 @@ from repro_torch.core.telemetry import GroupTelemetry, from_moments, group_momen
 from repro_torch.core.vr import control_variate, reference_coins, resolve_vr_p
 from repro_torch.core.numerics import div_n
 from repro_torch.data.pipeline import make_lm_batch
+from repro_torch.launch.mesh import MeshSpec, mesh_groups, parse_mesh
+from repro_torch.launch.sharding_rules import gather_tree, param_specs, shard_tree
+from repro_torch.models.sharding import model_parallel
 from repro_torch.models.transformer import init_model, meta_params, train_loss
 from repro_torch.optim.diana_optimizer import DianaOptimizer
 from repro_torch.optim.optimizers import adamw, constant_schedule, momentum, sgd
 
 __all__ = ["resolve_device", "resolve_policy_arg", "make_optimizer", "init_train_state",
            "build_train_step", "build_distributed_step", "init_distributed", "parse_mesh",
-           "controller_tick", "main"]
+           "resolve_bucketed", "resolved_layout", "check_model_axis", "controller_tick",
+           "main"]
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:
@@ -151,16 +167,75 @@ def resolve_device(device: Optional[str] = "cuda") -> torch.device:
     return dev
 
 
-def parse_mesh(mesh: Optional[str]) -> int:
-    """``NxM`` -> the number N of data-parallel workers (M must be 1)."""
-    if not mesh:
-        return 1
-    dims = [int(x) for x in mesh.split("x")]
-    if any(d < 1 for d in dims) or math.prod(dims[1:]) != 1:
+def resolve_bucketed(opt: DianaOptimizer, mesh: MeshSpec) -> DianaOptimizer:
+    """Downgrade a bucketed layout to per leaf on a live model axis
+    (``repro/launch/train.py:61``): every group, both directions
+    (``CompressionPolicy.force_perleaf``), with one structured
+    ``RuntimeWarning``.  The port's own reason: the JAX package's bucketed
+    round over a live model axis does not lower on its toolchain (jax 0.9.0
+    aborts in XLA's SPMD partitioner), so there is nothing to hold a port of
+    it to.  Worker meshes (M = 1) keep the layout."""
+    if mesh.model == 1 or not opt.policy.any_bucketed():
+        return opt
+    warnings.warn(
+        "resolve_bucketed: downgrading the aggregation layout [reason=no-bucketed-reference "
+        "inner_axes=('model',) resulting_layout=per-leaf topology=flat]: the JAX package's "
+        "bucketed round over a live model axis does not lower on jax 0.9.0 (XLA's SPMD "
+        "partitioner aborts), so the port runs the shard-local per-leaf round there.  "
+        "Results are the per-leaf round's; step time and collective count differ.",
+        RuntimeWarning, stacklevel=2)
+    return _with_policy(opt, opt.policy.force_perleaf())
+
+
+def resolved_layout(opt: DianaOptimizer, mesh: MeshSpec) -> str:
+    """The layout :func:`resolve_bucketed` runs on ``mesh``: ``"bucketed"``,
+    ``"per-leaf"``, or ``"per-leaf (downgraded)"`` when the config asked for
+    bucketed (``repro/launch/train.py:102``)."""
+    if not opt.policy.any_bucketed():
+        return "per-leaf"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        resolved = resolve_bucketed(opt, mesh)
+    return "bucketed" if resolved.policy.any_bucketed() else "per-leaf (downgraded)"
+
+
+def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
+                     telemetry: bool = False) -> None:
+    """Refuse, on a model mesh (M > 1), what this slice does not hold to the
+    JAX trainer on a (2, 2) mesh, naming its ROADMAP.md item: the MoE,
+    Mamba-2 and frontend families (and a tied embedding), heads or widths
+    the model axis does not divide, ``remat="dots"``, and VR, the downlink, a grouped policy, participation and faults, the
+    chunked and two-level schedules and the controller."""
+    if mesh.model == 1:
+        return
+    m, item = mesh.model, "ROADMAP.md queue 1 item 12"
+    for spec in cfg.pattern:
+        if spec.mlp == "moe":
+            raise NotImplementedError(f"{cfg.name}: MoE over the model axis ({item}(a))")
+        if spec.mixer != "attn" or spec.mlp != "dense":
+            raise NotImplementedError(f"{cfg.name}: Mamba-2 over the model axis ({item}(b))")
+    if cfg.frontend != "none" or cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: the frontends' frontend_proj and a tied "
+                                  f"embedding over the model axis ({item}(c))")
+    specs = param_specs(meta_params(cfg), cfg, m)
+    whole = [p for p, s in specs.items() if s is None and not p.endswith("scale")]
+    if cfg.n_heads % m or cfg.n_kv_heads % m or whole:
         raise NotImplementedError(
-            f"--mesh {mesh}: only data-parallel workers (NxM with M = 1) are ported; "
-            "the model axis is ROADMAP.md queue 1 item 11")
-    return dims[0]
+            f"--mesh {mesh}: the model axis must divide the query and KV heads ({cfg.n_heads}, "
+            f"{cfg.n_kv_heads}) and every matrix ({whole} stay whole) ({item}(g))")
+    if cfg.remat == "dots":
+        raise NotImplementedError(f"remat='dots' over the model axis ({item}(g))")
+    pol = opt.policy
+    down = pol.is_uniform and pol.flat_config().down_method is not None
+    refused = {"VR-DIANA": pol.vr, "the compressed downlink": down,
+               "a grouped policy": not pol.is_uniform,
+               "participation and faults": pol.participation is not None or faults is not None,
+               "the chunked wire": bool(pol.chunk_bytes),
+               "the two-level topology": pol.topology == "hierarchical",
+               "the bit-budget controller": telemetry}
+    for what, on in refused.items():
+        if on:
+            raise NotImplementedError(f"{what} on a model mesh ({item}(e))")
 
 
 def resolve_policy_arg(cfg, policy) -> CompressionPolicy:
@@ -212,9 +287,16 @@ def make_optimizer(cfg, *, lr: float = 3e-4, inner: str = "momentum", beta: floa
                           participation=participation)
 
 
-def init_train_state(cfg, opt: DianaOptimizer, n_workers: int, device, seed: int = 0):
-    """Random parameters (``torch.Generator(seed)``) and the zero optimizer state."""
+def init_train_state(cfg, opt: DianaOptimizer, n_workers: int, device, seed: int = 0,
+                     model: int = 1, shard: int = 0):
+    """Random parameters (``torch.Generator(seed)``) and the zero optimizer
+    state; with a model axis (``model`` > 1) the parameters' shard ``shard``
+    (:func:`~repro_torch.launch.sharding_rules.param_specs`) and its
+    shard-local memories."""
     params = init_model(cfg, device, seed=seed)
+    if model > 1:
+        params = {p: torch.nn.Parameter(x.detach()) for p, x in shard_tree(
+            params, param_specs(params, cfg, model), model, shard).items()}
     return params, opt.init(params, n_workers)
 
 
@@ -227,11 +309,12 @@ def _worker_batch(batch, w: int, n_workers: int):
     return {k: v[w * rows:(w + 1) * rows] for k, v in batch.items()}
 
 
-def _finish(opt: DianaOptimizer, params, opt_state, ghat, loss):
+def _finish(opt: DianaOptimizer, params, opt_state, ghat, loss, gnorm=None):
     """Step 5 and the metrics: momentum and the write-back (the DIANA state
     is already updated in place)."""
-    with torch.no_grad():
-        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in ghat.values()))
+    if gnorm is None:
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in ghat.values()))
     new_opt = opt.apply_direction(params, ghat, opt_state, opt_state.diana)
     return params, new_opt, {"loss": loss, "ghat_norm": gnorm, "step": new_opt.step}
 
@@ -610,7 +693,8 @@ def build_train_step(cfg, opt: DianaOptimizer, n_workers: int, device, faults=No
     return step
 
 
-def build_distributed_step(cfg, opt: DianaOptimizer, faults=None, telemetry: bool = False):
+def build_distributed_step(cfg, opt: DianaOptimizer, faults=None, telemetry: bool = False,
+                           mesh: Optional[MeshSpec] = None):
     """Returns ``step(params, opt_state, batch, key)`` as
     :func:`build_train_step`'s, where this process is worker ``r``, its rank
     in the default process group, of ``n`` = the world size: it
@@ -627,7 +711,13 @@ def build_distributed_step(cfg, opt: DianaOptimizer, faults=None, telemetry: boo
     :func:`build_train_step`.  Given the same batch and keys, the
     parameters and memories equal :func:`build_train_step`'s with ``n``
     workers bit for bit (``none`` and identity groups: to the backend's
-    all-reduce order)."""
+    all-reduce order).
+
+    ``mesh`` with a model axis (M > 1) builds :func:`_mesh_step` instead:
+    this rank is a model shard of a worker (:mod:`repro_torch.launch.mesh`),
+    the world ``N * M`` ranks."""
+    if mesh is not None and mesh.model > 1:
+        return _mesh_step(cfg, opt, mesh, faults, telemetry)
     rank, n_workers = dist.get_rank(), dist.get_world_size()
     if faults is not None:
         check_faults(opt.policy)
@@ -668,16 +758,67 @@ def build_distributed_step(cfg, opt: DianaOptimizer, faults=None, telemetry: boo
     return step
 
 
-def init_distributed(device: str, n_workers: int) -> torch.device:
+def _mesh_step(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None, telemetry=False):
+    """The step on a model mesh: ``step(params, opt_state, batch, key)``
+    with this rank's shards of the parameters and of the memories
+    (:func:`init_train_state` with ``model``, ``shard``), as the JAX
+    trainer's shard_map body runs on a ``(data, model)`` mesh
+    (``repro/launch/train.py:404-495``):
+
+    1. the worker's rows of the batch (``P(workers)``), its loss and its
+       gradient shards, tensor-parallel over the worker's model group;
+    2. the round on the shards over the rank's data group, keyed
+       ``fold_in(key, worker)`` on every shard of the worker (the JAX
+       nested per-leaf round's shared leaf keys);
+    3. the logged loss all-reduced over the data group and divided by N
+       (``pmean``); ``ghat_norm`` sums the split leaves' squares over the
+       model group and adds the replicated leaves' once;
+    4. the inner optimizer and the write-back on the shards.
+
+    The opt is taken as :func:`resolve_bucketed` leaves it (per leaf), and
+    :func:`check_model_axis` refuses the rest."""
+    opt = resolve_bucketed(opt, mesh)
+    check_model_axis(cfg, opt, mesh, faults, telemetry)
+    groups = mesh_groups(mesh)
+    n = mesh.n_workers
+    specs = param_specs(meta_params(cfg), cfg, mesh.model)
+
+    def step(params, opt_state, batch, key):
+        paths = list(params)
+        wbatch = _worker_batch(batch, groups.worker, n)
+        with model_parallel(groups.model):
+            loss = train_loss(params, wbatch, cfg)
+            grads = dict(zip(paths, torch.autograd.grad(loss, [params[p] for p in paths])))
+        with torch.no_grad():
+            ghat, new = aggregate_distributed(grads, opt_state.diana,
+                                              worker_key(key, groups.worker), opt.policy,
+                                              group=groups.data)
+            del grads
+            _copy_into(opt_state.diana, new)
+            del new
+            loss = loss.detach().clone()
+            transport.all_reduce(loss, group=groups.data)
+            loss = div_n(loss, n)
+            sq = [sum(torch.sum(ghat[p].float() ** 2) for p in paths
+                      if (specs[p] is None) == rep) for rep in (False, True)]
+            split = torch.as_tensor(sq[0], dtype=torch.float32, device=loss.device)
+            transport.all_reduce(split, group=groups.model.group)
+            gnorm = torch.sqrt(split + sq[1])
+        return _finish(opt, params, opt_state, ghat, loss, gnorm)
+
+    return step
+
+
+def init_distributed(device: str, mesh: MeshSpec) -> torch.device:
     """Join the ``torchrun`` world (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``
-    and the rendezvous in the environment) as one worker per rank: NCCL
-    bound to ``cuda:LOCAL_RANK``, or gloo with ``device='cpu'``.  Nothing
-    falls back: without a card, or when NCCL fails to start, it raises.
-    Returns the rank's device."""
+    and the rendezvous in the environment) as one rank per device of the
+    mesh: NCCL bound to ``cuda:LOCAL_RANK``, or gloo with ``device='cpu'``.
+    Nothing falls back: without a card, or when NCCL fails to start, it
+    raises.  Returns the rank's device."""
     world = int(os.environ["WORLD_SIZE"])
-    if n_workers != world:
-        raise ValueError(f"--mesh {n_workers}x1 asks for {n_workers} workers, but torchrun "
-                         f"started {world} ranks: one worker per rank")
+    if mesh.world != world:
+        raise ValueError(f"--mesh {mesh} asks for {mesh.world} ranks, but torchrun started "
+                         f"{world} ranks: one rank per worker and model shard")
     dev = resolve_device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
@@ -831,7 +972,8 @@ def main(argv=None):
         cfg = replace(cfg, comp_down_k=args.down_k)
     if args.per_leaf_agg:
         cfg = replace(cfg, comp_bucketed=False)
-    n_workers = parse_mesh(args.mesh)
+    mesh = parse_mesh(args.mesh, args.topology)
+    n_workers = mesh.n_workers
     if args.vr:
         m_local = max(1, shape.global_batch // n_workers)
         cfg = replace(cfg, vr=True, vr_p=resolve_vr_p(args.vr_p, m_local))
@@ -851,10 +993,11 @@ def main(argv=None):
     if args.chunk_bytes is not None or args.topology or args.node_size:
         pol = opt.policy
         topology = args.topology or pol.topology
-        node_size = args.node_size or pol.node_size
+        # a (node, data, model) mesh declares the node boundary
+        node_size = args.node_size or (mesh.node_size if mesh.node_size > 1 else pol.node_size)
         if topology == "hierarchical" and node_size == 1:
             raise SystemExit("--topology hierarchical needs --node-size K (K > 1, dividing the "
-                             "worker count): --mesh NxM has no node axis to infer it from")
+                             "worker count) or a 3-dim --mesh (node, data, model)")
         opt.policy = pol.replace(
             chunk_bytes=pol.chunk_bytes if args.chunk_bytes is None else args.chunk_bytes,
             topology=topology, node_size=node_size)
@@ -871,11 +1014,20 @@ def main(argv=None):
         if args.warmup_dense_steps > 0:
             opt = _with_policy(opt, controller.warmup_policy())
     telemetry = controller is not None
+    if mesh.model > 1:
+        if not distributed:
+            raise NotImplementedError(
+                f"--mesh {mesh}: the model axis runs one rank per worker and shard: "
+                f"torchrun --nproc-per-node {mesh.world} (the in-turn trainer holds whole leaves)")
+        opt = resolve_bucketed(opt, mesh)
+        check_model_axis(cfg, opt, mesh, faults, telemetry)
     if distributed:
-        device = init_distributed(args.device, n_workers)
+        device = init_distributed(args.device, mesh)
         rows = 1
-        params, opt_state = init_train_state(cfg, opt, rows, device)
-        build = lambda o: build_distributed_step(cfg, o, faults, telemetry)  # noqa: E731
+        params, opt_state = init_train_state(cfg, opt, rows, device, model=mesh.model,
+                                             shard=dist.get_rank() % mesh.model)
+        build = lambda o: build_distributed_step(cfg, o, faults, telemetry,  # noqa: E731
+                                                 mesh)
         log = dist.get_rank() == 0
     else:
         device = resolve_device(args.device)
@@ -908,6 +1060,10 @@ def main(argv=None):
                 opt, opt_state, step_fn, cstate = controller_tick(
                     controller, cstate, opt, opt_state, step_fn, metrics, params, rows, build,
                     log=log)
+        if args.checkpoint_dir and mesh.model > 1:
+            # the shards gathered into the global arrays the JAX trainer saves
+            params = gather_tree(params, param_specs(meta_params(cfg), cfg, mesh.model),
+                                 mesh_groups(mesh).model)
         if args.checkpoint_dir and log:
             # the policy rides in the metadata, so a restore can rebuild the
             # matching (possibly grouped) state template; with the controller

@@ -4,6 +4,14 @@ decode over a KV cache or its ring buffer), the dense MLP variants (SwiGLU,
 GELU, squared ReLU).  Plain tensor functions over ``{name: tensor}``
 parameter dicts, in the JAX package's layouts (``repro.models.layers``):
 activations (B, S, D), heads (B, S, H, Dh), weights (in, out).
+
+Under a model group (:mod:`repro_torch.models.sharding`) the attention and
+the MLP run tensor-parallel on the rank's shards, as the JAX package's
+``shard`` annotations place them under GSPMD: ``wq`` / ``wk`` / ``wv`` /
+``w_in`` / ``w_gate`` column-parallel (the rank's query and KV heads, its
+slice of the hidden units), ``wo`` / ``w_out`` row-parallel, their outputs
+all-reduced.  The head counts are read from the weights' widths, so the
+same code runs a whole model or a shard of one.
 """
 
 from __future__ import annotations
@@ -14,6 +22,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from .sharding import copy_to_model, reduce_from_model
 
 __all__ = ["wide", "rms_norm", "rope_freqs", "apply_rope", "sdpa", "causal_mask", "attention",
            "mlp", "AttnCache", "init_attn_cache", "DECODE_KV_CHUNK"]
@@ -188,8 +198,11 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, window=None,
     to every valid row of the cache (the decode path); the caller advances
     ``cache.pos``."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dh = cfg.resolved_head_dim
+    # the heads this rank holds (all of them without a model group)
+    h, hkv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     cdt = cfg.compute_dtype
+    x = copy_to_model(x)
     q = (x @ p["wq"].to(cdt)).reshape(b, s, h, dh)
     k = (x @ p["wk"].to(cdt)).reshape(b, s, hkv, dh)
     v = (x @ p["wv"].to(cdt)).reshape(b, s, hkv, dh)
@@ -207,7 +220,7 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, window=None,
     else:
         idx = torch.arange(s, device=x.device)
         out = sdpa(q, k, v, causal_mask(idx, idx, window), cdt)
-    return out.reshape(b, s, h * dh) @ p["wo"].to(cdt)
+    return reduce_from_model(out.reshape(b, s, h * dh) @ p["wo"].to(cdt))
 
 
 def mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -215,6 +228,7 @@ def mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     GELU (``jax.nn.gelu``'s default, the tanh approximation) or Nemotron's
     squared ReLU; only SwiGLU has a ``w_gate`` leaf."""
     cdt = cfg.compute_dtype
+    x = copy_to_model(x)
     h = x @ p["w_in"].to(cdt)
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"].to(cdt)) * h
@@ -225,4 +239,4 @@ def mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
         h = r * r
     else:
         raise ValueError(f"unknown activation {cfg.act}")
-    return h @ p["w_out"].to(cdt)
+    return reduce_from_model(h @ p["w_out"].to(cdt))

@@ -21,7 +21,8 @@ two agree to the f32 rounding of a ``top_k``-term sum, not bit for bit.
 
 The JAX package's nested fully-manual path (``repro/models/moe.py:199-241``)
 shards experts over a model axis inside the DIANA workers' shard_map; the
-port has no model axis, so it is not ported (ROADMAP.md).
+port's model axis does not run MoE layers yet (ROADMAP.md queue 1 item
+12(a)).
 """
 
 from __future__ import annotations

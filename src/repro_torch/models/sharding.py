@@ -1,0 +1,143 @@
+"""Tensor parallelism over the model axis: the collectives the model code
+runs across the ranks that hold one replica's shards (the model group), and
+the context that turns them on.
+
+The counterpart of ``repro.models.sharding``: where the JAX model code
+annotates activations with logical axes and GSPMD inserts the collectives,
+the port's model code calls these four functions, which are identities
+outside :func:`model_parallel` (a mesh with no model axis, and every path
+that runs no mesh): those paths stay bitwise what they were.
+
+* :func:`copy_to_model` — before a column-parallel product: identity
+  forward, all-reduce of the gradient backward (the replicated input's
+  gradient sums every shard's part);
+* :func:`reduce_from_model` — after a row-parallel product: all-reduce
+  forward, identity backward;
+* :func:`gather_from_model` — all-gather of the last dimension forward (the
+  feature-sharded embedding), the rank's slice of the gradient backward;
+* :func:`vocab_parallel_ce` — the cross-entropy of vocabulary-sharded
+  logits: the max and the log-sum-exp all-reduced over the model group,
+  the target logit taken from the shard that owns it.
+
+An all-reduce gives the same bits on every rank, so every replicated value
+(the residual stream, the norms' inputs, the loss) and every replicated
+leaf's gradient is identical across a worker's model ranks.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import transport
+
+__all__ = ["ModelGroup", "model_parallel", "current", "copy_to_model", "reduce_from_model",
+           "gather_from_model", "vocab_parallel_ce"]
+
+
+class ModelGroup(NamedTuple):
+    """The ranks holding one replica's shards: the process ``group``, its
+    ``size`` (the model axis) and this rank's ``index`` in it."""
+
+    group: object
+    size: int
+    index: int
+
+
+# Process-wide, not thread-local: autograd runs a CUDA backward, and with it
+# the recomputation of a checkpointed block, on its own device thread, which
+# must see the same group as the forward.
+_ACTIVE: Optional[ModelGroup] = None
+
+
+def current() -> Optional[ModelGroup]:
+    """The active model group, or None (no model axis)."""
+    return _ACTIVE
+
+
+@contextlib.contextmanager
+def model_parallel(mp: Optional[ModelGroup]):
+    """Run the model code, its backward included, tensor-parallel over
+    ``mp`` (None: as one device)."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, mp
+    try:
+        yield
+    finally:
+        _ACTIVE = prev
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        transport.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        transport.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp, ctx.width = mp, x.shape[-1]
+        parts = transport.all_gather_bytes(x, mp.size, mp.group)     # (M, ..., w)
+        return torch.cat(parts.unbind(0), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, i = ctx.width, ctx.mp.index
+        return g[..., i * w:(i + 1) * w].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    mp = current()
+    return x if mp is None else _CopyToModel.apply(x, mp.group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    mp = current()
+    return x if mp is None else _ReduceFromModel.apply(x, mp.group)
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    mp = current()
+    return x if mp is None else _GatherFromModel.apply(x, mp)
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``sum(logsumexp(logits) - logits[label])`` (f32) of ``logits`` whose
+    last dimension is this rank's vocabulary shard, against ``labels``
+    (global ids).  The max is all-reduced as a constant (``logsumexp``'s
+    stop-gradient shift); the sum of exponentials and the target logit
+    (zero on every shard but its owner's) are summed across the model group
+    by :func:`reduce_from_model`, so the gradient is ``softmax - onehot`` on
+    the shard's columns."""
+    mp = current()
+    vl = logits.shape[-1]
+    gmax = logits.detach().amax(dim=-1)
+    transport.all_reduce(gmax, op=dist.ReduceOp.MAX, group=mp.group)
+    sumexp = reduce_from_model(torch.exp(logits - gmax[..., None]).sum(dim=-1))
+    local = labels.long() - mp.index * vl
+    inside = (local >= 0) & (local < vl)
+    picked = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    picked = reduce_from_model(torch.where(inside, picked, torch.zeros_like(picked)))
+    return torch.sum(gmax + torch.log(sumexp) - picked)

@@ -21,6 +21,15 @@ whatever ``param_dtype`` is.  The bucket layout and the per-leaf PRNG keys
 follow that tree's leaf order, so any other layout would break payload
 parity with the JAX package.
 
+Under a model group (:mod:`repro_torch.models.sharding`, the trainer on a
+``--mesh NxM`` with M > 1) the parameters are the rank's shards
+(``repro_torch.launch.sharding_rules``): the embedding's feature columns,
+gathered after the lookup; the LM head's vocabulary columns, whose logits
+meet in a vocabulary-parallel cross-entropy (the max and the log-sum-exp
+all-reduced, the target logit from the shard that owns it), chunked by
+``CE_SEQ_CHUNK`` as before; the attention and the MLP tensor-parallel
+(``layers.py``).
+
 Serving (``repro_torch.launch.serve``) runs :func:`forward` over the
 prompt with ``last_token_only`` (the prefill) and :func:`decode_step` one
 token at a time against :func:`init_caches` (per pattern position an
@@ -60,6 +69,7 @@ from repro_torch.configs.shapes import FRONTEND_DIM
 from . import layers as L
 from . import mamba2 as M
 from .moe import moe_layer
+from .sharding import copy_to_model, current, gather_from_model, vocab_parallel_ce
 
 __all__ = ["init_model", "param_shapes", "param_dtypes", "meta_params", "Transformer",
            "forward", "head_logits", "train_loss", "init_caches", "decode_step",
@@ -236,8 +246,8 @@ def _embed_inputs(params, batch, cfg) -> torch.Tensor:
         w, b = params["frontend_proj/w"].to(cdt), params["frontend_proj/b"].to(cdt)
         parts.append(batch[key].to(cdt) @ w + b)
     if "tokens" in batch:
-        parts.append(torch.nn.functional.embedding(batch["tokens"].long(),
-                                                   params["embed"].to(cdt)))
+        parts.append(gather_from_model(torch.nn.functional.embedding(
+            batch["tokens"].long(), params["embed"].to(cdt))))
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
@@ -308,6 +318,8 @@ def decode_step(params: Mapping[str, torch.Tensor], tokens: torch.Tensor, caches
 
 def _ce_chunk(xc, lc, head):
     logits = L.wide(xc @ head)
+    if current() is not None:
+        return vocab_parallel_ce(logits, lc)
     logz = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, lc[..., None].long())[..., 0]
     return torch.sum(logz - picked)
@@ -328,6 +340,7 @@ def train_loss(params: Mapping[str, torch.Tensor], batch: Mapping[str, torch.Ten
     if cfg.frontend != "none" and "tokens" in batch and x.shape[1] != labels.shape[1]:
         x = x[:, -labels.shape[1]:]                      # drop the frontend positions
     head = _head(params, cfg)
+    x = copy_to_model(x)     # the head is column-parallel over a model group
     s, cs = x.shape[1], CE_SEQ_CHUNK
     if s > cs and s % cs == 0:
         total = sum(checkpoint(_ce_chunk, x[:, i:i + cs], labels[:, i:i + cs], head,

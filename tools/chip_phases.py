@@ -2,6 +2,7 @@
 
     python3 tools/chip_phases.py checkpoint helpers remat
     python3 tools/chip_phases.py serve
+    python3 tools/chip_phases.py mesh
 
 Each name is a ``<name>_phase`` function of ``chip_smoke.py``; they run in
 the order given, after the kernels are built (outside every timed span),
