@@ -95,7 +95,7 @@ Phases (each prints its lines; any failure exits non-zero):
 13. the dense-sum round: ``BucketedCompressor(IdentityCompressor(),
    layout).decode_sum`` over a gathered (4, Dp) payload of 4 workers: one
    ``dense_decode_sum``, bitwise its plain version;
-13a. per-leaf: the in-turn trainer with ``--per-leaf-agg`` on the 8-layer
+13a. per-leaf: the in-turn trainer with ``--per-leaf-agg`` on the 4-layer
    full-width slice, 4 workers, batch 8 x 4096, 2 steps, for ``diana``,
    ``natural``, ``randk``, ``topk_ef`` and ``none``, bitwise (losses,
    parameters, every leaf's ``h_worker`` rows and ``h_server`` against its
@@ -138,7 +138,7 @@ Phases (each prints its lines; any failure exits non-zero):
 15c. elastic: ``--participation-q 0.6 --participation-dropout 0.1
    --min-workers 3`` (the step keys' masks at n = 4: 1011, 1111, then a
    degraded 0101) with ``--faults corrupt:step=1,worker=0``, in turn at n =
-   4 on the 8-layer slice, 3 steps of ``diana``: each step's mask, ``ok``
+   4 on the 4-layer slice, 3 steps of ``diana``: each step's mask, ``ok``
    and wire verdicts, and bitwise: the non-participant's row zero after
    step 0, the corrupted worker's row unchanged at step 1, ``h_server``
    unchanged and ghat zero on the degraded step; launches exact (the own
@@ -225,14 +225,23 @@ Phases (each prints its lines; any failure exits non-zero):
 17d. mesh (:func:`mesh_phase`): the model axis, ``--mesh 2x2`` as four
    processes sharing the card over gloo (which collectives gloo takes CUDA
    tensors for is probed; the others cross the host, named on the line),
-   llama3.2-1b at full width cut to 8 layers, 8 x 4096 global: 3 steps of
+   llama3.2-1b at full width cut to 4 layers, 8 x 4096 global: 3 steps of
    ``diana`` (downgraded per leaf, its warning printed) and of ``none``,
    per rank the step times, peak, the round's time and collectives and the
    tensor-parallel ones, launches exact per rank; replicated leaves
    bitwise across model ranks; step 0's round bitwise its plain version
-   on the same shards; the four compressing operators on the reduced model
-   over the mesh through the kernels bitwise the plain versions; ``none``
-   against the in-turn trainer at n = 2 within its stated tolerance;
+   on the same shards; then the MoE and frontend families at full width
+   (:data:`MESH_FAMILIES`: granite-moe's ``ffn`` and phi3.5-moe's
+   ``expert`` partitions, internvl2-2b, musicgen-large) the same way, with
+   their tagged MoE and frontend collectives and their held bytes beside
+   the reckoning, and one full-width MoE layer of each partition against
+   the unsharded layer (:data:`MOE_LAYER_BITWISE`, :data:`MOE_LAYER_TOL`);
+   the four compressing
+   operators on the reduced model over the mesh through the kernels
+   bitwise the plain versions; ``none`` against the in-turn trainer at
+   n = 2 within its stated tolerance.  The trainer runs of ``per-leaf:``,
+   ``policy:``, ``elastic:`` and ``schedule:`` take llama at
+   :data:`PHASE_LAYERS`;
 18. serve: serving, which launches none of the kernels (:func:`serve_phase`):
    ``llama3.2-1b`` at full width and depth, decoding 16 tokens at batch 32
    against caches of 32,768 positions through ``build_serve_step`` (ms per
@@ -282,6 +291,7 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak (f32 accum
 CIPHER_INSTRUCTIONS = 68       # threefry2x32-20 per word, from its specification (bound_int)
 LANES_PER_SM_CLOCK = 128       # 4 warp-instructions dispatched per SM per clock
 LAYERS, BATCH, SEQ, WORKERS, STEPS = 8, 8, 4096, 4, 3
+PHASE_LAYERS = 4               # the trainer runs of per-leaf, policy, elastic and schedule
 GRANITE_LAYERS = 4             # models: granite-moe-3b-a800m's depth (of 32)
 COMP_K = 1 << 20               # rand-k / top-k: coordinates kept per leaf
 
@@ -1125,6 +1135,29 @@ def remat_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SE
 # ------------------------------------------------------------------ the model axis
 
 MESH = "2x2"
+MESH_LAYERS = 4    # mesh: llama3.2-1b's depth there (of 16)
+# mesh: the MoE and frontend families at full width, cut in depth: (arch,
+# layers, operator, global batch x 4096), as many steps as llama.  phi3.5-moe's batch
+# is cut to 4: at 8 its four ranks' attention chunks (2048 queries, f32
+# scores) ran the card out of memory (79.18 GiB in use)
+MESH_FAMILIES = (("granite-moe-3b-a800m", 4, "diana", 8),
+                 ("phi3.5-moe-42b-a6.6b", 1, "natural", 4),
+                 ("internvl2-2b", 2, "diana", 8), ("musicgen-large", 2, "none", 8))
+MESH_TAGS = ("moe", "frontend")   # the model code's tagged collectives (transport.STATS)
+# the full-width MoE layer on a model group against the unsharded one, at
+# each of MOE_LAYER_SEEDS.  Bitwise (MOE_LAYER_BITWISE): every array of the
+# expert partition (a rank runs whole experts; the all-gather and the
+# replicated combine add what the unsharded layer adds, in its order), and
+# the ffn partition's expert-weight gradients (a rank's columns of each
+# expert's products).  Normwise within MOE_LAYER_TOL, the ffn partition's
+# output and its input's and router's gradients: the halves' partial
+# outputs round to bf16 before their all-reduce, and the dispatch
+# gradient's halves add in another order, a few half-ulps of 2^-8 per
+# element; 2^-6 leaves a margin of two over the largest reading (PERF.md)
+MOE_LAYER_TOL, MOE_LAYER_SEEDS = 2.0 ** -6, (7, 8)
+MOE_LAYER_BITWISE = {"expert": ("y", "x grad", "router grad", "w_in grad", "w_gate grad",
+                                "w_out grad"),
+                     "ffn": ("w_in grad", "w_gate grad", "w_out grad")}
 # per leaf and rank, per step: the kernel launches of each operator's
 # shard-local per-leaf round (the encode, the rank's own decode, the server's
 # sum over the data group)
@@ -1173,6 +1206,72 @@ def _mesh_probe(dev) -> dict:
     return took
 
 
+def _moe_layer_check(dev, cfg, groups, tokens, seed) -> dict:
+    """One full-width MoE layer of ``cfg`` on this rank's model group
+    against the unsharded layer on the same card: the same weights drawn
+    from ``seed`` (the rank's shards of them) and ``tokens`` input rows,
+    ``sum(out * probe) + aux`` backward.  Returns, for the output, the
+    input's and the router's gradients and the experts' gradients
+    (gathered), the normwise relative difference and whether the bits are
+    equal, and the collectives tagged ``moe``."""
+    from repro_torch.core import transport
+    from repro_torch.launch.sharding_rules import gather_leaf, param_specs, shard_leaf
+    from repro_torch.models.moe import moe_layer
+    from repro_torch.models.sharding import model_parallel
+
+    mc, d = cfg.moe, cfg.d_model
+    e, f = mc.n_experts, mc.d_ff
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"router": ((d, e), torch.float32, d ** -0.5),
+              "w_in": ((e, d, f), cfg.param_dtype, d ** -0.5),
+              "w_gate": ((e, d, f), cfg.param_dtype, d ** -0.5),
+              "w_out": ((e, f, d), cfg.param_dtype, f ** -0.5)}
+    full = {k: (torch.randn(s, generator=gen, device=dev) * sc).to(dt)
+            for k, (s, dt, sc) in shapes.items()}
+    x = torch.randn((1, tokens, d), generator=gen, device=dev).to(cfg.compute_dtype)
+    probe = torch.randn((1, tokens, d), generator=gen, device=dev)
+    specs = param_specs({f"mlp/{k}": v for k, v in full.items()}, cfg, groups.model.size)
+    specs = {k: specs[f"mlp/{k}"] for k in full}
+
+    def layer(params):
+        xg = x.detach().requires_grad_()
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        y, aux = moe_layer(leaves, xg, cfg)
+        grads = torch.autograd.grad(torch.sum(y.float() * probe) + aux, [xg, *leaves.values()])
+        return y.detach(), grads[0], dict(zip(leaves, grads[1:]))
+
+    def rel(a, b):
+        """||a - b|| / ||b|| in float64; an expert leaf one expert at a time
+        (a full-width one in float64 is 3.4 GB)."""
+        num = den = 0.0
+        for ai, bi in (zip(a, b) if a.dim() == 3 else [(a, b)]):
+            ai, bi = ai.double(), bi.double()
+            num += float(torch.sum((ai - bi) ** 2))
+            den += float(torch.sum(bi ** 2))
+        return math.sqrt(num / max(den, 1e-300))
+
+    out, same = {}, {}
+
+    def compare(name, a, b):
+        out[name], same[name] = rel(a, b), bool(torch.equal(a, b))
+
+    local = {k: shard_leaf(v, specs[k], groups.model.size, groups.shard) for k, v in full.items()}
+    before = dict(transport.STATS)
+    with model_parallel(groups.model):
+        y, gx, gp = layer(local)
+    tagged = {f"{k[0]} {k[1]}": v - before.get(k, 0) for k, v in transport.STATS.items()
+              if k[0] == "moe" and v != before.get(k, 0)}
+    del local
+    y1, gx1, gp1 = layer(full)
+    compare("y", y, y1)
+    compare("x grad", gx, gx1)
+    for k in full:
+        whole = gather_leaf(gp.pop(k), specs[k], groups.model)
+        compare(f"{k} grad", whole, gp1.pop(k))
+        del whole
+    return {"rel": out, "same": same, "tagged": tagged, "specs": specs, "tokens": tokens}
+
+
 def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, prepare):
     """One rank of the ``mesh:`` phase (see :func:`mesh_phase`); writes its
     readings to ``tmp/rank{rank}.json`` and its ``none`` shards to
@@ -1214,15 +1313,21 @@ def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, p
     cfg = replace(get_cfg("llama3.2-1b"), n_layers=layers)
     specs = param_specs(meta_params(cfg), cfg, mesh.model)
     shape = ShapeConfig("train_4k", seq, batch, "train")
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(cfg, shape, s).items()}
-               for s in range(steps)]
+
+    def batches_of(c, n, shp=shape):
+        return [{k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(c, shp, s).items()}
+                for s in range(n)]
     orig_round = train_mod.aggregate_distributed
 
-    def run(method, record=None):
-        """``steps`` steps of ``method`` at the phase's width on the mesh:
-        losses, step times, peak, launches, and per step the round's time
-        and the collectives inside and outside it."""
-        mcfg = replace(cfg, compression=method)
+    def allocated():
+        return torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+
+    def run(mcfg, bs, record=None):
+        """``len(bs)`` steps of ``mcfg`` at full width on the mesh: losses,
+        step times, peak, launches, the card's allocation before the run
+        and after its state is made, and per step the round's time and the
+        collectives inside and outside it (the model's tagged ones apart)."""
+        left = allocated()
         opt = train_mod.make_optimizer(mcfg)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -1230,7 +1335,7 @@ def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, p
         params, state = train_mod.init_train_state(mcfg, opt, 1, dev, seed=0, model=mesh.model,
                                                    shard=groups.shard)
         step_fn = train_mod.build_distributed_step(mcfg, opt, mesh=mesh)
-        held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        held = allocated()
         rounds = []
 
         def timed_round(grads, st, key, c, **kw):
@@ -1253,75 +1358,127 @@ def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, p
         train_mod.aggregate_distributed = timed_round
         _reset_peak(dev)
         build.reset_launches()
-        losses, times, outside = [], [], []
+        losses, times, outside, tagged = [], [], [], []
         try:
-            for s in range(steps):
+            for s, b in enumerate(bs):
                 gc.collect()
                 _sync(dev)
                 before, t0 = dict(transport.STATS), time.perf_counter()
-                params, state, met = step_fn(params, state, batches[s],
+                params, state, met = step_fn(params, state, b,
                                              prng.fold_in(prng.PRNGKey(0), s))
                 losses.append(float(met["loss"]))
                 _sync(dev)
                 times.append(time.perf_counter() - t0)
-                outside.append({f"{k[0]} {k[1]}": v - before.get(k, 0) - rounds[s]["stats"].get(
-                    f"{k[0]} {k[1]}", 0) for k, v in transport.STATS.items()})
+                diff = {k: v - before.get(k, 0) for k, v in transport.STATS.items()}
+                outside.append({f"{k[0]} {k[1]}": v - rounds[s]["stats"].get(
+                    f"{k[0]} {k[1]}", 0) for k, v in diff.items() if k[0] not in MESH_TAGS})
+                tagged.append({f"{k[0]} {k[1]}": v for k, v in diff.items()
+                               if k[0] in MESH_TAGS and v})
         finally:
             train_mod.aggregate_distributed = orig_round
-        out = {"losses": losses, "times": times, "peak": _peak(dev), "held": held,
-               "launches": dict(build.LAUNCHES), "rounds": rounds, "outside": outside,
-               "warnings": [str(w.message) for w in caught]}
+        out = {"losses": losses, "times": times, "peak": _peak(dev), "left": left,
+               "held": held - left, "launches": dict(build.LAUNCHES), "rounds": rounds,
+               "outside": outside, "tagged": tagged,
+               "local_params": sum(p.numel() for p in params.values()),
+               "leaves": len(params), "warnings": [str(w.message) for w in caught]}
         return out, params, state
 
-    def replicated_same(tree):
+    def replicated_same(tree, leaf_specs):
         """Each replicated leaf's bits equal on every rank of the model group."""
         ok = True
         for p, x in tree.items():
-            if specs.get(p, 0) is None:
+            if leaf_specs.get(p, 0) is None:
                 parts = transport.all_gather_bytes(x.detach(), mesh.model, groups.model.group)
                 ok &= all(torch.equal(parts[0], parts[i]) for i in range(1, mesh.model))
         return ok
 
+    def state_replicated(params, state, leaf_specs):
+        return bool(replicated_same(params, leaf_specs)
+                    and replicated_same(state.inner, leaf_specs)
+                    and replicated_same(state.diana.h_worker, leaf_specs)
+                    and replicated_same(state.diana.h_server, leaf_specs))
+
+    def replay_plain(rec, mcfg):
+        """Step 0's round again on the same shards with every kernel swapped
+        for its plain version, one data group at a time (its ranks gather
+        together): bitwise the recorded round, and no launch."""
+        dcfg = train_mod.make_optimizer(replace(mcfg, comp_bucketed=False))
+        plain = None
+        for s in range(mesh.model):
+            dist.barrier()
+            if groups.shard != s:
+                continue
+            grads = {p: g.to(dev) for p, g in rec["grads"].items()}
+            st0 = init_state(grads, dcfg.policy, 1)
+            on_card = ops._on_card
+            ops._on_card = lambda t: False
+            build.reset_launches()
+            try:
+                ghat, new = aggregate_distributed(grads, st0, rec["key"].to(dev), dcfg.policy,
+                                                  group=groups.data)
+            finally:
+                ops._on_card = on_card
+            plain = (all(_same_bits(ghat[p].cpu(), rec["ghat"][p]) for p in ghat)
+                     and all(_same_bits(new.h_worker[p].cpu(), rec["hw"][p])
+                             for p in new.h_worker)
+                     and all(_same_bits(new.h_server[p].cpu(), rec["hs"][p])
+                             for p in new.h_server)
+                     and not build.LAUNCHES)
+            del grads, st0, ghat, new
+            _reset_peak(dev)    # free the cache before the other data group replays
+        dist.barrier()
+        return bool(plain)
+
     rec = {}
-    res["diana"], params, state = run("diana", record=rec)
-    res["diana"]["replicated_bitwise"] = bool(
-        replicated_same(params) and replicated_same(state.inner)
-        and replicated_same(state.diana.h_worker) and replicated_same(state.diana.h_server))
+    res["diana"], params, state = run(replace(cfg, compression="diana"),
+                                      batches_of(cfg, steps), record=rec)
+    res["diana"]["replicated_bitwise"] = state_replicated(params, state, specs)
     del params, state
     _reset_peak(dev)
-    # step 0's round again on the same shards with every kernel swapped for its
-    # plain version, one data group at a time (its ranks gather together)
-    dcfg = train_mod.make_optimizer(replace(cfg, compression="diana", comp_bucketed=False))
-    plain = None
-    for s in range(mesh.model):
-        dist.barrier()
-        if groups.shard != s:
-            continue
-        grads = {p: g.to(dev) for p, g in rec["grads"].items()}
-        st0 = init_state(grads, dcfg.policy, 1)
-        on_card = ops._on_card
-        ops._on_card = lambda t: False
-        build.reset_launches()
-        try:
-            ghat, new = aggregate_distributed(grads, st0, rec["key"].to(dev), dcfg.policy,
-                                              group=groups.data)
-        finally:
-            ops._on_card = on_card
-        plain = (all(_same_bits(ghat[p].cpu(), rec["ghat"][p]) for p in ghat)
-                 and all(_same_bits(new.h_worker[p].cpu(), rec["hw"][p]) for p in ghat)
-                 and all(_same_bits(new.h_server[p].cpu(), rec["hs"][p]) for p in ghat)
-                 and not build.LAUNCHES)
-        del grads, st0, ghat, new
-    dist.barrier()
-    res["diana"]["round_plain_bitwise"] = bool(plain)
+    res["diana"]["round_plain_bitwise"] = replay_plain(rec, replace(cfg, compression="diana"))
     del rec
     _reset_peak(dev)
-    res["none"], params, state = run("none")
+    res["none"], params, state = run(replace(cfg, compression="none"), batches_of(cfg, steps))
     torch.save({"params": {p: v.detach().to("cpu", copy=True) for p, v in params.items()},
                 "momentum": {p: v.to("cpu", copy=True) for p, v in state.inner.items()}},
                tmp / f"none{rank}.pt")
     del params, state
     _reset_peak(dev)
+
+    # the MoE and frontend families at full width, cut in depth, each with
+    # its operator
+    res["families"] = {}
+    for arch, flayers, method, fbatch in MESH_FAMILIES:
+        t0 = time.perf_counter()
+        free = torch.cuda.mem_get_info()[0] if dev.type == "cuda" else 0
+        fcfg = replace(get_cfg(arch), n_layers=flayers, compression=method)
+        fspecs = param_specs(meta_params(fcfg), fcfg, mesh.model)
+        fshape = ShapeConfig("train_4k", seq, fbatch * batch // BATCH, "train")
+        rec = {}
+        r, params, state = run(fcfg, batches_of(fcfg, steps, fshape), record=rec)
+        r["replicated_bitwise"] = state_replicated(params, state, fspecs)
+        r["replicated"] = sorted(p for p, sp in fspecs.items() if sp is None)
+        del params, state
+        _reset_peak(dev)
+        r["round_plain_bitwise"] = replay_plain(rec, fcfg)
+        del rec
+        _reset_peak(dev)
+        r["seconds"] = time.perf_counter() - t0
+        res["families"][arch] = r
+        if rank == 0:      # progress, before the parent's lines: a later failure keeps it
+            print(f"mesh: rank 0 ran {arch}: step times {r['times']} s, peak {r['peak']} B "
+                  f"(the card had {free} B free before it), {r['seconds']:.1f} s", flush=True)
+
+    # one full-width MoE layer of each partition against the unsharded layer
+    res["moe_layer"] = {}
+    for arch, _, _, fbatch in MESH_FAMILIES:
+        fcfg = get_cfg(arch)
+        for seed in MOE_LAYER_SEEDS if fcfg.moe is not None else ():
+            # the worker's tokens of the run above
+            c = _moe_layer_check(dev, fcfg, groups,
+                                 fbatch * batch // BATCH // mesh.n_workers * seq, seed)
+            res["moe_layer"][f"{arch} seed {seed}"] = dict(c, partition=fcfg.moe.partition)
+            _reset_peak(dev)
 
     # every compressing operator on the reduced model over the mesh: 2 steps
     # through the kernels, then through the plain versions, bitwise
@@ -1361,8 +1518,8 @@ def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, p
     dist.destroy_process_group()
 
 
-def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ, steps=STEPS,
-               world=4, prepare=None, tol=1e-2, mtol=2.0 ** -5) -> dict:
+def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, seq=SEQ,
+               steps=STEPS, world=4, prepare=None, tol=1e-2, mtol=2.0 ** -5) -> dict:
     """The model axis on the card: ``--mesh 2x2`` (2 DIANA workers x 2
     model shards) as ``world`` = 4 processes sharing the one card, each one
     rank over gloo (NCCL runs one rank per GPU), llama3.2-1b at full width
@@ -1382,17 +1539,38 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ
     4. the replicated leaves (parameters, momentum, memories) bitwise equal
        across each worker's model ranks; step 0's round, replayed on the
        same shards with every kernel swapped for its plain version, bitwise;
-    5. every compressing operator on the reduced model over the same mesh, 2
+    5. the MoE and frontend families at full width (:data:`MESH_FAMILIES`: granite-moe
+       at 4 layers with ``diana``, the ``ffn`` partition; phi3.5-moe at 1
+       layer with ``natural``, the ``expert`` partition and bf16 memories;
+       internvl2-2b at 2 layers with ``diana``; musicgen-large at 2 layers
+       with ``none``), ``steps`` steps each, on ``batch`` x ``seq`` but
+       phi3.5-moe on half the batch:
+       per rank the step times, the peak, the card's allocation left before
+       the run and held by its state (beside the reckoning: the rank's
+       parameters times their bytes, 4 for the f32 momentum and the two
+       memories, which ``none`` holds too),
+       the round's time and collectives, the MoE's and the frontend's tagged
+       collectives, launches exact; the replicated leaves (the router, the
+       norm scales, ``frontend_proj/b``, and their momentum and memories)
+       bitwise across each worker's model ranks; step 0's round replayed
+       through the plain versions bitwise;
+    6. one full-width MoE layer of each partition on each model group (the
+       worker's tokens, weights from each of :data:`MOE_LAYER_SEEDS`)
+       against the unsharded layer on the same card: the output and the
+       input's, the router's and the experts' (gathered) gradients, bitwise
+       where :data:`MOE_LAYER_BITWISE` says, the others within
+       :data:`MOE_LAYER_TOL` (2^-6) normwise;
+    7. every compressing operator on the reduced model over the same mesh, 2
        steps through the kernels bitwise through the plain versions,
        launches exact;
-    6. the ``none`` run against the in-turn trainer (``build_train_step``) at
+    8. the ``none`` run against the in-turn trainer (``build_train_step``) at
        n = 2 on the card from the same weights and batches, after the ranks
        exit: the losses within ``tol`` (1e-2) relative, each leaf's
        parameters within ``tol / 10`` normwise, and each leaf's f32 momentum
        (the applied directions summed) within ``mtol`` normwise, 2^-5 = 8
        bf16 epsilons: the tensor-parallel sums round in another order in
-       bf16, through the 8 layers' backward (the embedding's momentum, the
-       farthest, reads ~2.2e-2 on an H100).
+       bf16, through the layers' backward (the embedding's momentum, the
+       farthest, read ~2.2e-2 at 8 layers on an H100).
 
     Returns ``{path: launches}`` (rank 0's; every rank's are checked)."""
     import shutil
@@ -1411,8 +1589,10 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
         print(f"mesh: the parent holds {torch.cuda.memory_reserved()} B reserved "
-              f"({torch.cuda.memory_allocated()} B allocated) at the spawn")
+              f"({torch.cuda.memory_allocated()} B allocated) at the spawn; the card has {free} "
+              f"B free of {total}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     # four ranks share the card: each one's allocator grows its segments in
     # place rather than holding fragments the others need
@@ -1472,6 +1652,59 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ
         if not all(rep) or not all(plain):
             fail("mesh: replicated leaves differ across model ranks, or a round through the "
                  "kernels differs from its plain version")
+        get = get_cfg or get_config
+        for arch, flayers, method, fbatch in MESH_FAMILIES:
+            fcfg = get(arch)
+            # every operator's state holds h_worker and h_server (none's stay zero)
+            mem = 2 * torch.empty((), dtype=fcfg.h_dtype).element_size()
+            pbytes = torch.empty((), dtype=fcfg.param_dtype).element_size()
+            for r in res:
+                m = r["families"][arch]
+                rd = m["rounds"][-1]
+                tp = {k: v for k, v in m["outside"][-1].items() if v}
+                reckon = m["local_params"] * (pbytes + 4 + mem)
+                print(f"mesh: {arch} ({flayers} of {fcfg.n_layers} layers, full width, "
+                      f"{method}, batch {fbatch * batch // BATCH} x seq {seq}) rank {r['rank']} "
+                      f"(worker, shard) {tuple(r['coords'])}: losses "
+                      f"{m['losses']}; step times {m['times']} s; peak {m['peak']} B; allocated "
+                      f"before the run {m['left']} B, held by its state {m['held']} B (reckoned "
+                      f"{reckon} B: {m['local_params']} parameters x ({pbytes} + 4 momentum + "
+                      f"{mem} memories)); the round {rd['ms']:.1f} ms, its collectives "
+                      f"{rd['stats']}; the model's tagged collectives per step {m['tagged']}; "
+                      f"outside the round per step (tensor-parallel, loss, norm) {tp}; launches "
+                      f"{m['launches']}; replicated leaves bitwise across the model ranks "
+                      f"{m['replicated_bitwise']} ({len(m['replicated'])} leaves); step 0's round "
+                      f"bitwise its plain replay {m['round_plain_bitwise']}; {m['seconds']:.1f} s")
+                want = {k: v * m["leaves"] * steps
+                        for k, v in MESH_LAUNCHES.get(method, {}).items()}
+                if m["launches"] != want:
+                    fail(f"mesh: {arch} rank {r['rank']} launches {m['launches']}, expected "
+                         f"{want}")
+                if not (m["replicated_bitwise"] and m["round_plain_bitwise"]):
+                    fail(f"mesh: {arch} rank {r['rank']}: replicated leaves differ across model "
+                         f"ranks, or step 0's round differs from its plain replay")
+                if len(m["warnings"]) != 1 or not all(math.isfinite(x) for x in m["losses"]):
+                    fail(f"mesh: {arch} rank {r['rank']}: warnings {m['warnings']}, losses "
+                         f"{m['losses']}")
+                if fcfg.moe is not None and not all(t.get("moe calls") for t in m["tagged"]):
+                    fail(f"mesh: {arch} rank {r['rank']}: no MoE collective in a step")
+                if fcfg.frontend != "none" and not all(t.get("frontend calls")
+                                                       for t in m["tagged"]):
+                    fail(f"mesh: {arch} rank {r['rank']}: no frontend collective in a step")
+        for case in res[0]["moe_layer"]:
+            for r in res:
+                c = r["moe_layer"][case]
+                bitwise = MOE_LAYER_BITWISE[c["partition"]]
+                print(f"mesh: one full-width {case} MoE layer ({c['partition']} partition, "
+                      f"{c['tokens']} tokens, shards {c['specs']}) on rank {r['rank']}'s model "
+                      f"group against the unsharded layer on the card: normwise relative "
+                      f"differences {c['rel']}; bitwise {c['same']} (required of {bitwise}, "
+                      f"the others within {MOE_LAYER_TOL}); its tagged collectives "
+                      f"{c['tagged']}")
+                if not (all(c["same"][k] for k in bitwise)
+                        and all(v <= MOE_LAYER_TOL for v in c["rel"].values())):
+                    fail(f"mesh: the {case} MoE layer on a model group differs from the "
+                         f"unsharded layer: {c['rel']}, bitwise {c['same']}")
         for method, per in MESH_LAUNCHES.items():
             rows = [r["reduced"][method] for r in res]
             wl = {k: v * rows[0]["leaves"] * 2 for k, v in per.items()}
@@ -1483,7 +1716,6 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ
                 fail(f"mesh: reduced {method}: kernels differ from the plain versions, or "
                      f"launches differ from {wl}")
         # the none run against the in-turn trainer at n = 2 on this device
-        get = get_cfg or get_config
         cfg = replace(get("llama3.2-1b"), n_layers=layers, compression="none")
         shape = ShapeConfig("train_4k", seq, batch, "train")
         opt = make_optimizer(cfg)
@@ -1528,6 +1760,10 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ
     print(f"mesh: the phase took {time.perf_counter() - t_phase:.1f} s")
     paths = {f"mesh {MESH} diana ({layers} layers, per rank, {steps} steps)":
              res[0]["diana"]["launches"]}
+    for arch, flayers, method, _ in MESH_FAMILIES:
+        if res[0]["families"][arch]["launches"]:
+            paths[f"mesh {MESH} {arch} {method} ({flayers} layers, per rank, {steps} "
+                  f"steps)"] = res[0]["families"][arch]["launches"]
     for method in MESH_LAUNCHES:
         paths[f"mesh {MESH} reduced {method} (per rank, 2 steps)"] = \
             res[0]["reduced"][method]["launches"]
@@ -1535,6 +1771,7 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SEQ
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     # ---------------------------------------------------------------- device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1598,6 +1835,14 @@ def main() -> None:
         if ("registers" in line or "stack frame" in line or "entry function" in line
                 or line.startswith("==")):
             print(f"build: {line.strip()}")
+
+    t_mark = [time.perf_counter()]
+
+    def took(name):
+        """Print the seconds since the last mark: one line per span of phases."""
+        now = time.perf_counter()
+        print(f"{name}: the phases took {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
 
     # --------------------------------------------------------------- kernels
     cfg = replace(get_config("llama3.2-1b"), n_layers=LAYERS)
@@ -2256,6 +2501,8 @@ def main() -> None:
     del k_params, p_params, k_diana, p_diana, k_leaves, p_leaves, rbatches
     build.reset_launches()
 
+    took("kernels, convex harness and reference")
+
     # --------------------------------------------------------- the main path
     credit = {}   # kernel name -> (launches, the path or round that ran it)
     paths_run = {}   # kernel name -> {every other path that ran it: launches}
@@ -2517,10 +2764,28 @@ def main() -> None:
         fail("dense sum: the identity decode_sum is not the plain sum of the rows")
     del x, ig, isum
 
+    took("main")
+
+    # The trainer runs of per-leaf, policy, elastic and schedule take
+    # llama3.2-1b at PHASE_LAYERS (4 of 16), so that the script keeps its
+    # time as the model axis grows; the main path above, distributed and the
+    # controller keep LAYERS, and so do schedule's chunk-view kernel checks.
+    def at_depth(n):
+        """llama3.2-1b at ``n`` layers: its config, meta tree, and diana and
+        rand-k bucket layouts."""
+        c = replace(cfg, n_layers=n)
+        mt = {k: torch.empty(s, dtype=c.param_dtype, device="meta")
+              for k, s in param_shapes(c).items()}
+        return (c, mt, bucket_layout(make_optimizer(c).compression, mt),
+                bucket_layout(CompressionConfig(method="randk", k=COMP_K, bucketed=True), mt))
+    full, cut = (cfg, meta, layout, slayout), at_depth(PHASE_LAYERS)
+    cfg, meta, layout, slayout = cut
+
     # ------------------------------------------------------ the per-leaf layout
     # The in-turn trainer with --per-leaf-agg against the bucketed trainer,
     # 2 steps each from the same state, batches and keys.  The bucketed
-    # run's parameters and memories stay on the card (22.5 GB at n = 4)
+    # run's parameters and memories stay on the card (22.5 GB at n = 4 and 8
+    # layers)
     # while the per-leaf run takes its steps.
     def inturn_run(pcfg, steps, label, policy=None, participation=None, faults=None,
                    keep=None, schedule=None):
@@ -2592,7 +2857,7 @@ def main() -> None:
         want = {k: 2 * v for k, v in perleaf_step[method].items()}
         if counts != want:
             fail(f"per-leaf {method}: launches {counts}, expected {want}")
-        also(f"per-leaf {method} (8 layers, 4 workers, 2 steps)", counts)
+        also(f"per-leaf {method} ({PHASE_LAYERS} layers, 4 workers, 2 steps)", counts)
         b_params, b_hw, b_hs = kept
         l_hw, l_hs = l_state.diana.h_worker, l_state.diana.h_server
         same = (l_loss == b_loss and all(torch.equal(l_params[k], b_params[k]) for k in b_params))
@@ -2609,6 +2874,8 @@ def main() -> None:
             fail(f"per-leaf {method}: the per-leaf trainer differs from the bucketed trainer")
         del kept, b_params, b_hw, b_hs, l_params, l_state, l_hw, l_hs
         torch.cuda.empty_cache()
+
+    took("per-leaf")
 
     # ------------------------------------------------------------- the policy
     # llama3.2-1b's curated --comp-policy default: three groups in one step.
@@ -2641,13 +2908,17 @@ def main() -> None:
     want = {k: 2 * v for k, v in policy_step.items()}
     if counts != want:
         fail(f"policy: launches {counts}, expected {want}")
-    also("policy default (8 layers, 4 workers, 2 steps)", counts)
+    also(f"policy default ({PHASE_LAYERS} layers, 4 workers, 2 steps)", counts)
     if sorted(p_state.diana.h_worker) != list(glayout.names):
         fail(f"policy: state groups {sorted(p_state.diana.h_worker)}")
     del p_params, p_state
     torch.cuda.empty_cache()
 
+    took("policy (in turn)")
+
     # ------------------------------------------------------ the distributed path
+    cfg, meta, layout, slayout = full
+    glayout = grouped_bucket_layout(make_optimizer(cfg, policy="default").policy, meta)
     # A world of one over NCCL in this process: the round's all-gather (or
     # all-reduce) runs on the card; NCCL puts no two ranks on one GPU.
     try:
@@ -2859,7 +3130,10 @@ def main() -> None:
         fail("policy: the world-of-one grouped trainer differs from the in-turn trainer")
     del d_params, d_leaves, t_params, t_diana, t_leaves
     torch.cuda.empty_cache()
+    took("distributed")
+
     # ------------------------------------------------------------ elastic
+    cfg, meta, layout, slayout = cut
     # Elastic participation and the checksummed wire.  The knobs give the
     # step keys fold_in(PRNGKey(0), s) at n = 4 the masks 1011, 1111, 0101
     # (min_workers 3: the third step is degraded), and the fault plan
@@ -2920,7 +3194,7 @@ def main() -> None:
         fail("elastic: the masks or verdicts are not the ones reckoned")
     if counts != want:
         fail(f"elastic diana: launches {counts}, expected {want}")
-    also(f"elastic diana (8 layers, 4 workers, {STEPS} steps, masked)", counts)
+    also(f"elastic diana ({PHASE_LAYERS} layers, 4 workers, {STEPS} steps, masked)", counts)
     print("elastic: diana: the non-participant's row zero after step 0, the corrupted "
           "worker's row unchanged at step 1, h_server unchanged and ghat zero on the degraded "
           "step 2: bitwise")
@@ -2968,9 +3242,10 @@ def main() -> None:
         replace(cfg, compression="none"), 2, f"elastic: in turn none {eflags}",
         participation=espec, keep=lambda s, p, o, m: nmets.append(m))
     want = elastic_launches(nmets, {"dense_copy": 1}, (None, "dense_decode_sum"))
-    expect("elastic none", counts, want, "elastic none (8 layers, 4 workers, 2 steps, masked)",
+    expect("elastic none", counts, want,
+           f"elastic none ({PHASE_LAYERS} layers, 4 workers, 2 steps, masked)",
            ("dense_decode_sum",))
-    also("elastic none (8 layers, 4 workers, 2 steps, masked)", counts)
+    also(f"elastic none ({PHASE_LAYERS} layers, 4 workers, 2 steps, masked)", counts)
     print(f"elastic: none: masks {[m['mask'] for m in nmets]}; launches {counts}")
     del n_params, n_state
     torch.cuda.empty_cache()
@@ -2984,7 +3259,7 @@ def main() -> None:
         participation=ospec)
     if counts != {"quantize_pack_prng": 2, "unpack_reduce": 4} or len(wire_t) != 2:
         fail(f"elastic: distributed launches {counts}, {len(wire_t)} all-gathers")
-    also("elastic distributed diana (world 1, 8 layers, 2 steps)", counts)
+    also(f"elastic distributed diana (world 1, {PHASE_LAYERS} layers, 2 steps)", counts)
     print(f"elastic: distributed: all_gather_into_tensor of the checksummed wire "
           f"{wire_t[-1][1]} B per step, {[round(ms, 4) for ms, _ in wire_t]} ms")
     d_params = {k: v.detach().cpu() for k, v in d_params.items()}
@@ -3054,6 +3329,8 @@ def main() -> None:
     build.reset_launches()
     torch.cuda.empty_cache()
 
+    took("elastic")
+
     # ------------------------------------------------------------ schedule
     # The chunked and hierarchical wire schedule.  (a) diana and randk with
     # --chunk-bytes 2^29 at n = 4, 2 steps each, bitwise the monolithic
@@ -3096,16 +3373,17 @@ def main() -> None:
         if counts != want:
             fail(f"schedule {method}: launches {counts}, expected {want}")
         chunk_paths[method] = nc
-        also(f"chunked {method} ({nc} chunks, 8 layers, 4 workers, 2 steps)", counts)
+        also(f"chunked {method} ({nc} chunks, {PHASE_LAYERS} layers, 4 workers, 2 steps)", counts)
         del kept, got, c_params, c_state
         torch.cuda.empty_cache()
 
-    # The kernels on chunk views at full width: the second chunk of the
+    # The kernels on chunk views of the 8-layer buckets: the second chunk of the
     # diana bucket (encode from a view of the f32 buffer, the server decode
     # into a view of h_server), and the natural and dense kernels on a view
     # one element into the buffer (4-byte, not 16-byte, aligned), each
     # against the whole-buffer call and its plain version.
     chunk_ms = {}
+    _, _, layout, slayout = full
     dsched = ChunkedSchedule.for_layout(layout, CHUNK_BYTES)
     c1, o1 = dsched.chunk_layouts[1], dsched.chunk_offsets[1]
     flat = torch.randn(dp, generator=gen, device=dev) * 1e-3
@@ -3326,7 +3604,7 @@ def main() -> None:
     want = {"quantize_pack_prng": 2 * 2, "unpack_reduce": 2 * 2, "unpack_reduce_apply": 2}
     if counts != want:
         fail(f"schedule hierarchical: launches {counts}, expected {want}")
-    also("hierarchical diana (node_size 2, 8 layers, 4 workers, 2 steps)", counts)
+    also(f"hierarchical diana (node_size 2, {PHASE_LAYERS} layers, 4 workers, 2 steps)", counts)
     # the invariant h_server = mean of the node rows, held to 8 f32 roundings
     # of its magnitude per step (each side's fma per step, the mean's add)
     if not all(d and e <= 8 * 2.0 ** -24 * max(sc, 1e-30) * (i + 1)
@@ -3368,7 +3646,8 @@ def main() -> None:
     if counts != {"quantize_pack_prng": 2 * nc, "unpack_reduce": 2 * nc,
                   "unpack_reduce_apply": 2 * nc}:
         fail(f"schedule: distributed chunked launches {counts}")
-    also(f"chunked distributed diana (world 1, {nc} chunks, 8 layers, 2 steps)", counts)
+    also(f"chunked distributed diana (world 1, {nc} chunks, {PHASE_LAYERS} layers, 2 steps)",
+         counts)
     d_params = {k: v.detach().cpu() for k, v in d_params.items()}
     d_leaves = [t.cpu() for t in state_leaves(d_diana)]
     del d_diana
@@ -3386,7 +3665,10 @@ def main() -> None:
     del d_params, d_leaves, t_params, t_diana
     torch.cuda.empty_cache()
 
+    took("schedule")
+
     # ---------------------------------------------------------- controller
+    cfg, meta, layout, slayout = full
     # --comp-policy default --budget-bits-per-dim 1.0 --controller-interval 1
     # --warmup-dense-steps 1 at n = 4, 3 steps: step 0 dense (identity on
     # the policy's skeleton), then the allocation; the telemetry against a
@@ -3473,6 +3755,8 @@ def main() -> None:
     dist.all_gather_into_tensor = nccl_gather
     dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+    took("controller and the full depth")
 
     # ------------------------------------------------------------ the model families
     # (a) granite-moe-3b-a800m at full width (4 of 32 layers) with its curated
@@ -3660,6 +3944,7 @@ def main() -> None:
     if missing:
         fail(f"kernels never launched on their path: {missing}")
 
+    print(f"chip_smoke: the script took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

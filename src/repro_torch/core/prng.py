@@ -97,14 +97,25 @@ def to_int32(words: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+# counters per pass of the int64 emulation in :func:`bits`: its temporaries
+# are ~8 int64 words per counter, so a 210 M-word leaf drawn whole would
+# take ~13 GB of a card shared by four ranks
+BITS_CHUNK = 1 << 24
+
+
 def bits(key: torch.Tensor, shape: Sequence[int], device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, dtype=uint32)`` as an int32 bit pattern
-    (plain int64 emulation, on ``device``)."""
+    (plain int64 emulation, on ``device``), drawn :data:`BITS_CHUNK`
+    counters at a time: each word depends on its counter alone, so the
+    chunks give the same bits."""
     k0, k1 = key_words(key)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32(k0, k1, idx >> 32, idx & MASK)
-    return to_int32(x0 ^ x1).reshape(tuple(shape))
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    for lo in range(0, n, BITS_CHUNK):
+        idx = torch.arange(lo, min(n, lo + BITS_CHUNK), dtype=torch.int64, device=device)
+        x0, x1 = threefry2x32(k0, k1, idx >> 32, idx & MASK)
+        out[lo:lo + idx.numel()] = to_int32(x0 ^ x1)
+    return out.reshape(tuple(shape))
 
 
 def _words(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Replaces the XLA threefry that ``TernaryCompressor._batched_bits`` draws with
 (``src/repro/core/compressors/ternary.py:167``); it is no Pallas kernel.  The
-plain int64 emulation (:func:`repro_torch.core.prng.bits`) needs ~2 GB per
-int64 temporary at the largest bucket segment (``embed``, 268 M words), so
-the trainer draws on the card with ``csrc/threefry.cu``: native uint32, one
-thread per output word.
+plain int64 emulation (:func:`repro_torch.core.prng.bits`, in passes of
+16 M counters) runs the 20 rounds as int64 tensor operations, ~300x the
+kernel's time at the largest bucket segment (``embed``, 268 M words;
+PERF.md's kernel table), so the trainer draws on the card with
+``csrc/threefry.cu``: native uint32, one thread per output word.
 
 Bound: bytes written (4 B per word) or the cipher's 68 integer instructions
 per word at the SMs' dispatch rate, whichever is larger on the card.  Plain version: ``prng.bits``.

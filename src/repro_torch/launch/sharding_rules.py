@@ -18,51 +18,53 @@ contiguous, equal slices along that dimension (``torch.chunk``), as a
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 
 from repro_torch.core import transport
 
-__all__ = ["param_specs", "batch_specs", "h_flat_specs", "shard_leaf", "shard_tree",
-           "gather_leaf", "gather_tree"]
+__all__ = ["param_specs", "undivided", "batch_specs", "h_flat_specs", "shard_leaf",
+           "shard_tree", "gather_leaf", "gather_tree"]
 
 
 def _shape(leaf) -> tuple:
     return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
 
 
-def _spec_for(names: Sequence[str], shape: tuple, cfg, model: int) -> Optional[int]:
-    """One leaf's rule (``spec_for`` in ``param_specs``); ``names`` its path
+def _rule(names: Sequence[str], shape: tuple, cfg, model: int) -> Optional[int]:
+    """One leaf's rule (``spec_for`` in ``param_specs``) before the
+    divisibility fallback: the dimension it splits over ``model``, or None
+    for a leaf the rules replicate by design.  ``names`` its path
     components, ``shape`` its (stacked) shape."""
     name, nd = names[-1], len(shape)
     lead = 1 if "blocks" in names else 0     # the stacked layer dimension
 
-    def split(index: int, size: int) -> Optional[int]:
-        return index if size % model == 0 else None
-
-    if name == "embed":
+    if name in ("embed", "lm_head"):
         # the vocabulary stays whole (the token gather), the features split
-        return split(1, shape[1])
-    if name == "lm_head":
-        return split(1, shape[1])
+        return 1
     if name in ("wq", "wk", "wv", "w_in", "w_gate", "in_proj") and nd - lead == 2:
-        return split(lead + 1, shape[-1])          # column-parallel
+        return lead + 1                            # column-parallel
     if name in ("wo", "w_out", "out_proj") and nd - lead == 2:
-        return split(lead, shape[-2])              # row-parallel
+        return lead                                # row-parallel
     if "mlp" in names and name in ("w_in", "w_gate", "w_out") and nd - lead == 3:
         # MoE experts (E, D, F) / (E, F, D)
         if cfg.moe and cfg.moe.partition == "expert" and shape[-3] % model == 0:
             return lead
-        if name == "w_out":
-            return split(lead + 1, shape[-2])
-        return split(lead + 2, shape[-1])
+        return lead + 1 if name == "w_out" else lead + 2
     if name == "conv_w":
-        return split(lead + 1, shape[-1])
+        return lead + 1
     if name == "w" and "frontend_proj" in names:
-        return split(1, shape[1])
+        return 1
     # norms, biases, the router, the SSD scalars ...
     return None
+
+
+def _spec_for(names: Sequence[str], shape: tuple, cfg, model: int) -> Optional[int]:
+    """One leaf's spec: its rule's dimension when ``model`` divides it
+    (``_fits`` / ``_dim``), else None."""
+    dim = _rule(names, shape, cfg, model)
+    return dim if dim is not None and shape[dim] % model == 0 else None
 
 
 def param_specs(tree: Mapping[str, object], cfg, model: int) -> Dict[str, Optional[int]]:
@@ -71,6 +73,19 @@ def param_specs(tree: Mapping[str, object], cfg, model: int) -> Dict[str, Option
     as ``repro.launch.sharding_rules.param_specs`` on a ``("data",
     "model")`` mesh with no FSDP axes."""
     return {p: _spec_for(p.split("/"), _shape(leaf), cfg, model) for p, leaf in tree.items()}
+
+
+def undivided(tree: Mapping[str, object], cfg, model: int) -> List[str]:
+    """The leaves of ``tree`` that a rule splits but a model axis of size
+    ``model`` does not divide, which the fallback keeps whole on every rank;
+    the leaves replicated by design (the router, norms, biases) are not
+    among them."""
+    out = []
+    for p, leaf in tree.items():
+        dim = _rule(p.split("/"), _shape(leaf), cfg, model)
+        if dim is not None and _shape(leaf)[dim] % model:
+            out.append(p)
+    return out
 
 
 def batch_specs(batch: Mapping[str, object], mesh) -> Dict[str, Optional[int]]:
@@ -93,11 +108,13 @@ def h_flat_specs(specs: Mapping[str, Optional[int]]) -> Dict[str, Optional[int]]
 
 
 def shard_leaf(x: torch.Tensor, spec: Optional[int], model: int, index: int) -> torch.Tensor:
-    """Shard ``index`` of ``x`` (a contiguous copy; ``x`` itself when
-    replicated)."""
+    """Shard ``index`` of ``x`` (a contiguous copy with storage of its own,
+    so that dropping ``x`` frees it: a slice along the leading dimensions,
+    e.g. one layer's experts, is already contiguous, and ``.contiguous()``
+    would keep the whole leaf alive; ``x`` itself when replicated)."""
     if spec is None:
         return x
-    return x.chunk(model, dim=spec)[index].contiguous()
+    return x.chunk(model, dim=spec)[index].clone(memory_format=torch.contiguous_format)
 
 
 def shard_tree(tree: Mapping[str, torch.Tensor], specs: Mapping[str, Optional[int]],

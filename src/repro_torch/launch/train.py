@@ -14,13 +14,15 @@ step builders share the step:
   (``WORLD_SIZE`` set), N must equal the world size, NCCL on
   ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``).
 
-On a model mesh (M > 1, the dense transformers, one rank per shard: N·M
-ranks) each rank holds its shards of the parameters
-(:mod:`~repro_torch.launch.sharding_rules`), runs the model tensor-parallel
-over its worker's model group (:mod:`repro_torch.models.sharding`), and
-runs the per-leaf round on its gradient shards with shard-local memories
-over its data group (``aggregate_distributed(group=)``, the JAX package's
-nested fully-manual mode).  A bucketed config runs per leaf there
+On a model mesh (M > 1, the dense and MoE transformers and the frontend
+models, one rank per shard: N·M ranks) each rank holds its shards of the
+parameters (:mod:`~repro_torch.launch.sharding_rules`), runs the model
+tensor-parallel over its worker's model group
+(:mod:`repro_torch.models.sharding`; the MoE layers as the JAX package's
+nested fully-manual path), and runs the per-leaf round on its gradient
+shards with shard-local memories over its data group
+(``aggregate_distributed(group=)``, the JAX package's nested fully-manual
+mode).  A bucketed config runs per leaf there
 (:func:`resolve_bucketed`, one ``RuntimeWarning``), and what this slice
 does not hold to the JAX trainer on such a mesh is refused
 (:func:`check_model_axis`).
@@ -146,7 +148,7 @@ from repro_torch.core.vr import control_variate, reference_coins, resolve_vr_p
 from repro_torch.core.numerics import div_n
 from repro_torch.data.pipeline import make_lm_batch
 from repro_torch.launch.mesh import MeshSpec, mesh_groups, parse_mesh
-from repro_torch.launch.sharding_rules import gather_tree, param_specs, shard_tree
+from repro_torch.launch.sharding_rules import gather_tree, param_specs, shard_tree, undivided
 from repro_torch.models.sharding import model_parallel
 from repro_torch.models.transformer import init_model, meta_params, train_loss
 from repro_torch.optim.diana_optimizer import DianaOptimizer
@@ -202,23 +204,30 @@ def resolved_layout(opt: DianaOptimizer, mesh: MeshSpec) -> str:
 def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
                      telemetry: bool = False) -> None:
     """Refuse, on a model mesh (M > 1), what this slice does not hold to the
-    JAX trainer on a (2, 2) mesh, naming its ROADMAP.md item: the MoE,
-    Mamba-2 and frontend families (and a tied embedding), heads or widths
-    the model axis does not divide, ``remat="dots"``, and VR, the downlink, a grouped policy, participation and faults, the
-    chunked and two-level schedules and the controller."""
+    JAX trainer on a (2, 2) mesh, naming its ROADMAP.md item: the Mamba-2
+    and hybrid families, an MoE split the JAX nested path does not take, a
+    tied embedding, heads or matrices the model axis does not divide,
+    ``remat="dots"``, and VR, the downlink, a grouped policy, participation
+    and faults, the chunked and two-level schedules and the controller.
+    The leaves the JAX rules replicate by design (the router, the norm
+    scales, the biases) stay whole on every rank
+    (:func:`~repro_torch.launch.sharding_rules.undivided` leaves them out)."""
     if mesh.model == 1:
         return
     m, item = mesh.model, "ROADMAP.md queue 1 item 12"
-    for spec in cfg.pattern:
-        if spec.mlp == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE over the model axis ({item}(a))")
-        if spec.mixer != "attn" or spec.mlp != "dense":
-            raise NotImplementedError(f"{cfg.name}: Mamba-2 over the model axis ({item}(b))")
-    if cfg.frontend != "none" or cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: the frontends' frontend_proj and a tied "
-                                  f"embedding over the model axis ({item}(c))")
-    specs = param_specs(meta_params(cfg), cfg, m)
-    whole = [p for p, s in specs.items() if s is None and not p.endswith("scale")]
+    if any(spec.mixer != "attn" for spec in cfg.pattern):
+        raise NotImplementedError(f"{cfg.name}: Mamba-2 over the model axis ({item}(b))")
+    if any(spec.mlp == "moe" for spec in cfg.pattern):
+        mc = cfg.moe
+        size = mc.n_experts if mc.partition == "expert" else mc.d_ff
+        if mc.partition not in ("expert", "ffn") or size % m:
+            # the JAX nested path's condition (repro/models/moe.py:160-169)
+            raise NotImplementedError(
+                f"{cfg.name}: MoE partition {mc.partition!r} of {size} over a model axis of "
+                f"{m} (the JAX package's pure GSPMD fallback; {item}(g))")
+    if cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: a tied embedding over the model axis ({item}(g))")
+    whole = undivided(meta_params(cfg), cfg, m)
     if cfg.n_heads % m or cfg.n_kv_heads % m or whole:
         raise NotImplementedError(
             f"--mesh {mesh}: the model axis must divide the query and KV heads ({cfg.n_heads}, "

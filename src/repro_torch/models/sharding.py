@@ -14,7 +14,11 @@ that runs no mesh): those paths stay bitwise what they were.
 * :func:`reduce_from_model` — after a row-parallel product: all-reduce
   forward, identity backward;
 * :func:`gather_from_model` — all-gather of the last dimension forward (the
-  feature-sharded embedding), the rank's slice of the gradient backward;
+  feature-sharded embedding, the frontend projection), the rank's slice of
+  the gradient backward;
+* :func:`gather_experts` — all-gather of the first dimension forward (the
+  expert-partitioned MoE's per-expert outputs), the rank's slice of the
+  gradient backward;
 * :func:`vocab_parallel_ce` — the cross-entropy of vocabulary-sharded
   logits: the max and the log-sum-exp all-reduced over the model group,
   the target logit taken from the shard that owns it.
@@ -22,6 +26,10 @@ that runs no mesh): those paths stay bitwise what they were.
 An all-reduce gives the same bits on every rank, so every replicated value
 (the residual stream, the norms' inputs, the loss) and every replicated
 leaf's gradient is identical across a worker's model ranks.
+
+Each function takes a ``tag`` that :mod:`repro_torch.core.transport` counts
+its collectives under besides their own names (the MoE layer's ``"moe"``,
+the frontend projection's ``"frontend"``), in the backward too.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch.distributed as dist
 from repro_torch.core import transport
 
 __all__ = ["ModelGroup", "model_parallel", "current", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "vocab_parallel_ce"]
+           "gather_from_model", "gather_experts", "vocab_parallel_ce"]
 
 
 class ModelGroup(NamedTuple):
@@ -72,55 +80,66 @@ def model_parallel(mp: Optional[ModelGroup]):
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        transport.all_reduce(g, group=ctx.group)
-        return g, None
+        transport.all_reduce(g, group=ctx.group, tag=ctx.tag)
+        return g, None, None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, tag):
         out = x.contiguous().clone()
-        transport.all_reduce(out, group=group)
+        transport.all_reduce(out, group=group, tag=tag)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherFromModel(torch.autograd.Function):
+    """All-gather along ``dim`` (the shards in group-rank order) forward;
+    the rank's slice of the gradient backward: the gathered value feeds
+    replicated code, so its gradient is whole on every rank."""
+
     @staticmethod
-    def forward(ctx, x, mp):
-        ctx.mp, ctx.width = mp, x.shape[-1]
-        parts = transport.all_gather_bytes(x, mp.size, mp.group)     # (M, ..., w)
-        return torch.cat(parts.unbind(0), dim=-1)
+    def forward(ctx, x, mp, dim, tag):
+        ctx.mp, ctx.dim, ctx.width = mp, dim, x.shape[dim]
+        parts = transport.all_gather_bytes(x, mp.size, mp.group, tag=tag)   # (M, ...)
+        return torch.cat(parts.unbind(0), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         w, i = ctx.width, ctx.mp.index
-        return g[..., i * w:(i + 1) * w].contiguous(), None
+        return g.narrow(ctx.dim, i * w, w).contiguous(), None, None, None
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+def copy_to_model(x: torch.Tensor, tag=None) -> torch.Tensor:
     mp = current()
-    return x if mp is None else _CopyToModel.apply(x, mp.group)
+    return x if mp is None else _CopyToModel.apply(x, mp.group, tag)
 
 
-def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+def reduce_from_model(x: torch.Tensor, tag=None) -> torch.Tensor:
     mp = current()
-    return x if mp is None else _ReduceFromModel.apply(x, mp.group)
+    return x if mp is None else _ReduceFromModel.apply(x, mp.group, tag)
 
 
-def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, tag=None) -> torch.Tensor:
     mp = current()
-    return x if mp is None else _GatherFromModel.apply(x, mp)
+    return x if mp is None else _GatherFromModel.apply(x, mp, x.dim() - 1, tag)
+
+
+def gather_experts(y: torch.Tensor, tag="moe") -> torch.Tensor:
+    """``(E/M, ...)`` per rank -> ``(E, ...)``: ``all_gather(y, "model",
+    axis=0, tiled=True)`` (``repro/models/moe.py:208``)."""
+    mp = current()
+    return y if mp is None else _GatherFromModel.apply(y, mp, 0, tag)
 
 
 def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,10 @@ Under a model group (:mod:`repro_torch.models.sharding`, the trainer on a
 gathered after the lookup; the LM head's vocabulary columns, whose logits
 meet in a vocabulary-parallel cross-entropy (the max and the log-sum-exp
 all-reduced, the target logit from the shard that owns it), chunked by
-``CE_SEQ_CHUNK`` as before; the attention and the MLP tensor-parallel
-(``layers.py``).
+``CE_SEQ_CHUNK`` as before; the frontend projection's feature columns,
+gathered before its (replicated) bias; the attention and the MLP
+tensor-parallel (``layers.py``); the MoE layer's experts by expert or by
+``d_ff`` (``moe.py``).
 
 Serving (``repro_torch.launch.serve``) runs :func:`forward` over the
 prompt with ``last_token_only`` (the prefill) and :func:`decode_step` one
@@ -243,8 +245,10 @@ def _embed_inputs(params, batch, cfg) -> torch.Tensor:
     parts = []
     key = f"{cfg.frontend}_embeds"
     if cfg.frontend != "none" and key in batch:
+        # column-parallel over a model group: the rank's D columns, gathered
+        # (the contraction over fdim is whole, so nothing is summed)
         w, b = params["frontend_proj/w"].to(cdt), params["frontend_proj/b"].to(cdt)
-        parts.append(batch[key].to(cdt) @ w + b)
+        parts.append(gather_from_model(batch[key].to(cdt) @ w, tag="frontend") + b)
     if "tokens" in batch:
         parts.append(gather_from_model(torch.nn.functional.embedding(
             batch["tokens"].long(), params["embed"].to(cdt))))

@@ -14,7 +14,10 @@ process (no ranks but a one-rank gloo group for the round's refusals):
   under ``--topology hierarchical`` and the node size the JAX CLI infers;
 * ``resolve_bucketed``'s one structured warning and ``resolved_layout``;
 * the refusals (``NotImplementedError`` naming ROADMAP.md queue 1 item 12)
-  of everything the slice does not hold to the JAX trainer on a model mesh;
+  of everything the slices do not hold to the JAX trainer on a model mesh,
+  and the MoE and frontend archs accepted (full and reduced);
+* the full-width MoE and frontend states through ``gather_train_state`` /
+  ``shard_train_state`` on ``meta`` (shapes and dtypes);
 * shards: ``shard_tree`` / ``params_shard_from_jax`` cut the JAX global arrays as ``NamedSharding``
   lays them out.
 """
@@ -44,6 +47,8 @@ from repro_torch.launch.sharding_rules import batch_specs, h_flat_specs, param_s
 ARCHS = tuple(j_list_archs())
 MODELS = (1, 2, 3, 4, 16, 32)
 DENSE = ("llama3.2-1b", "granite-8b", "nemotron-4-15b", "stablelm-3b")
+MOE_AND_FRONTENDS = ("granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b", "internvl2-2b",
+                     "musicgen-large")
 
 
 def _flat(tree, prefix=""):
@@ -83,6 +88,26 @@ def test_param_specs_match_the_jax_rules(arch, size):
         # every matrix of a dense arch splits at M = 2; only the norms stay whole
         assert {p for p, s in param_specs(flat, cfg, 2).items() if s is None} == {
             p for p in flat if p.endswith("scale")}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_undivided_is_what_the_jax_rules_split_then_leave_whole(arch):
+    """``undivided`` (the gate's matrices the axis does not divide): the
+    leaves the JAX rules split over a model axis of 1 but not over one of
+    ``m``, the divisibility fallback; a leaf replicated by design (the
+    router, a norm, a bias) is never among them."""
+    from repro_torch.launch.sharding_rules import undivided
+
+    jcfg, cfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
+    shapes = jax.eval_shape(lambda: j_init_model(jcfg, jax.random.PRNGKey(0)))
+    flat = {p: tuple(a.shape) for p, a in _flat(shapes).items()}
+
+    def jax_split(m):
+        specs = jrules.param_specs(shapes, jcfg, AbstractMesh((2, m), ("data", "model")))
+        return {p for p, sp in _flat(specs).items() if _model_dim(sp) is not None}
+    ruled = jax_split(1)
+    for m in MODELS:
+        assert set(undivided(flat, cfg, m)) == ruled - jax_split(m), (arch, m)
 
 
 @pytest.mark.parametrize("mesh,batch", [("2x2", 4), ("2x2", 3), ("2x1x2", 4), ("2x1x2", 2),
@@ -177,17 +202,21 @@ def _opt(cfg, **kw):
     return train.make_optimizer(cfg, **kw)
 
 
-@pytest.mark.parametrize("case", ["moe", "mamba", "hybrid", "frontend", "vr", "down", "policy",
-                                  "participation", "faults", "chunk", "hierarchical",
+@pytest.mark.parametrize("case", ["expert-undivided", "mamba", "hybrid", "tied", "vr", "down",
+                                  "policy", "participation", "faults", "chunk", "hierarchical",
                                   "controller", "dots", "heads"])
 def test_refusals_name_their_roadmap_item(case):
     cfg = reduced(get_config("llama3.2-1b"))
     mesh, faults, telemetry = parse_mesh("2x2"), None, False
-    archs = {"moe": "granite-moe-3b-a800m", "mamba": "mamba2-130m", "hybrid": "jamba-v0.1-52b",
-             "frontend": "internvl2-2b"}
+    archs = {"mamba": "mamba2-130m", "hybrid": "jamba-v0.1-52b"}
     opt = None
     if case in archs:
         cfg = reduced(get_config(archs[case]))
+    elif case == "expert-undivided":
+        moe = reduced(get_config("phi3.5-moe-42b-a6.6b"))
+        cfg = replace(moe, moe=replace(moe.moe, n_experts=3))
+    elif case == "tied":
+        cfg = replace(cfg, tie_embeddings=True)
     elif case == "vr":
         cfg = replace(cfg, vr=True, vr_p=0.5)
     elif case == "down":
@@ -221,6 +250,61 @@ def test_the_dense_slice_is_accepted(arch):
     for size in (get_config(arch), reduced(get_config(arch))):
         for mesh in ("2x2", "2x1x2"):
             train.check_model_axis(size, _opt(size), parse_mesh(mesh))
+
+
+@pytest.mark.parametrize("arch", MOE_AND_FRONTENDS)
+def test_the_moe_and_frontend_archs_are_accepted(arch):
+    """Their router, norm scales and ``frontend_proj/b`` stay whole by
+    design; granite-moe's curated grouped policy is still refused (12(e))."""
+    for size in (get_config(arch), reduced(get_config(arch))):
+        for mesh in ("2x2", "2x1x2"):
+            train.check_model_axis(size, _opt(size), parse_mesh(mesh))
+    if arch.startswith("granite-moe"):
+        with pytest.raises(NotImplementedError, match=r"item 12\(e\)"):
+            train.check_model_axis(get_config(arch), _opt(get_config(arch), policy="default"),
+                                   parse_mesh("2x2"))
+
+
+@pytest.mark.parametrize("arch", MOE_AND_FRONTENDS)
+def test_full_state_shards_and_gathers_on_meta(arch, monkeypatch):
+    """The full-width tree on ``meta``: ``gather_train_state`` (its
+    collectives shaped, not run) gives the JAX trainer's global shapes and
+    dtypes (parameters whole, ``h_worker`` ``(N, d)``, ``h_server``
+    ``(d,)``), and ``shard_train_state`` gives each rank's shard shapes back;
+    the 4-d stacked experts split on E (``expert``) or F (``ffn``)."""
+    from repro_torch.convert import gather_train_state, shard_train_state
+    from repro_torch.core import transport
+    from repro_torch.launch.mesh import MeshGroups
+    from repro_torch.models.sharding import ModelGroup
+    from repro_torch.models.transformer import meta_params
+
+    monkeypatch.setattr(transport, "all_gather_into_tensor", lambda out, src, **kw: None)
+    cfg = get_config(arch)
+    mesh = parse_mesh("2x2")
+    full = meta_params(cfg)
+    specs = param_specs(full, cfg, 2)
+    opt = _opt(replace(cfg, comp_bucketed=False))
+    for m in range(2):
+        local = {p: torch.nn.Parameter(v) for p, v in shard_tree(full, specs, 2, m).items()}
+        state = opt.init(local, 1)
+        groups = MeshGroups(0, m, None, ModelGroup(None, 2, m))
+        gp, gs = gather_train_state(local, state, cfg, mesh, groups)
+        for p, v in full.items():
+            d = v.numel()
+            assert gp[p].shape == v.shape and gp[p].dtype == v.dtype, p
+            assert gs.inner[p].shape == v.shape, p
+            assert gs.diana.h_worker[p].shape == (2, d) and gs.diana.h_server[p].shape == (d,)
+            assert gs.diana.h_server[p].dtype == cfg.h_dtype
+        bp, bs = shard_train_state(gp, gs, cfg, mesh, 0, m)
+        for p, v in local.items():
+            assert bp[p].shape == v.shape and bp[p].dtype == v.dtype, p
+            assert bs.diana.h_worker[p].shape == state.diana.h_worker[p].shape, p
+        if cfg.moe is not None:
+            w_in = "blocks/layer0/mlp/w_in"
+            assert specs[w_in] == (1 if cfg.moe.partition == "expert" else 3)
+            assert specs["blocks/layer0/mlp/router"] is None
+        else:
+            assert specs["frontend_proj/w"] == 1 and specs["frontend_proj/b"] is None
 
 
 def test_in_turn_cli_refuses_a_model_axis(monkeypatch):
@@ -257,28 +341,33 @@ def test_round_over_a_group_refuses_what_it_does_not_hold(tmp_path):
 
 def test_shards_are_the_named_sharding_slices():
     """``shard_tree`` cuts each leaf into the model axis's contiguous, equal
-    slices, ``params_shard_from_jax`` the same from numpy, and concatenating
-    the shards gives the leaf back."""
+    slices, each a copy of its own (one layer's experts split on E are a
+    contiguous slice of the leaf: a view would keep the whole leaf alive),
+    ``params_shard_from_jax`` the same from numpy, and concatenating the
+    shards gives the leaf back."""
     from repro_torch.convert import params_shard_from_jax
     from repro_torch.models.transformer import init_model
 
-    cfg = reduced(get_config("nemotron-4-15b"))
-    full = init_model(cfg, "cpu", seed=2)
-    specs = param_specs(full, cfg, 2)
-    np_tree = {p: v.detach().numpy() for p, v in full.items()}
-    for m in range(2):
-        local = shard_tree(full, specs, 2, m)
-        conv = params_shard_from_jax(np_tree, cfg, "cpu", 2, m)
-        for p, v in local.items():
-            want = list(full[p].shape)
-            if specs[p] is not None:
-                want[specs[p]] //= 2
-            assert list(v.shape) == want
-            assert torch.equal(conv[p], v) and v.is_contiguous()
-    for p, s in specs.items():
-        parts = [shard_tree({p: full[p]}, specs, 2, m)[p] for m in range(2)]
-        whole = parts[0] if s is None else torch.cat(parts, dim=s)
-        assert torch.equal(whole, full[p])
+    for cfg in (reduced(get_config("nemotron-4-15b")),
+                replace(reduced(get_config("phi3.5-moe-42b-a6.6b")), n_layers=1)):
+        full = init_model(cfg, "cpu", seed=2)
+        specs = param_specs(full, cfg, 2)
+        np_tree = {p: v.detach().numpy() for p, v in full.items()}
+        for m in range(2):
+            local = shard_tree(full, specs, 2, m)
+            conv = params_shard_from_jax(np_tree, cfg, "cpu", 2, m)
+            for p, v in local.items():
+                want = list(full[p].shape)
+                if specs[p] is not None:
+                    want[specs[p]] //= 2
+                assert list(v.shape) == want
+                assert torch.equal(conv[p], v) and v.is_contiguous()
+                if specs[p] is not None:    # its own storage: dropping the leaf frees it
+                    assert v.untyped_storage().nbytes() == v.numel() * v.element_size(), p
+        for p, s in specs.items():
+            parts = [shard_tree({p: full[p]}, specs, 2, m)[p] for m in range(2)]
+            whole = parts[0] if s is None else torch.cat(parts, dim=s)
+            assert torch.equal(whole, full[p])
 
 
 def test_model_group_is_seen_from_other_threads():

@@ -45,6 +45,16 @@ def test_bits(shape):
     assert np.array_equal(tb.numpy().view(np.uint32), jb)
 
 
+def test_bits_drawn_in_chunks_of_counters(monkeypatch):
+    """A draw in several passes of counters (``BITS_CHUNK``, 7 here, not
+    dividing the count) is ``jax.random.bits``'s."""
+    monkeypatch.setattr(prng, "BITS_CHUNK", 7)
+    jk = jax.random.fold_in(jax.random.PRNGKey(5), 2)
+    tk = prng.fold_in(prng.PRNGKey(5), 2)
+    jb = np.asarray(jax.random.bits(jk, (37, 3), dtype=jnp.uint32))
+    assert np.array_equal(prng.bits(tk, (37, 3)).numpy().view(np.uint32), jb)
+
+
 def test_batched_bits_matches_vmapped_draw():
     """Segments sharing a row count are drawn by ONE vmapped jax.random.bits
     call in the JAX package; the port draws per key into the concatenation
