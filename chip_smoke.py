@@ -230,12 +230,15 @@ Phases (each prints its lines; any failure exits non-zero):
    per rank the step times, peak, the round's time and collectives and the
    tensor-parallel ones, launches exact per rank; replicated leaves
    bitwise across model ranks; step 0's round bitwise its plain version
-   on the same shards; then the MoE and frontend families at full width
+   on the same shards; then the MoE, frontend and Mamba-2 families
    (:data:`MESH_FAMILIES`: granite-moe's ``ffn`` and phi3.5-moe's
-   ``expert`` partitions, internvl2-2b, musicgen-large) the same way, with
-   their tagged MoE and frontend collectives and their held bytes beside
-   the reckoning, and one full-width MoE layer of each partition against
-   the unsharded layer (:data:`MOE_LAYER_BITWISE`, :data:`MOE_LAYER_TOL`);
+   ``expert`` partitions, internvl2-2b, musicgen-large and mamba2-130m at
+   full width, the Jamba hybrid reduced) the same way, with their tagged
+   MoE, frontend and Mamba-2 collectives (the ``mamba`` gathers exact) and
+   their held bytes beside the reckoning, one full-width MoE layer of each
+   partition against the unsharded layer (:data:`MOE_LAYER_BITWISE`,
+   :data:`MOE_LAYER_TOL`) and one full-width Jamba Mamba-2 mixer against
+   the unsharded mixer, bitwise;
    the four compressing
    operators on the reduced model over the mesh through the kernels
    bitwise the plain versions; ``none`` against the in-turn trainer at
@@ -1136,14 +1139,24 @@ def remat_phase(dev, card: str, get_cfg=None, layers=LAYERS, batch=BATCH, seq=SE
 
 MESH = "2x2"
 MESH_LAYERS = 4    # mesh: llama3.2-1b's depth there (of 16)
-# mesh: the MoE and frontend families at full width, cut in depth: (arch,
-# layers, operator, global batch x 4096), as many steps as llama.  phi3.5-moe's batch
-# is cut to 4: at 8 its four ranks' attention chunks (2048 queries, f32
-# scores) ran the card out of memory (79.18 GiB in use)
+# mesh: the MoE, frontend and Mamba-2 families at full width, cut in depth:
+# (arch, layers, operator, global batch x 4096), as many steps as llama.
+# phi3.5-moe's batch is cut to 4: at 8 its four ranks' attention chunks
+# (2048 queries, f32 scores) ran the card out of memory (79.18 GiB in use).
+# Layers None: the reduced config.  Jamba's shortest legal depth, one period
+# of 8 layers, holds 4 MoE layers of 16 x 3 x 4096 x 14336 weights (22.6 GB
+# in bf16): half of them and as much again in gradients on each of the four
+# ranks is over 90 GB of the one card, so the hybrid runs reduced, and one
+# full-width Jamba mixer is checked alone (_mamba_layer_check)
 MESH_FAMILIES = (("granite-moe-3b-a800m", 4, "diana", 8),
                  ("phi3.5-moe-42b-a6.6b", 1, "natural", 4),
-                 ("internvl2-2b", 2, "diana", 8), ("musicgen-large", 2, "none", 8))
-MESH_TAGS = ("moe", "frontend")   # the model code's tagged collectives (transport.STATS)
+                 ("internvl2-2b", 2, "diana", 8), ("musicgen-large", 2, "none", 8),
+                 ("mamba2-130m", 8, "diana", 8), ("jamba-v0.1-52b", None, "natural", 8))
+MESH_TAGS = ("moe", "frontend", "mamba")   # the model code's tagged collectives (transport.STATS)
+# the full-width Jamba mixer on a model group against the unsharded one:
+# weights from MAMBA_LAYER_SEED, MAMBA_LAYER_ROWS sequences of the phase's
+# length; the output and every gradient bitwise
+MAMBA_LAYER_ARCH, MAMBA_LAYER_SEED, MAMBA_LAYER_ROWS = "jamba-v0.1-52b", 9, 2
 # the full-width MoE layer on a model group against the unsharded one, at
 # each of MOE_LAYER_SEEDS.  Bitwise (MOE_LAYER_BITWISE): every array of the
 # expert partition (a rank runs whole experts; the all-gather and the
@@ -1204,6 +1217,96 @@ def _mesh_probe(dev) -> dict:
         dist.all_reduce(flag, op=dist.ReduceOp.MIN)     # the same verdict on every rank
         took[name] = bool(int(flag))
     return took
+
+
+def _family_cfg(get_cfg, arch, layers):
+    """A :data:`MESH_FAMILIES` entry's config: ``layers`` of the full one,
+    or the reduced one when ``layers`` is None."""
+    from repro_torch.configs import reduced
+
+    return reduced(get_cfg(arch)) if layers is None else replace(get_cfg(arch), n_layers=layers)
+
+
+def _mamba_gathers(cfg) -> dict:
+    """The ``mamba`` collectives of one training step of ``cfg`` on a model
+    group: each Mamba-2 layer gathers its whole ``in_proj``, ``conv_w`` and
+    ``out_proj`` in the forward, and again in a checkpointed block's
+    recompute; nothing in the backward."""
+    from repro_torch.models.mamba2 import SPLIT, mamba_shapes
+
+    layers = sum(spec.mixer == "mamba" for spec in cfg.pattern) * cfg.n_blocks
+    if not layers:
+        return {}
+    forwards = 2 if cfg.remat == "full" else 1
+    nbytes = sum(math.prod(mamba_shapes(cfg)[k][0]) for k in SPLIT) * \
+        torch.empty((), dtype=cfg.param_dtype).element_size()
+    return {"mamba calls": 3 * layers * forwards, "mamba bytes": nbytes * layers * forwards}
+
+
+def _mamba_layer_check(dev, cfg, groups, rows, seq, seed) -> dict:
+    """One full-width Mamba-2 mixer of ``cfg`` on this rank's model group
+    against the unsharded mixer on the same card: the same weights drawn
+    from ``seed`` (the rank's shards of ``in_proj``, ``conv_w`` and
+    ``out_proj``), ``rows`` x ``seq`` input rows, ``sum(out * probe)``
+    backward.  Returns, for the output, the input's gradient and every
+    leaf's gradient (the split ones gathered), the normwise relative
+    difference and whether the bits are equal, and the collectives tagged
+    ``mamba``."""
+    from repro_torch.core import transport
+    from repro_torch.launch.sharding_rules import gather_leaf, param_specs, shard_leaf
+    from repro_torch.models.mamba2 import dims, mamba_layer, mamba_shapes
+    from repro_torch.models.sharding import model_parallel
+
+    _, d_in, h, _, _, _ = dims(cfg)
+    d = cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = {"in_proj": d ** -0.5, "out_proj": d_in ** -0.5, "conv_w": 0.5, "conv_b": 0.1,
+             "dt_bias": 0.5, "A_log": 0.5, "D": 1.0, "norm_scale": 0.1}
+    full = {}
+    for k, (shape, f32) in mamba_shapes(cfg).items():
+        x = torch.randn(shape, generator=gen, device=dev) * scale[k]
+        if k == "A_log":
+            x = x + torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+        elif k == "norm_scale":
+            x = x + 1.0
+        full[k] = x.to(torch.float32 if f32 else cfg.param_dtype)
+    x = torch.randn((rows, seq, d), generator=gen, device=dev).to(cfg.compute_dtype)
+    probe = torch.randn((rows, seq, d), generator=gen, device=dev)
+    specs = param_specs({f"mixer/{k}": v for k, v in full.items()}, cfg, groups.model.size)
+    specs = {k: specs[f"mixer/{k}"] for k in full}
+
+    def layer(params):
+        xg = x.detach().requires_grad_()
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        y = mamba_layer(leaves, xg, cfg)
+        grads = torch.autograd.grad(torch.sum(y.float() * probe), [xg, *leaves.values()])
+        return y.detach(), grads[0], dict(zip(leaves, grads[1:]))
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return math.sqrt(float(torch.sum((a - b) ** 2)) / max(float(torch.sum(b ** 2)), 1e-300))
+
+    out, same = {}, {}
+
+    def compare(name, a, b):
+        out[name], same[name] = rel(a, b), bool(torch.equal(a, b))
+
+    local = {k: shard_leaf(v, specs[k], groups.model.size, groups.shard) for k, v in full.items()}
+    before = dict(transport.STATS)
+    with model_parallel(groups.model):
+        y, gx, gp = layer(local)
+    tagged = {f"{k[0]} {k[1]}": v - before.get(k, 0) for k, v in transport.STATS.items()
+              if k[0] == "mamba" and v != before.get(k, 0)}
+    whole = sum(full[k].numel() * full[k].element_size() for k, sp in specs.items()
+                if sp is not None)
+    del local
+    y1, gx1, gp1 = layer(full)
+    compare("y", y, y1)
+    compare("x grad", gx, gx1)
+    for k in full:
+        compare(f"{k} grad", gather_leaf(gp.pop(k), specs[k], groups.model), gp1.pop(k))
+    return {"rel": out, "same": same, "tagged": tagged, "whole_bytes": whole,
+            "specs": specs, "rows": [rows, seq]}
 
 
 def _moe_layer_check(dev, cfg, groups, tokens, seed) -> dict:
@@ -1451,7 +1554,7 @@ def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, p
     for arch, flayers, method, fbatch in MESH_FAMILIES:
         t0 = time.perf_counter()
         free = torch.cuda.mem_get_info()[0] if dev.type == "cuda" else 0
-        fcfg = replace(get_cfg(arch), n_layers=flayers, compression=method)
+        fcfg = replace(_family_cfg(get_cfg, arch, flayers), compression=method)
         fspecs = param_specs(meta_params(fcfg), fcfg, mesh.model)
         fshape = ShapeConfig("train_4k", seq, fbatch * batch // BATCH, "train")
         rec = {}
@@ -1471,14 +1574,25 @@ def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, p
 
     # one full-width MoE layer of each partition against the unsharded layer
     res["moe_layer"] = {}
-    for arch, _, _, fbatch in MESH_FAMILIES:
+    for arch, flayers, _, fbatch in MESH_FAMILIES:
         fcfg = get_cfg(arch)
-        for seed in MOE_LAYER_SEEDS if fcfg.moe is not None else ():
+        for seed in MOE_LAYER_SEEDS if fcfg.moe is not None and flayers is not None else ():
             # the worker's tokens of the run above
             c = _moe_layer_check(dev, fcfg, groups,
                                  fbatch * batch // BATCH // mesh.n_workers * seq, seed)
             res["moe_layer"][f"{arch} seed {seed}"] = dict(c, partition=fcfg.moe.partition)
             _reset_peak(dev)
+
+    # one full-width Jamba mixer against the unsharded mixer, one worker's
+    # model group at a time (the other's ranks wait: two ranks' float64
+    # segment sums and f32 SSD products at a time)
+    for w in range(mesh.n_workers):
+        dist.barrier()
+        if groups.worker == w:
+            res["mamba_layer"] = _mamba_layer_check(dev, get_cfg(MAMBA_LAYER_ARCH), groups,
+                                                    MAMBA_LAYER_ROWS, seq, MAMBA_LAYER_SEED)
+            _reset_peak(dev)
+    dist.barrier()
 
     # every compressing operator on the reduced model over the mesh: 2 steps
     # through the kernels, then through the plain versions, bitwise
@@ -1539,19 +1653,23 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
     4. the replicated leaves (parameters, momentum, memories) bitwise equal
        across each worker's model ranks; step 0's round, replayed on the
        same shards with every kernel swapped for its plain version, bitwise;
-    5. the MoE and frontend families at full width (:data:`MESH_FAMILIES`: granite-moe
-       at 4 layers with ``diana``, the ``ffn`` partition; phi3.5-moe at 1
-       layer with ``natural``, the ``expert`` partition and bf16 memories;
-       internvl2-2b at 2 layers with ``diana``; musicgen-large at 2 layers
-       with ``none``), ``steps`` steps each, on ``batch`` x ``seq`` but
-       phi3.5-moe on half the batch:
+    5. the MoE, frontend and Mamba-2 families (:data:`MESH_FAMILIES`:
+       granite-moe at 4 layers with ``diana``, the ``ffn`` partition;
+       phi3.5-moe at 1 layer with ``natural``, the ``expert`` partition and
+       bf16 memories; internvl2-2b at 2 layers with ``diana``;
+       musicgen-large at 2 layers with ``none``; mamba2-130m at 8 layers
+       with ``diana``; all at full width; the Jamba hybrid reduced, its 8
+       layers with ``natural`` and bf16 memories), ``steps`` steps each, on
+       ``batch`` x ``seq`` but phi3.5-moe on half the batch:
        per rank the step times, the peak, the card's allocation left before
        the run and held by its state (beside the reckoning: the rank's
        parameters times their bytes, 4 for the f32 momentum and the two
        memories, which ``none`` holds too),
-       the round's time and collectives, the MoE's and the frontend's tagged
-       collectives, launches exact; the replicated leaves (the router, the
-       norm scales, ``frontend_proj/b``, and their momentum and memories)
+       the round's time and collectives, the MoE's, the frontend's and the
+       Mamba-2 mixers' tagged collectives (the last exact:
+       :func:`_mamba_gathers`), launches exact; the replicated leaves (the
+       router, the norm scales, ``frontend_proj/b``, the SSD scalars,
+       ``conv_b``, and their momentum and memories)
        bitwise across each worker's model ranks; step 0's round replayed
        through the plain versions bitwise;
     6. one full-width MoE layer of each partition on each model group (the
@@ -1559,7 +1677,11 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
        against the unsharded layer on the same card: the output and the
        input's, the router's and the experts' (gathered) gradients, bitwise
        where :data:`MOE_LAYER_BITWISE` says, the others within
-       :data:`MOE_LAYER_TOL` (2^-6) normwise;
+       :data:`MOE_LAYER_TOL` (2^-6) normwise; and one full-width Jamba
+       Mamba-2 mixer on each model group in turn (:func:`_mamba_layer_check`,
+       :data:`MAMBA_LAYER_ROWS` x ``seq`` rows) against the unsharded mixer:
+       the output and every gradient bitwise, three gathers of the whole
+       split leaves;
     7. every compressing operator on the reduced model over the same mesh, 2
        steps through the kernels bitwise through the plain versions,
        launches exact;
@@ -1654,7 +1776,9 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
                  "kernels differs from its plain version")
         get = get_cfg or get_config
         for arch, flayers, method, fbatch in MESH_FAMILIES:
-            fcfg = get(arch)
+            fcfg = _family_cfg(get, arch, flayers)
+            depth = ("reduced" if flayers is None else
+                     f"{flayers} of {get(arch).n_layers} layers, full width")
             # every operator's state holds h_worker and h_server (none's stay zero)
             mem = 2 * torch.empty((), dtype=fcfg.h_dtype).element_size()
             pbytes = torch.empty((), dtype=fcfg.param_dtype).element_size()
@@ -1663,7 +1787,7 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
                 rd = m["rounds"][-1]
                 tp = {k: v for k, v in m["outside"][-1].items() if v}
                 reckon = m["local_params"] * (pbytes + 4 + mem)
-                print(f"mesh: {arch} ({flayers} of {fcfg.n_layers} layers, full width, "
+                print(f"mesh: {arch} ({depth}, "
                       f"{method}, batch {fbatch * batch // BATCH} x seq {seq}) rank {r['rank']} "
                       f"(worker, shard) {tuple(r['coords'])}: losses "
                       f"{m['losses']}; step times {m['times']} s; peak {m['peak']} B; allocated "
@@ -1691,6 +1815,11 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
                 if fcfg.frontend != "none" and not all(t.get("frontend calls")
                                                        for t in m["tagged"]):
                     fail(f"mesh: {arch} rank {r['rank']}: no frontend collective in a step")
+                gathers = _mamba_gathers(fcfg)
+                if any({k: v for k, v in t.items() if k.startswith("mamba")} != gathers
+                       for t in m["tagged"]):
+                    fail(f"mesh: {arch} rank {r['rank']}: the Mamba-2 collectives per step "
+                         f"{m['tagged']}, expected {gathers}")
         for case in res[0]["moe_layer"]:
             for r in res:
                 c = r["moe_layer"][case]
@@ -1705,6 +1834,17 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
                         and all(v <= MOE_LAYER_TOL for v in c["rel"].values())):
                     fail(f"mesh: the {case} MoE layer on a model group differs from the "
                          f"unsharded layer: {c['rel']}, bitwise {c['same']}")
+        for r in res:
+            c = r["mamba_layer"]
+            want = {"mamba calls": 3, "mamba bytes": c["whole_bytes"]}
+            print(f"mesh: one full-width {MAMBA_LAYER_ARCH} Mamba-2 mixer ({c['rows'][0]} x "
+                  f"{c['rows'][1]} rows, shards {c['specs']}) on rank {r['rank']}'s model group "
+                  f"against the unsharded mixer on the card: normwise relative differences "
+                  f"{c['rel']}; bitwise {c['same']}; its tagged collectives {c['tagged']} "
+                  f"(expected {want})")
+            if not all(c["same"].values()) or c["tagged"] != want:
+                fail(f"mesh: the Jamba mixer on a model group differs from the unsharded mixer "
+                     f"or from its gathers: {c['rel']}, bitwise {c['same']}, {c['tagged']}")
         for method, per in MESH_LAUNCHES.items():
             rows = [r["reduced"][method] for r in res]
             wl = {k: v * rows[0]["leaves"] * 2 for k, v in per.items()}
@@ -1762,7 +1902,8 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
              res[0]["diana"]["launches"]}
     for arch, flayers, method, _ in MESH_FAMILIES:
         if res[0]["families"][arch]["launches"]:
-            paths[f"mesh {MESH} {arch} {method} ({flayers} layers, per rank, {steps} "
+            depth = "reduced" if flayers is None else f"{flayers} layers"
+            paths[f"mesh {MESH} {arch} {method} ({depth}, per rank, {steps} "
                   f"steps)"] = res[0]["families"][arch]["launches"]
     for method in MESH_LAUNCHES:
         paths[f"mesh {MESH} reduced {method} (per rank, 2 steps)"] = \

@@ -204,9 +204,10 @@ def resolved_layout(opt: DianaOptimizer, mesh: MeshSpec) -> str:
 def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
                      telemetry: bool = False) -> None:
     """Refuse, on a model mesh (M > 1), what this slice does not hold to the
-    JAX trainer on a (2, 2) mesh, naming its ROADMAP.md item: the Mamba-2
-    and hybrid families, an MoE split the JAX nested path does not take, a
-    tied embedding, heads or matrices the model axis does not divide,
+    JAX trainer on a (2, 2) mesh, naming its ROADMAP.md item: an MoE split
+    the JAX nested path does not take, a tied embedding, heads or matrices
+    (a Mamba-2 mixer's packed projections and conv taps among them) the
+    model axis does not divide,
     ``remat="dots"``, and VR, the downlink, a grouped policy, participation
     and faults, the chunked and two-level schedules and the controller.
     The leaves the JAX rules replicate by design (the router, the norm
@@ -215,8 +216,6 @@ def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
     if mesh.model == 1:
         return
     m, item = mesh.model, "ROADMAP.md queue 1 item 12"
-    if any(spec.mixer != "attn" for spec in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: Mamba-2 over the model axis ({item}(b))")
     if any(spec.mlp == "moe" for spec in cfg.pattern):
         mc = cfg.moe
         size = mc.n_experts if mc.partition == "expert" else mc.d_ff
@@ -228,7 +227,8 @@ def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
     if cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: a tied embedding over the model axis ({item}(g))")
     whole = undivided(meta_params(cfg), cfg, m)
-    if cfg.n_heads % m or cfg.n_kv_heads % m or whole:
+    heads = cfg.has_attention() and (cfg.n_heads % m or cfg.n_kv_heads % m)
+    if heads or whole:
         raise NotImplementedError(
             f"--mesh {mesh}: the model axis must divide the query and KV heads ({cfg.n_heads}, "
             f"{cfg.n_kv_heads}) and every matrix ({whole} stay whole) ({item}(g))")

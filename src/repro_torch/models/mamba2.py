@@ -26,6 +26,18 @@ inputs (held in the compute dtype, as the JAX package holds it), and the
 f32 state decays by ``exp(A * dt)`` and takes ``x * dt`` times ``B``; the
 output contracts the state with ``C``.  It has no prefix sum.
 "In f32" means at least f32 (:func:`~repro_torch.models.layers.wide`).
+
+Over a model group (:func:`~repro_torch.models.sharding.model_parallel`) a
+rank holds the JAX package's shards of the three split leaves: ``in_proj``
+and ``conv_w`` cut into contiguous equal column slices across the packed
+``[z, x, B, C, dt]`` / ``[x, B, C]`` channels (the slices ignore the
+components), ``out_proj`` cut by rows.  The layer gathers them whole
+(:func:`~repro_torch.models.sharding.gather_from_model`, tagged ``"mamba"``) and
+runs its body replicated: its input is the model group's replicated residual
+stream, so the output and every gradient are the unsharded layer's bits, and
+each split leaf's gradient is the rank's slice of a whole one.  The cost is
+every rank running the whole mixer (the JAX package's placement splits the
+SSD heads over the model axis instead).
 """
 
 from __future__ import annotations
@@ -37,9 +49,14 @@ import torch
 import torch.nn.functional as F
 
 from .layers import wide
+from .sharding import gather_from_model
 
 __all__ = ["mamba_layer", "ssd_chunked", "conv_full", "gated_rms_norm", "dims",
            "mamba_shapes", "MambaCache", "init_mamba_cache"]
+
+# the leaves the model axis splits, and the dimension (of one layer's leaf)
+# that the rules split them along
+SPLIT = {"in_proj": 1, "conv_w": 1, "out_proj": 0}
 
 
 class MambaCache(NamedTuple):
@@ -181,6 +198,7 @@ def mamba_layer(p, x: torch.Tensor, cfg, cache: Optional[MambaCache] = None) -> 
     sc, d_in, h, hp, n, g = dims(cfg)
     bsz, s, _ = x.shape
     cdt = cfg.compute_dtype
+    p = {**p, **{k: gather_from_model(p[k], d, tag="mamba") for k, d in SPLIT.items()}}
 
     proj = x @ p["in_proj"].to(cdt)                               # (B,S,dproj)
     z, xr, braw, craw, dt_raw = torch.split(proj, [d_in, d_in, g * n, g * n, h], dim=-1)

@@ -28,7 +28,7 @@ worker's whole tokens, and the experts are split one of two ways:
 * ``partition="expert"`` (E % M == 0): the rank holds experts ``[m E/M,
   (m+1) E/M)``, runs them on its slice of the dispatch buffer, and the
   per-expert outputs are all-gathered over the group
-  (:func:`~repro_torch.models.sharding.gather_experts`) before the combine,
+  (:func:`~repro_torch.models.sharding.gather_from_model`) before the combine,
   which runs replicated;
 * ``partition="ffn"`` (``d_ff`` % M == 0): the rank holds an F-slice of
   every expert, runs the whole buffer, combines its partial outputs into
@@ -56,7 +56,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import wide
-from .sharding import copy_to_model, current, gather_experts, reduce_from_model
+from .sharding import copy_to_model, current, gather_from_model, reduce_from_model
 
 __all__ = ["moe_layer", "route", "MOE_TOKEN_CHUNK"]
 
@@ -118,8 +118,9 @@ def _run_chunk(xc, router, w_in, w_gate, w_out, cfg):
     buf = buf[:e * cap].reshape(e, cap, d)
     if mp is not None and cfg.moe.partition == "expert":
         e_loc = w_in.shape[0]
-        y = gather_experts(_swiglu(buf[mp.index * e_loc:(mp.index + 1) * e_loc],
-                                   w_in, w_gate, w_out))
+        # (E/M, ...) per rank -> (E, ...) (repro/models/moe.py:208)
+        y = gather_from_model(_swiglu(buf[mp.index * e_loc:(mp.index + 1) * e_loc],
+                                      w_in, w_gate, w_out), 0, tag="moe")
     else:
         y = _swiglu(buf, w_in, w_gate, w_out)
     # combine: gather each token's k slots (dropped: the zero row), weight,

@@ -13,12 +13,12 @@ that runs no mesh): those paths stay bitwise what they were.
   gradient sums every shard's part);
 * :func:`reduce_from_model` — after a row-parallel product: all-reduce
   forward, identity backward;
-* :func:`gather_from_model` — all-gather of the last dimension forward (the
-  feature-sharded embedding, the frontend projection), the rank's slice of
-  the gradient backward;
-* :func:`gather_experts` — all-gather of the first dimension forward (the
-  expert-partitioned MoE's per-expert outputs), the rank's slice of the
-  gradient backward;
+* :func:`gather_from_model` — all-gather along a dimension forward, the
+  rank's slice of the gradient backward: the last dimension of the
+  feature-sharded embedding and the frontend projection, the first of the
+  expert-partitioned MoE's per-expert outputs, and the split dimension of
+  the Mamba-2 mixer's ``in_proj``, ``conv_w`` and ``out_proj`` (whole
+  leaves);
 * :func:`vocab_parallel_ce` — the cross-entropy of vocabulary-sharded
   logits: the max and the log-sum-exp all-reduced over the model group,
   the target logit taken from the shard that owns it.
@@ -29,7 +29,8 @@ leaf's gradient is identical across a worker's model ranks.
 
 Each function takes a ``tag`` that :mod:`repro_torch.core.transport` counts
 its collectives under besides their own names (the MoE layer's ``"moe"``,
-the frontend projection's ``"frontend"``), in the backward too.
+the frontend projection's ``"frontend"``, the Mamba-2 mixer's
+``"mamba"``), in the backward too.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import torch.distributed as dist
 from repro_torch.core import transport
 
 __all__ = ["ModelGroup", "model_parallel", "current", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "gather_experts", "vocab_parallel_ce"]
+           "gather_from_model", "vocab_parallel_ce"]
 
 
 class ModelGroup(NamedTuple):
@@ -130,16 +131,13 @@ def reduce_from_model(x: torch.Tensor, tag=None) -> torch.Tensor:
     return x if mp is None else _ReduceFromModel.apply(x, mp.group, tag)
 
 
-def gather_from_model(x: torch.Tensor, tag=None) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, dim: int = -1, tag=None) -> torch.Tensor:
+    """The model group's shards of ``x`` along ``dim``, concatenated in
+    group-rank order (``all_gather(x, "model", axis=dim, tiled=True)``).
+    The backward keeps the rank's slice and adds nothing up: the code after
+    the gather is replicated, its gradient whole on every rank."""
     mp = current()
-    return x if mp is None else _GatherFromModel.apply(x, mp, x.dim() - 1, tag)
-
-
-def gather_experts(y: torch.Tensor, tag="moe") -> torch.Tensor:
-    """``(E/M, ...)`` per rank -> ``(E, ...)``: ``all_gather(y, "model",
-    axis=0, tiled=True)`` (``repro/models/moe.py:208``)."""
-    mp = current()
-    return y if mp is None else _GatherFromModel.apply(y, mp, 0, tag)
+    return x if mp is None else _GatherFromModel.apply(x, mp, dim % x.dim(), tag)
 
 
 def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

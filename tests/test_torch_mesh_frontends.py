@@ -12,7 +12,8 @@ and ``gather_train_state`` -> ``shard_train_state`` bitwise.
 import pytest
 
 from test_torch_mesh_families import (check_diana_flip_bound, check_diana_rounds,
-                                      check_none_sgd, check_round_trip, run_families)
+                                      check_jax_shards, check_none_sgd, check_round_trip,
+                                      run_families)
 
 ARCHS = ("internvl2-2b", "musicgen-large")
 
@@ -20,6 +21,11 @@ ARCHS = ("internvl2-2b", "musicgen-large")
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     return run_families(tmp_path_factory.mktemp("mesh_frontends"), ARCHS)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_initial_shards_are_the_jax_shards(runs, arch):
+    check_jax_shards(runs, arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

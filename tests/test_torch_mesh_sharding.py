@@ -15,8 +15,10 @@ process (no ranks but a one-rank gloo group for the round's refusals):
 * ``resolve_bucketed``'s one structured warning and ``resolved_layout``;
 * the refusals (``NotImplementedError`` naming ROADMAP.md queue 1 item 12)
   of everything the slices do not hold to the JAX trainer on a model mesh,
-  and the MoE and frontend archs accepted (full and reduced);
-* the full-width MoE and frontend states through ``gather_train_state`` /
+  and the MoE, frontend, Mamba-2 and hybrid archs accepted (full and
+  reduced);
+* the full-width MoE, frontend, Mamba-2 and hybrid states through
+  ``gather_train_state`` /
   ``shard_train_state`` on ``meta`` (shapes and dtypes);
 * shards: ``shard_tree`` / ``params_shard_from_jax`` cut the JAX global arrays as ``NamedSharding``
   lays them out.
@@ -49,6 +51,7 @@ MODELS = (1, 2, 3, 4, 16, 32)
 DENSE = ("llama3.2-1b", "granite-8b", "nemotron-4-15b", "stablelm-3b")
 MOE_AND_FRONTENDS = ("granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b", "internvl2-2b",
                      "musicgen-large")
+MAMBA = ("mamba2-130m", "jamba-v0.1-52b")
 
 
 def _flat(tree, prefix=""):
@@ -202,16 +205,19 @@ def _opt(cfg, **kw):
     return train.make_optimizer(cfg, **kw)
 
 
-@pytest.mark.parametrize("case", ["expert-undivided", "mamba", "hybrid", "tied", "vr", "down",
-                                  "policy", "participation", "faults", "chunk", "hierarchical",
-                                  "controller", "dots", "heads"])
+@pytest.mark.parametrize("case", ["expert-undivided", "mamba-undivided", "hybrid-dots", "tied",
+                                  "vr", "down", "policy", "participation", "faults", "chunk",
+                                  "hierarchical", "controller", "dots", "heads"])
 def test_refusals_name_their_roadmap_item(case):
     cfg = reduced(get_config("llama3.2-1b"))
     mesh, faults, telemetry = parse_mesh("2x2"), None, False
-    archs = {"mamba": "mamba2-130m", "hybrid": "jamba-v0.1-52b"}
     opt = None
-    if case in archs:
-        cfg = reduced(get_config(archs[case]))
+    if case == "mamba-undivided":
+        # 3 does not divide out_proj's 512 rows: the JAX fallback
+        # replicates the leaf (12(g))
+        cfg, mesh = reduced(get_config("mamba2-130m")), parse_mesh("1x3")
+    elif case == "hybrid-dots":
+        cfg = replace(reduced(get_config("jamba-v0.1-52b")), remat="dots")
     elif case == "expert-undivided":
         moe = reduced(get_config("phi3.5-moe-42b-a6.6b"))
         cfg = replace(moe, moe=replace(moe.moe, n_experts=3))
@@ -265,13 +271,27 @@ def test_the_moe_and_frontend_archs_are_accepted(arch):
                                    parse_mesh("2x2"))
 
 
-@pytest.mark.parametrize("arch", MOE_AND_FRONTENDS)
+@pytest.mark.parametrize("arch", MAMBA)
+def test_the_mamba_and_hybrid_archs_are_accepted(arch):
+    """Full (model axes of 2 and 4) and reduced (2): every Mamba-2 leaf the
+    rules split divides (jamba's packed ``in_proj`` of 16,544 columns and
+    ``conv_w`` of 8,224 channels too); the SSD scalars, ``conv_b`` and
+    ``norm_scale`` stay whole by design."""
+    for size, meshes in ((get_config(arch), ("2x2", "2x1x2", "1x4")),
+                         (reduced(get_config(arch)), ("2x2", "2x1x2"))):
+        for mesh in meshes:
+            train.check_model_axis(size, _opt(size), parse_mesh(mesh))
+
+
+@pytest.mark.parametrize("arch", MOE_AND_FRONTENDS + MAMBA)
 def test_full_state_shards_and_gathers_on_meta(arch, monkeypatch):
     """The full-width tree on ``meta``: ``gather_train_state`` (its
     collectives shaped, not run) gives the JAX trainer's global shapes and
     dtypes (parameters whole, ``h_worker`` ``(N, d)``, ``h_server``
     ``(d,)``), and ``shard_train_state`` gives each rank's shard shapes back;
-    the 4-d stacked experts split on E (``expert``) or F (``ffn``)."""
+    the 4-d stacked experts split on E (``expert``) or F (``ffn``), the
+    Mamba-2 mixer's packed ``in_proj`` and ``conv_w`` on their columns and
+    ``out_proj`` on its rows."""
     from repro_torch.convert import gather_train_state, shard_train_state
     from repro_torch.core import transport
     from repro_torch.launch.mesh import MeshGroups
@@ -299,12 +319,18 @@ def test_full_state_shards_and_gathers_on_meta(arch, monkeypatch):
         for p, v in local.items():
             assert bp[p].shape == v.shape and bp[p].dtype == v.dtype, p
             assert bs.diana.h_worker[p].shape == state.diana.h_worker[p].shape, p
-        if cfg.moe is not None:
-            w_in = "blocks/layer0/mlp/w_in"
+        moe = next((i for i, sp in enumerate(cfg.pattern) if sp.mlp == "moe"), None)
+        if moe is not None:
+            w_in = f"blocks/layer{moe}/mlp/w_in"
             assert specs[w_in] == (1 if cfg.moe.partition == "expert" else 3)
-            assert specs["blocks/layer0/mlp/router"] is None
-        else:
+            assert specs[f"blocks/layer{moe}/mlp/router"] is None
+        if cfg.frontend != "none":
             assert specs["frontend_proj/w"] == 1 and specs["frontend_proj/b"] is None
+        if cfg.has_mamba():
+            mixer = "blocks/layer0/mixer/"
+            assert [specs[mixer + k] for k in ("in_proj", "conv_w", "out_proj")] == [2, 2, 1]
+            assert all(specs[mixer + k] is None
+                       for k in ("conv_b", "dt_bias", "A_log", "D", "norm_scale"))
 
 
 def test_in_turn_cli_refuses_a_model_axis(monkeypatch):
