@@ -184,7 +184,8 @@ Phases (each prints its lines; any failure exits non-zero):
    (relative to ``m2``) of a float64 recomputation of ``measure`` on the
    same served direction;
 16. the full depth: the distributed ``diana`` path on all 16 layers,
-   world of one, 3 steps: finite losses, step times and peak memory;
+   world of one, 2 steps (3 until serve-mesh): finite losses, step times
+   and peak memory;
 17. models: the other model families through the in-turn trainer at n = 4,
    batch 8 x 4096, 3 steps each: ``granite-moe-3b-a800m`` at full width
    (d_model 1536, 24/8 heads, 40 experts top-8 of d_ff 512, vocab 49155,
@@ -193,8 +194,9 @@ Phases (each prints its lines; any failure exits non-zero):
    router and the norm scales, top-k EF on ``embed`` / ``lm_head``,
    natural on the experts, ternary on attention: each group's encode and
    own decode 4 times and its server decode once per step, exact);
-   ``mamba2-130m`` at full depth and width (24 layers, 172,157,376
-   parameters, 16 SSD chunks of 256 per sequence), flat ``diana`` at its
+   ``mamba2-130m`` at full width cut to 8 of 24 layers (111,912,256
+   parameters, 16 SSD chunks of 256 per sequence; 24 layers until the
+   ``serve-mesh:`` phase needed the time), flat ``diana`` at its
    block of 1024 and then its ``--comp-policy default``; step times, peak,
    held bytes and launches printed; then every other registered arch,
    reduced (f32; the hybrid ``jamba`` pattern, the vision and audio
@@ -225,8 +227,9 @@ Phases (each prints its lines; any failure exits non-zero):
 17d. mesh (:func:`mesh_phase`): the model axis, ``--mesh 2x2`` as four
    processes sharing the card over gloo (which collectives gloo takes CUDA
    tensors for is probed; the others cross the host, named on the line),
-   llama3.2-1b at full width cut to 4 layers, 8 x 4096 global: 3 steps of
-   ``diana`` (downgraded per leaf, its warning printed) and of ``none``,
+   llama3.2-1b at full width cut to 4 layers, 8 x 4096 global: 2 steps
+   (:data:`MESH_STEPS`; 3 until serve-mesh) of ``diana`` (downgraded per
+   leaf, its warning printed) and of ``none``,
    per rank the step times, peak, the round's time and collectives and the
    tensor-parallel ones, launches exact per rank; replicated leaves
    bitwise across model ranks; step 0's round bitwise its plain version
@@ -250,7 +253,8 @@ Phases (each prints its lines; any failure exits non-zero):
    against caches of 32,768 positions through ``build_serve_step`` (ms per
    token against the byte bound of reading the whole cache and the
    weights, twice from the same state bitwise, the logits against the
-   forward over the same tokens), its prefill of one 32,768-token prompt
+   forward over the same tokens), its prefill of one 16,384-token prompt
+   (32,768 until serve-mesh)
    through ``build_prefill``, and ``long_500k`` through the CLI (the
    8192-slot ring buffer); ``mamba2-130m`` at full depth, decode_32k at
    its batch of 128 in process (the same checks) and through the CLI, then
@@ -258,7 +262,18 @@ Phases (each prints its lines; any failure exits non-zero):
    tokens at batch 8 (capacity 2 per expert: the decode drops choices);
    every other arch reduced (f32) decoding 16 tokens within 1e-5 of the
    same decode on the CPU and within 2e-4 of the forward, and reduced
-   llama through a ring buffer of 6.
+   llama through a ring buffer of 6;
+19. serve-mesh (:func:`serve_mesh_phase`): serving over ``--mesh 2x2`` as
+   four gloo processes sharing the card (no kernel launches), each path
+   first on one device in this process as the reference: llama3.2-1b at
+   full width and depth, decode_32k at batch 32 (16 rows and 4 KV heads a
+   rank), long_500k (the ring buffer split over the data ranks, wrapping
+   inside the run) and a 4 x 4096 prefill; mamba2-130m at batch 128 (no
+   Mamba-2 gather in a step; the held caches beside their reckoning);
+   granite-moe-3b-a800m at all 32 layers, batch 8, in f32 (the kept MoE
+   choices equal to the single-device decode's); per rank ms per token,
+   peak, the tagged collectives, the logits against the reference, the
+   same bits twice.
 
 Each timed step starts from a Python collection (outside its time); its
 line gives the time of the collections inside it and the caching
@@ -296,6 +311,11 @@ LANES_PER_SM_CLOCK = 128       # 4 warp-instructions dispatched per SM per clock
 LAYERS, BATCH, SEQ, WORKERS, STEPS = 8, 8, 4096, 4, 3
 PHASE_LAYERS = 4               # the trainer runs of per-leaf, policy, elastic and schedule
 GRANITE_LAYERS = 4             # models: granite-moe-3b-a800m's depth (of 32)
+MAMBA_LAYERS = 8               # models: mamba2-130m's depth (of 24; 24 until serve-mesh)
+# steps of the cuts made to pay for serve-mesh (3 before it): the full
+# depth's distributed diana run and each mesh: run
+FULL_DEPTH_STEPS = MESH_STEPS = 2
+SERVE_PREFILL = 16384          # serve: llama's and mamba2's prompt (32,768 before serve-mesh)
 COMP_K = 1 << 20               # rand-k / top-k: coordinates kept per leaf
 
 
@@ -388,7 +408,7 @@ def serve_phase(dev, card: str, get_cfg=None, sizes=None, cli_args=()) -> None:
     sizes = sizes or {"llama": (32, SHAPES["decode_32k"].seq_len),
                       "mamba": (SHAPES["decode_32k"].global_batch, SHAPES["decode_32k"].seq_len),
                       "granite": (8, SHAPES["decode_32k"].seq_len),
-                      "prefill": SHAPES["prefill_32k"].seq_len}
+                      "prefill": SERVE_PREFILL}
     t_phase = time.perf_counter()
     on_card = dev.type == "cuda"
 
@@ -1633,7 +1653,7 @@ def _mesh_rank(rank, tmp, world, dev_type, get_cfg, layers, batch, seq, steps, p
 
 
 def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, seq=SEQ,
-               steps=STEPS, world=4, prepare=None, tol=1e-2, mtol=2.0 ** -5) -> dict:
+               steps=MESH_STEPS, world=4, prepare=None, tol=1e-2, mtol=2.0 ** -5) -> dict:
     """The model axis on the card: ``--mesh 2x2`` (2 DIANA workers x 2
     model shards) as ``world`` = 4 processes sharing the one card, each one
     rank over gloo (NCCL runs one rank per GPU), llama3.2-1b at full width
@@ -1909,6 +1929,377 @@ def mesh_phase(dev, card: str, get_cfg=None, layers=MESH_LAYERS, batch=BATCH, se
         paths[f"mesh {MESH} reduced {method} (per rank, 2 steps)"] = \
             res[0]["reduced"][method]["launches"]
     return paths
+
+
+# ------------------------------------------------------------ serving over the mesh
+
+SERVE_MESH_TOKENS = 8     # serve-mesh: teacher-forced decode steps per path
+# serve-mesh: each rank's logits against the single-device decode of the same
+# weights, caches and tokens, in bf16 epsilons of the largest logit: the
+# tensor-parallel halves (attention's wo, the MLP's w_out, granite's experts'
+# d_ff) round to bf16 before their all-reduce, and the data ranks' softmax
+# parts add in another order; twice the serve: phase's decode-against-forward
+# bound for llama (SERVE_PARITY)
+SERVE_MESH_BOUND = 16
+# serve-mesh: granite-moe decodes in f32 (its config is bf16) and is held
+# within this fraction of the largest single-device logit.  In bf16 the
+# halves' rounding moves the router's inputs by a bf16 ulp, enough to flip a
+# near tie of its top-k (the CPU rehearsal's reduced bf16 granite flipped one
+# choice in 8 steps and landed 30 bf16 epsilons off), which would hide
+# whether the mesh keeps the global batch's choices; f32 moves them ~1e-7
+SERVE_MESH_F32_BOUND = 1e-4
+SERVE_MESH_WRAP = 3       # long_500k starts this many positions before the ring wraps
+
+
+def _serve_mesh_paths(get_cfg, sizes):
+    """``[(name, config, shape, filled)]``: the serve-mesh paths in order,
+    the llama ones sharing one config object (and so one set of weights);
+    ``filled`` marks the decode that starts from a filled ring buffer."""
+    from repro_torch.configs import ShapeConfig
+
+    lcfg = get_cfg("llama3.2-1b")
+    return [("llama3.2-1b decode_32k", lcfg, ShapeConfig("decode_32k", sizes["llama"][1],
+                                                         sizes["llama"][0], "decode"), False),
+            ("llama3.2-1b long_500k", lcfg, ShapeConfig("long_500k", sizes["long"], 1,
+                                                        "decode"), True),
+            ("llama3.2-1b prefill", lcfg, ShapeConfig("prefill", sizes["prefill"][1],
+                                                      sizes["prefill"][0], "prefill"), False),
+            ("mamba2-130m decode_32k", get_cfg("mamba2-130m"),
+             ShapeConfig("decode_32k", sizes["mamba"][1], sizes["mamba"][0], "decode"), False),
+            ("granite-moe-3b-a800m decode", replace(get_cfg("granite-moe-3b-a800m"),
+                                                    param_dtype=torch.float32,
+                                                    compute_dtype=torch.float32),
+             ShapeConfig("decode", sizes["granite"][1], sizes["granite"][0], "decode"), False)]
+
+
+def _ring_start(caches, dev, wrap):
+    """Fill long_500k's global ring buffers as if ``rows - wrap`` tokens had
+    been decoded: K normal, V uniform in [0.5, 1.5) from a generator on
+    ``dev`` (the same bits in every process), the rows from that position on
+    empty, ``pos`` at it."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for c in caches:
+        pos = c.k.shape[2] - wrap
+        c.k.copy_(torch.randn(c.k.shape, generator=gen, device=dev))
+        c.v.copy_(torch.rand(c.v.shape, generator=gen, device=dev) + 0.5)
+        c.k[:, :, pos:], c.v[:, :, pos:] = 0, 0
+        c.pos.fill_(pos)
+
+
+class _KeptChoices:
+    """Counts each ``moe.route`` call's kept choices while in use."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.kept = moe, moe.route, []
+
+    def __enter__(self):
+        def spy(*a, **kw):
+            out = self.route(*a, **kw)
+            self.kept.append(int(out[3].sum()))
+            return out
+
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def _serve_mesh_run(dev, cfg, shape, params, tokens, filled, mesh=None, lay=None):
+    """``tokens`` (B, steps) teacher-forced through ``build_serve_step``
+    (a prefill: one ``build_prefill`` call with ``tokens`` as the prompt)
+    on this process's part of ``mesh`` (None: one device), twice from the
+    same state.  Returns the first run's logits on the host and
+    ``{"ms": both runs' per-call CUDA-event ms, "same": the two runs' bits
+    equal (logits, caches, kept choices), "peak", "cache_bytes", "built":
+    the collectives of the build, "steps": each call's, "kept": the kept
+    MoE choices per call, "finite"}``."""
+    from repro_torch.core import transport
+    from repro_torch.launch.serve import (build_prefill, build_serve_step, init_serve_caches,
+                                          serve_cache_shardings)
+    from repro_torch.launch.sharding_rules import held_cache_specs, shard_caches
+
+    on_card = dev.type == "cuda"
+    rows = (tokens if lay is None else lay.rows(tokens)).to(dev)
+    _reset_peak(dev)
+    transport.STATS.clear()
+    build_fn = build_prefill if shape.kind == "prefill" else build_serve_step
+    fn = build_fn(cfg, shape, mesh, params=params)
+    built = {f"{k[0]} {k[1]}": v for k, v in transport.STATS.items()}
+    caches, first = None, None
+    if shape.kind == "decode":
+        caches = init_serve_caches(cfg, shape, mesh, device=dev)
+        if filled:
+            first = init_serve_caches(cfg, shape, None, device=dev)
+            _ring_start(first, dev, SERVE_MESH_WRAP)
+            if mesh is not None:
+                specs = held_cache_specs(serve_cache_shardings(cfg, mesh, shape)[0])
+                first = shard_caches(first, specs, mesh, lay.worker, lay.shard)
+    nmoe = sum(s.mlp == "moe" for s in cfg.pattern) * cfg.n_blocks
+    runs = []
+    for _ in range(2):
+        for i, t in enumerate(x for c in (caches or ()) for x in c):
+            if first is None:
+                t.zero_()
+            else:
+                t.copy_([x for c in first for x in c][i])
+        transport.STATS.clear()
+        calls = [rows] if shape.kind == "prefill" else list(rows.split(1, dim=1))
+        out, evs, steps = [], [], []
+        with _KeptChoices() as kept:
+            _sync(dev)
+            for toks in calls:
+                before = dict(transport.STATS)
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)) if on_card else None
+                if ev:
+                    ev[0].record()
+                if shape.kind == "prefill":
+                    out.append(fn(params, {"tokens": toks}))
+                else:
+                    lg, caches = fn(params, caches, toks)
+                    out.append(lg)
+                if ev:
+                    ev[1].record()
+                evs.append(ev)
+                steps.append({f"{k[0]} {k[1]}": v - before.get(k, 0)
+                              for k, v in transport.STATS.items() if v != before.get(k, 0)})
+            _sync(dev)
+        # each leaf's bits summed as int64, block by block (exact)
+        ints = {2: torch.int16, 4: torch.int32}
+        sums = [sum(int(x.view(ints[t.element_size()]).long().sum()) for x in t)
+                for c in (caches or ()) for t in c]
+        runs.append((torch.cat(out, 1).to("cpu", copy=True),
+                     [a.elapsed_time(b) for a, b in evs] if on_card else [], sums, steps,
+                     [sum(kept.kept[i:i + nmoe]) for i in range(0, len(kept.kept), nmoe)]
+                     if nmoe else []))
+    (logits, ms, sums, steps, kept), (logits2, ms2, sums2, _, kept2) = runs
+    res = {"ms": [ms, ms2], "same": bool(torch.equal(logits, logits2) and sums == sums2
+                                          and kept == kept2),
+           "peak": _peak(dev), "built": built, "steps": steps, "kept": kept,
+           "cache_bytes": sum(t.numel() * t.element_size() for c in (caches or ()) for t in c),
+           "finite": bool(torch.isfinite(logits).all())}
+    del caches, first, fn
+    return logits, res
+
+
+def _serve_mesh_rank(rank, tmp, world, dev_type, get_cfg, sizes, prepare):
+    """One rank of the ``serve-mesh:`` phase (see :func:`serve_mesh_phase`);
+    writes its readings to ``tmp/rank{rank}.json``."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.serve import serve_layout
+    from repro_torch.launch.sharding_rules import param_specs, shard_tree
+    from repro_torch.models.transformer import init_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    if prepare is not None:
+        prepare()
+    res = {"rank": rank, "probe": _mesh_probe(dev)}
+    if not all(res["probe"].values()):
+        raise RuntimeError(f"serve-mesh: gloo does not take CUDA tensors for {res['probe']}")
+    mesh = parse_mesh(MESH)
+    ref = torch.load(tmp / "ref.pt")
+    build.reset_launches()
+    pcfg, params = None, None
+    for name, cfg, shape, filled in _serve_mesh_paths(get_cfg or get_config, sizes):
+        if cfg is not pcfg:
+            params = None
+            _reset_peak(dev)
+            for turn in range(world):   # one rank at a time holds a whole model
+                dist.barrier()
+                if turn == rank:
+                    whole = init_model(cfg, dev, seed=0)
+                    params = shard_tree({p: x.detach() for p, x in whole.items()},
+                                        param_specs(whole, cfg, mesh.model), mesh.model,
+                                        rank % mesh.model)
+                    del whole
+                    _reset_peak(dev)
+            pcfg = cfg
+        lay = serve_layout(cfg, shape, mesh)
+        logits, r = _serve_mesh_run(dev, cfg, shape, params, ref[name]["tokens"], filled,
+                                    mesh, lay)
+        want = lay.rows(ref[name]["logits"])
+        r["err"] = float((logits - want).abs().max())
+        r["scale"] = float(want.abs().max())
+        r["bitwise"] = bool(torch.equal(logits, want))
+        r["split"] = lay.data.split if lay.data else None
+        r["local_params"] = sum(x.numel() for x in params.values())
+        r["coords"] = [lay.worker, lay.shard]
+        res[name] = r
+        del logits
+    res["launches"] = dict(build.LAUNCHES)
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def serve_mesh_phase(dev, card: str, get_cfg=None, sizes=None, world=4, prepare=None,
+                     steps=SERVE_MESH_TOKENS, bound=SERVE_MESH_BOUND) -> dict:
+    """Serving over ``--mesh 2x2`` (2 data x 2 model ranks) as ``world`` = 4
+    processes sharing the one card over gloo, as the ``mesh:`` phase runs
+    them (:func:`_mesh_probe`), held to the single-device decode of the same
+    weights (``init_model`` seed 0), caches and tokens, run first in this
+    process with its logits kept on the host (both together would not fit):
+
+    1. llama3.2-1b at full width and depth, decode_32k at batch 32 against
+       32,768 positions (a rank: 16 rows and 4 of the 8 KV heads, 8.59 GB of
+       the 34.36 GB cache), ``steps`` teacher-forced tokens; then long_500k
+       (batch 1: the 8192-slot ring buffer split 4096 slots per data rank,
+       started :data:`SERVE_MESH_WRAP` positions before it wraps, so that the
+       slot's owner changes inside the run); then one prefill of 4 x 4096
+       tokens (2 rows a data rank);
+    2. mamba2-130m at full depth, decode_32k at batch 128: no ``mamba``
+       gather in a step (three when the step is built), the held ``conv`` /
+       ``ssm`` bytes beside their reckoning (64 rows a rank, whole over the
+       model ranks);
+    3. granite-moe-3b-a800m, all 32 layers, decode at batch 8 (the ``ffn``
+       partition; capacity 2 per expert drops choices) in f32 against 8192
+       positions (:data:`SERVE_MESH_F32_BOUND`): the kept choices per step,
+       summed over the data ranks, equal to the single-device decode's.
+
+    Per rank and path: ms per token (CUDA events), the peak, the tagged
+    collectives' calls and bytes per step, the logits within ``bound`` bf16
+    epsilons of the single-device logits' largest, the same bits twice from
+    the same state, and no kernel launch.  ``get_cfg`` and ``sizes`` let a
+    CPU rehearsal pass reduced configs and small sizes.  Returns ``{}`` (no
+    kernel runs here)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models.mamba2 import dims
+    from repro_torch.models.transformer import init_model
+
+    t_phase = time.perf_counter()
+    get = get_cfg or get_config
+    sizes = sizes or {"llama": (32, 32768), "long": 524288, "prefill": (4, 4096),
+                      "mamba": (128, 32768), "granite": (8, 8192)}
+    paths = _serve_mesh_paths(get, sizes)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
+    try:
+        ref, pcfg, params = {}, None, None
+        for name, cfg, shape, filled in paths:
+            if cfg is not pcfg:
+                params = None
+                _reset_peak(dev)
+                params, pcfg = init_model(cfg, dev, seed=0), cfg
+            if shape.kind == "prefill":
+                tokens = torch.from_numpy(make_lm_batch(cfg, shape, 0)["tokens"]).long()
+            else:
+                tokens = torch.from_numpy(np.random.default_rng(29).integers(
+                    0, cfg.vocab, (shape.global_batch, steps)))
+            logits, r = _serve_mesh_run(dev, cfg, shape, params, tokens, filled)
+            ref[name] = {"tokens": tokens, "logits": logits, "run": r}
+            med = statistics.median(r["ms"][1]) if r["ms"][1] else float("nan")
+            print(f"serve-mesh: {name} on one device (the reference): {tuple(tokens.shape)} "
+                  f"tokens, ms per call (second run) median {med}, all {r['ms'][1]}; peak "
+                  f"{r['peak']} B; cache {r['cache_bytes']} B; twice the same bits "
+                  f"{r['same']}; kept MoE choices per step {r['kept']}; {card}")
+            if not (r["same"] and r["finite"]):
+                fail(f"serve-mesh: {name}: the single-device reference is not deterministic "
+                     f"or not finite")
+        del params
+        _reset_peak(dev)
+        torch.save(ref, Path(tmp, "ref.pt"))
+        if dev.type == "cuda":
+            free, total = torch.cuda.mem_get_info()
+            print(f"serve-mesh: the parent holds {torch.cuda.memory_allocated()} B allocated at "
+                  f"the spawn; the card has {free} B free of {total}")
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _serve_mesh_rank, args=(tmp, world, dev.type, get_cfg, sizes, prepare),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + 600
+        try:
+            while not ctx.join(timeout=2):
+                if time.monotonic() > deadline:
+                    fail("serve-mesh: the ranks did not finish in 600 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        res = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(world)]
+        print(f"serve-mesh: --mesh {MESH} = 2 data x 2 model ranks, {world} processes on one "
+              f"{dev.type} device over gloo (CUDA tensors for {res[0]['probe']}); the ranks "
+              f"ran {time.perf_counter() - t0:.1f} s (spawn included)")
+        for name, cfg, shape, _ in paths:
+            scale = max(r[name]["scale"] for r in res)
+            f32 = cfg.compute_dtype == torch.float32
+            unit, bnd, what = ((scale, SERVE_MESH_F32_BOUND, "of the largest")
+                               if f32 else (BF16_EPS * scale, bound, "bf16 epsilons of the largest"))
+            for r in res:
+                m = r[name]
+                med = statistics.median(m["ms"][1]) if m["ms"][1] else float("nan")
+                per = m["steps"][-1] if m["steps"] else {}
+                print(f"serve-mesh: {name} rank {r['rank']} (data, model) {tuple(m['coords'])}"
+                      f", split {m['split']}: ms per call (second run) median {med}, all "
+                      f"{m['ms'][1]}, first run {m['ms'][0]}; peak {m['peak']} B; cache "
+                      f"{m['cache_bytes']} B; {m['local_params']} parameters; collectives of "
+                      f"the last call {per}, of the build {m['built']}; max |logits - one "
+                      f"device| {m['err']} ({m['err'] / unit} {what}, bound {bnd}; bitwise "
+                      f"{m['bitwise']}); twice the same bits "
+                      f"{m['same']}; kept MoE choices per step {m['kept']}; {card}")
+                if not (m["finite"] and m["same"] and m["err"] <= bnd * unit):
+                    fail(f"serve-mesh: {name} rank {r['rank']}: non-finite, not deterministic "
+                         f"or {m['err'] / unit} {what} off the single-device logits")
+                if any("mamba calls" in s for s in m["steps"]):
+                    fail(f"serve-mesh: {name} rank {r['rank']}: a Mamba-2 gather in a step")
+            want = ref[name]["run"]["kept"]
+            for s in range(2):
+                got = [sum(k) for k in zip(*(r[name]["kept"] for r in res
+                                             if r[name]["coords"][1] == s))]
+                if cfg.moe is not None and got != want:
+                    fail(f"serve-mesh: {name}: kept MoE choices {got} on model shard {s}, the "
+                         f"single-device decode kept {want}")
+        mcfg = next(c for n, c, _, _ in paths if n.startswith("mamba2"))
+        sc, d_in, h, hp, n, g = dims(mcfg)
+        rows = sizes["mamba"][0] // 2
+        esize = torch.empty((), dtype=mcfg.compute_dtype).element_size()
+        reckon = mcfg.n_layers * (rows * ((sc.conv_width - 1) * (d_in + 2 * g * n) * esize
+                                          + h * hp * n * 4) + 4)
+        mname = next(n for n, *_ in paths if n.startswith("mamba2"))
+        layers = sum(s.mixer == "mamba" for s in mcfg.pattern)
+        for r in res:
+            m = r[mname]
+            print(f"serve-mesh: {mname} rank {r['rank']}: held caches {m['cache_bytes']} B, "
+                  f"reckoned {reckon} B ({rows} rows x {mcfg.n_layers} layers of the conv "
+                  f"history and the f32 state, whole over the model ranks); Mamba-2 gathers "
+                  f"at the build {m['built'].get('mamba calls', 0)} (expected {3 * layers}), "
+                  f"in the steps none")
+            if m["cache_bytes"] != reckon or m["built"].get("mamba calls", 0) != 3 * layers:
+                fail(f"serve-mesh: {mname} rank {r['rank']}: held {m['cache_bytes']} B "
+                     f"(reckoned {reckon}), build gathers {m['built']}")
+        for r in res:
+            if r["launches"]:
+                fail(f"serve-mesh: rank {r['rank']} launched kernels {r['launches']}")
+        print(f"serve-mesh: kernel launches per rank {[r['launches'] for r in res]} (none)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve-mesh: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {}
 
 
 def main() -> None:
@@ -3885,8 +4276,8 @@ def main() -> None:
     # The model's full depth: 16 layers, the distributed diana path.
     fcfg = get_config("llama3.2-1b")
     f_loss, f_params, f_diana, counts, wire = dist_run(
-        fcfg, STEPS, "distributed full depth", build_distributed_step)
-    want = {k: v * STEPS for k, v in per_step["diana"].items()}
+        fcfg, FULL_DEPTH_STEPS, "distributed full depth", build_distributed_step)
+    want = {k: v * FULL_DEPTH_STEPS for k, v in per_step["diana"].items()}
     if counts != want:
         fail(f"distributed full depth: launches {counts}, expected {want}")
     print(f"distributed full depth: {f_diana.h_worker.shape[1]} coordinates; "
@@ -3901,7 +4292,7 @@ def main() -> None:
 
     # ------------------------------------------------------------ the model families
     # (a) granite-moe-3b-a800m at full width (4 of 32 layers) with its curated
-    # policy and adamw; (b) mamba2-130m at full depth, flat diana and its
+    # policy and adamw; (b) mamba2-130m cut to MAMBA_LAYERS, flat diana and its
     # policy; (c) every other registered arch, reduced, through the kernels
     # bitwise the same steps through the plain versions.
     models_t0 = time.perf_counter()
@@ -3995,10 +4386,10 @@ def main() -> None:
     also(f"granite-moe {GRANITE_LAYERS} layers --comp-policy default --inner adamw "
          f"(4 workers, {STEPS} steps)", counts)
 
-    mcfg = get_config("mamba2-130m")
+    mcfg = replace(get_config("mamba2-130m"), n_layers=MAMBA_LAYERS)
     n, counts = models_run(mcfg, STEPS, f"mamba2-130m ({mcfg.citation}) diana block "
                            f"{mcfg.comp_block}")
-    if n != 172_157_376 or counts != per_step_want(("ternary",), STEPS):
+    if n != 111_912_256 or counts != per_step_want(("ternary",), STEPS):
         fail(f"models: mamba2: {n} parameters, launches {counts}")
     also(f"mamba2-130m {mcfg.n_layers} layers diana (4 workers, {STEPS} steps)", counts)
     _, counts = models_run(mcfg, STEPS, f"mamba2-130m --comp-policy default = "
@@ -4073,6 +4464,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     serve_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_mesh_phase(dev, card)
 
     for r in rows:
         r["launches"], r["path"] = credit.get(r["name"], (0, None))

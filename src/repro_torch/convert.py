@@ -20,7 +20,10 @@ between the ranks' shards and the global arrays of the JAX trainer's state
 on the same mesh (parameters and the inner optimizer's buffers whole; a
 per-leaf memory ``h_worker`` ``(N, d)`` and ``h_server`` ``(d,)`` whose
 model-split leaves lay the shards' flattened memories end to end, shard 0
-first, as ``h_flat_specs``' ``P("model")`` lays them out).
+first, as ``h_flat_specs``' ``P("model")`` lays them out).  Served over a
+mesh, ``caches_shard_from_jax`` takes a rank's shard of each JAX cache leaf
+(the placement a rank of the port holds, ``held_cache_specs``) and
+``caches_to_global`` gathers the ranks' caches back into the global arrays.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ import torch.nn as nn
 from repro_torch.core import transport
 from repro_torch.core.diana import DianaState, ReferenceState
 from repro_torch.core.tree import flatten_nested
-from repro_torch.launch.sharding_rules import gather_leaf, h_flat_specs, param_specs, shard_leaf
+from repro_torch.launch.sharding_rules import (cache_specs, gather_caches, gather_leaf,
+                                               h_flat_specs, held_cache_specs, param_specs,
+                                               shard_caches, shard_leaf)
 from repro_torch.core.vr import VRState
 from repro_torch.models.layers import AttnCache
 from repro_torch.models.mamba2 import MambaCache
@@ -43,7 +48,7 @@ from repro_torch.optim.optimizers import AdamState
 
 __all__ = ["params_from_jax", "state_from_jax", "adam_state_from_jax", "caches_from_jax",
            "tensor_from_numpy", "params_shard_from_jax", "gather_train_state",
-           "shard_train_state"]
+           "shard_train_state", "caches_shard_from_jax", "caches_to_global"]
 
 
 def tensor_from_numpy(a, device, dtype=None) -> torch.Tensor:
@@ -172,3 +177,23 @@ def caches_from_jax(np_caches, device) -> tuple:
         kind = AttnCache if hasattr(c, "k") else MambaCache
         out.append(kind(*(_cache_leaf(getattr(c, f), device) for f in kind._fields)))
     return tuple(out)
+
+
+def caches_shard_from_jax(np_caches, cfg, mesh, rank: int, device="cpu") -> tuple:
+    """Rank ``rank``'s shard of the JAX caches (global numpy leaves, as
+    :func:`caches_from_jax` reads them) on ``mesh``, as the port holds it
+    (:func:`~repro_torch.launch.sharding_rules.held_cache_specs`: the JAX
+    ``cache_specs`` with the Mamba-2 caches whole over ``model``)."""
+    whole = caches_from_jax(np_caches, device)
+    specs = cache_specs(whole, cfg, mesh, batch=whole[0][0].shape[1])   # leaves (nb, B, ...)
+    return shard_caches(whole, held_cache_specs(specs), mesh, *mesh.coords(rank))
+
+
+def caches_to_global(caches, cfg, mesh, groups, shape) -> tuple:
+    """The ranks' caches for ``shape`` (a decode ShapeConfig) gathered into
+    the global arrays on every rank (collective over ``groups``, a
+    :class:`~repro_torch.launch.mesh.MeshGroups`)."""
+    from repro_torch.launch.serve import serve_cache_shardings
+
+    return gather_caches(caches, held_cache_specs(serve_cache_shardings(cfg, mesh, shape)[0]),
+                         groups)

@@ -1,6 +1,6 @@
 """Which dimension of each leaf the model axis splits: the counterpart of
-``repro.launch.sharding_rules`` (``param_specs``, ``batch_specs``) and of
-``repro.launch.train.h_flat_specs``.
+``repro.launch.sharding_rules`` (``param_specs``, ``batch_specs``,
+``cache_specs``) and of ``repro.launch.train.h_flat_specs``.
 
 The JAX package writes a ``PartitionSpec`` per leaf; the port holds one
 worker axis and no FSDP, so a spec here is the index of the dimension split
@@ -14,18 +14,27 @@ does not divide stays whole.  The JAX meshes always carry a ``model`` axis
 A rank holds shard ``m`` of a split leaf: the ``m``-th of ``model``
 contiguous, equal slices along that dimension (``torch.chunk``), as a
 ``NamedSharding`` lays a global array out over the model axis.
+
+The serving caches split over the data axes as well (:func:`cache_specs`):
+a cache leaf's spec is a :class:`CacheSpec`, the dimension over ``model``
+and the one over the flattened ``pod`` / ``data`` axes, and a rank holds
+the slice of its worker index (pod-major, as ``P(("pod", "data"))`` lays it
+out) along the second and of its model index along the first.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import transport
+from repro_torch.models.sharding import ModelGroup
 
 __all__ = ["param_specs", "undivided", "batch_specs", "h_flat_specs", "shard_leaf",
-           "shard_tree", "gather_leaf", "gather_tree"]
+           "shard_tree", "gather_leaf", "gather_tree", "CacheSpec", "cache_specs",
+           "held_cache_specs", "local_shape", "shard_caches", "gather_caches"]
 
 
 def _shape(leaf) -> tuple:
@@ -138,3 +147,98 @@ def gather_tree(tree: Mapping[str, torch.Tensor], specs: Mapping[str, Optional[i
     """Every leaf of ``tree`` gathered whole (the global arrays of the JAX
     package's ``NamedSharding`` over the model axis)."""
     return {p: gather_leaf(x, specs[p], mp) for p, x in tree.items()}
+
+
+class CacheSpec(NamedTuple):
+    """A cache leaf's placement: the dimension split over ``model`` and the
+    one split over the data axes (``pod`` and ``data`` flattened), each None
+    when the leaf stays whole along that axis."""
+
+    model: Optional[int]
+    data: Optional[int]
+
+
+def _data_size(mesh) -> Optional[int]:
+    """The flattened ``pod`` x ``data`` axes, or None when the mesh has
+    neither."""
+    if "pod" not in mesh.axes and "data" not in mesh.axes:
+        return None
+    return mesh.size("pod") * mesh.size("data")
+
+
+def cache_specs(caches, cfg, mesh, *, batch: int) -> tuple:
+    """The decode caches' placement (``repro/launch/sharding_rules.py:126``),
+    rule for rule: ``caches`` the port's tuple of ``AttnCache`` /
+    ``MambaCache`` (tensors, ``meta`` tensors or shapes, stacked over the
+    blocks), the result the same tuple with a :class:`CacheSpec` per leaf.
+
+    * ``k`` / ``v`` (nb, B, S, Hkv, Dh): the KV heads over ``model`` when it
+      divides them, else ``Dh`` when it divides that; the batch over the
+      data axes when they divide it, else the cache's sequence (long_500k's
+      batch of 1: sequence parallelism), else neither;
+    * ``conv`` (nb, B, W-1, CH) and ``ssm`` (nb, B, H, P, N): the batch over
+      the data axes when they divide it, the channels / the SSD heads over
+      ``model`` when it divides them;
+    * ``pos``: replicated."""
+    nd, m = _data_size(mesh), mesh.model
+    rows = nd is not None and batch % nd == 0
+
+    def fits(size, n):
+        return n is not None and size % n == 0
+
+    def spec_for(field, shape):
+        if field in ("k", "v"):
+            model = 3 if fits(shape[3], m) else (4 if fits(shape[4], m) else None)
+            return CacheSpec(model, 1 if rows else (2 if fits(shape[2], nd) else None))
+        if field == "conv":
+            return CacheSpec(3 if fits(shape[3], m) else None, 1 if rows else None)
+        if field == "ssm":
+            return CacheSpec(2 if fits(shape[2], m) else None, 1 if rows else None)
+        return CacheSpec(None, None)
+
+    return tuple(type(c)(*(spec_for(f, _shape(t)) for f, t in zip(c._fields, c)))
+                 for c in caches)
+
+
+def held_cache_specs(specs: tuple) -> tuple:
+    """What a rank of the port holds: :func:`cache_specs` with the Mamba-2
+    caches (``conv``, ``ssm``) whole over ``model``.  The port's mixer runs
+    replicated on a model group (``repro_torch.models.mamba2``), so its
+    state is whole on every model rank; the JAX placement splits the
+    channels and SSD heads, which a head-parallel mixer would match."""
+    return tuple(type(c)(*(s._replace(model=None) if f in ("conv", "ssm") else s
+                           for f, s in zip(c._fields, c))) for c in specs)
+
+
+def local_shape(shape, spec: CacheSpec, mesh) -> tuple:
+    """A leaf's shape on one rank."""
+    out = list(_shape(shape))
+    if spec.model is not None:
+        out[spec.model] //= mesh.model
+    if spec.data is not None:
+        out[spec.data] //= _data_size(mesh)
+    return tuple(out)
+
+
+def shard_caches(caches: tuple, specs: tuple, mesh, worker: int, shard: int) -> tuple:
+    """Worker ``worker``'s shard ``shard`` of every cache leaf (each a copy
+    with storage of its own, as :func:`shard_leaf` cuts it)."""
+    nd = _data_size(mesh)
+
+    def cut(x, s):
+        return shard_leaf(shard_leaf(x, s.data, nd, worker), s.model, mesh.model, shard)
+
+    return tuple(type(c)(*(cut(t, s) for t, s in zip(c, cs))) for c, cs in zip(caches, specs))
+
+
+def gather_caches(caches: tuple, specs: tuple, groups) -> tuple:
+    """Every cache leaf whole on every rank (the global arrays of the JAX
+    caches' ``NamedSharding``): gathered over the model group, then over
+    the data group (``groups`` a :class:`~repro_torch.launch.mesh.MeshGroups`;
+    collective over both)."""
+    data = ModelGroup(groups.data, dist.get_world_size(groups.data), groups.worker)
+
+    def whole(x, s):
+        return gather_leaf(gather_leaf(x.contiguous(), s.model, groups.model), s.data, data)
+
+    return tuple(type(c)(*(whole(t, s) for t, s in zip(c, cs))) for c, cs in zip(caches, specs))

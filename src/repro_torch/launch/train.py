@@ -156,8 +156,8 @@ from repro_torch.optim.optimizers import adamw, constant_schedule, momentum, sgd
 
 __all__ = ["resolve_device", "resolve_policy_arg", "make_optimizer", "init_train_state",
            "build_train_step", "build_distributed_step", "init_distributed", "parse_mesh",
-           "resolve_bucketed", "resolved_layout", "check_model_axis", "controller_tick",
-           "main"]
+           "resolve_bucketed", "resolved_layout", "check_model_split", "check_model_axis",
+           "controller_tick", "main"]
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:
@@ -201,18 +201,14 @@ def resolved_layout(opt: DianaOptimizer, mesh: MeshSpec) -> str:
     return "bucketed" if resolved.policy.any_bucketed() else "per-leaf (downgraded)"
 
 
-def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
-                     telemetry: bool = False) -> None:
-    """Refuse, on a model mesh (M > 1), what this slice does not hold to the
-    JAX trainer on a (2, 2) mesh, naming its ROADMAP.md item: an MoE split
-    the JAX nested path does not take, a tied embedding, heads or matrices
-    (a Mamba-2 mixer's packed projections and conv taps among them) the
-    model axis does not divide,
-    ``remat="dots"``, and VR, the downlink, a grouped policy, participation
-    and faults, the chunked and two-level schedules and the controller.
-    The leaves the JAX rules replicate by design (the router, the norm
-    scales, the biases) stay whole on every rank
-    (:func:`~repro_torch.launch.sharding_rules.undivided` leaves them out)."""
+def check_model_split(cfg, mesh: MeshSpec) -> None:
+    """Refuse a model that a model axis (M > 1) does not divide as the JAX
+    nested paths divide it, naming ROADMAP.md queue 1 item 12(g): an MoE
+    split the JAX nested path does not take, a tied embedding, heads or
+    matrices (a Mamba-2 mixer's packed projections and conv taps among
+    them) the model axis does not divide.  The trainer
+    (:func:`check_model_axis`) and serving
+    (``repro_torch.launch.serve.check_serve_mesh``) share it."""
     if mesh.model == 1:
         return
     m, item = mesh.model, "ROADMAP.md queue 1 item 12"
@@ -232,6 +228,24 @@ def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
         raise NotImplementedError(
             f"--mesh {mesh}: the model axis must divide the query and KV heads ({cfg.n_heads}, "
             f"{cfg.n_kv_heads}) and every matrix ({whole} stay whole) ({item}(g))")
+
+
+def check_model_axis(cfg, opt: DianaOptimizer, mesh: MeshSpec, faults=None,
+                     telemetry: bool = False) -> None:
+    """Refuse, on a model mesh (M > 1), what this slice does not hold to the
+    JAX trainer on a (2, 2) mesh, naming its ROADMAP.md item: an MoE split
+    the JAX nested path does not take, a tied embedding, heads or matrices
+    (a Mamba-2 mixer's packed projections and conv taps among them) the
+    model axis does not divide,
+    ``remat="dots"``, and VR, the downlink, a grouped policy, participation
+    and faults, the chunked and two-level schedules and the controller.
+    The leaves the JAX rules replicate by design (the router, the norm
+    scales, the biases) stay whole on every rank
+    (:func:`~repro_torch.launch.sharding_rules.undivided` leaves them out)."""
+    if mesh.model == 1:
+        return
+    item = "ROADMAP.md queue 1 item 12"
+    check_model_split(cfg, mesh)
     if cfg.remat == "dots":
         raise NotImplementedError(f"remat='dots' over the model axis ({item}(g))")
     pol = opt.policy

@@ -23,7 +23,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .sharding import copy_to_model, reduce_from_model
+import torch.distributed as dist
+
+from repro_torch.core import transport
+
+from .sharding import copy_to_model, current_data, reduce_from_model
 
 __all__ = ["wide", "rms_norm", "rope_freqs", "apply_rope", "sdpa", "causal_mask", "attention",
            "mlp", "AttnCache", "init_attn_cache", "DECODE_KV_CHUNK"]
@@ -141,7 +145,12 @@ def _decode_attention(q, k_cache, v_cache, valid, compute_dtype):
     product while the denominator sums it unrounded; the chunks combine
     through ``exp(m_c - max m)`` and the output is ``num / max(den,
     1e-30)``.  Only one chunk of K and V is widened at a time: widening the
-    whole cache would hold it twice over in f32."""
+    whole cache would hold it twice over in f32.
+
+    With the cache's rows split over the serving data group (``split =
+    "seq"``), the chunks' largest score is all-reduced (MAX) before the
+    rescale and the rescaled numerators and denominators summed across the
+    ranks (one all-reduce of both), each tagged ``"seq"``."""
     b, _, h, dh = q.shape
     s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = h // hkv
@@ -161,11 +170,25 @@ def _decode_attention(q, k_cache, v_cache, valid, compute_dtype):
         dens.append(torch.sum(e, dim=-1))
         ms.append(m[..., 0])
     ms = torch.stack(ms)                                          # (nk,B,g,r)
-    scale = torch.exp(ms - torch.amax(ms, dim=0, keepdim=True))
+    top = torch.amax(ms, dim=0, keepdim=True)
+    dg = _seq_group()
+    if dg is not None:
+        transport.all_reduce(top, op=dist.ReduceOp.MAX, group=dg.group, tag="seq")
+    scale = torch.exp(ms - top)
     num = torch.sum(torch.stack(nums) * scale[..., None], dim=0)
     den = torch.sum(torch.stack(dens) * scale, dim=0)
+    if dg is not None:
+        both = torch.cat([num, den[..., None]], dim=-1)
+        transport.all_reduce(both, group=dg.group, tag="seq")
+        num, den = both[..., :-1], both[..., -1]
     out = num / torch.clamp(den[..., None], min=1e-30)
     return out.reshape(b, 1, h, dh).to(compute_dtype)
+
+
+def _seq_group():
+    """The serving data group when it splits the caches' rows, else None."""
+    dg = current_data()
+    return dg if dg is not None and dg.split == "seq" else None
 
 
 def _decode_update(cache: AttnCache, k, v, window):
@@ -175,13 +198,28 @@ def _decode_update(cache: AttnCache, k, v, window):
     Without a window the slot is ``pos``; with one it is ``pos % w`` and the
     cache is a ring buffer: row ``j`` holds position ``pos - ((slot - j) mod
     w)`` (floor modulo), valid once that is >= 0.  ``pos`` stays on the
-    device, so no step waits for the host."""
+    device, so no step waits for the host.
+
+    With the rows split over the serving data group, this rank holds global
+    rows ``[r n, (r+1) n)`` of its ``n``: the owner of the slot writes the
+    new K / V, every other rank writes its row back unchanged, and ``j`` is
+    the global row."""
     w = int(window or 0)
     slot = torch.remainder(cache.pos, w) if w else cache.pos
-    idx = slot.reshape(1).long()
+    n = cache.k.shape[1]
+    dg = _seq_group()
+    first = 0 if dg is None else dg.index * n
+    if dg is None:
+        idx = slot.reshape(1).long()
+    else:
+        local = slot - first
+        own = (local >= 0) & (local < n)
+        idx = torch.clamp(local, 0, n - 1).reshape(1).long()
+        k = torch.where(own, k.to(cache.k.dtype), cache.k.index_select(1, idx))
+        v = torch.where(own, v.to(cache.v.dtype), cache.v.index_select(1, idx))
     cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
     cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
-    rows = torch.arange(cache.k.shape[1], device=cache.k.device)
+    rows = first + torch.arange(n, device=cache.k.device)
     if w:
         return cache.pos - torch.remainder(slot - rows, w) >= 0
     return rows <= cache.pos
@@ -196,7 +234,8 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, window=None,
     Otherwise ``x`` is one new token per sequence (S = 1): its K and V go
     into the cache in place (the ring buffer with a window) and it attends
     to every valid row of the cache (the decode path); the caller advances
-    ``cache.pos``."""
+    ``cache.pos``.  Under a model group both paths all-reduce the output
+    after the row-parallel ``wo``."""
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
     # the heads this rank holds (all of them without a model group)
@@ -213,7 +252,7 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor, window=None,
             raise ValueError(f"the decode path takes one new token per sequence, not {s}")
         valid = _decode_update(cache, k, v, window)
         out = _decode_attention(q, cache.k, cache.v, valid, cdt)
-        return out.reshape(b, s, h * dh) @ p["wo"].to(cdt)
+        return reduce_from_model(out.reshape(b, s, h * dh) @ p["wo"].to(cdt))
     cq = max(int(cfg.attn_q_chunk or 0), 0)
     if cq and s > cq and s % cq == 0:
         out = _sdpa_qchunked(q, k, v, cdt, cq, window)

@@ -38,6 +38,14 @@ stream, so the output and every gradient are the unsharded layer's bits, and
 each split leaf's gradient is the rank's slice of a whole one.  The cost is
 every rank running the whole mixer (the JAX package's placement splits the
 SSD heads over the model axis instead).
+
+A leaf handed over whole is not gathered: serving over a mesh
+(``repro_torch.launch.serve``) gathers the three once, when its step is
+built, so that a decode step makes no ``mamba`` collective.  The decode's
+``conv`` / ``ssm`` caches are then whole on every model rank too (split
+over the data ranks by batch, as ``cache_specs`` says); the JAX placement
+splits their channels and heads over ``model``, which a head-parallel
+mixer would match (ROADMAP.md queue 2 item 14).
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from .layers import wide
 from .sharding import gather_from_model
 
 __all__ = ["mamba_layer", "ssd_chunked", "conv_full", "gated_rms_norm", "dims",
-           "mamba_shapes", "MambaCache", "init_mamba_cache"]
+           "mamba_shapes", "MambaCache", "init_mamba_cache", "SPLIT"]
 
 # the leaves the model axis splits, and the dimension (of one layer's leaf)
 # that the rules split them along
@@ -190,6 +198,15 @@ def _conv_step(conv_w, conv_b, cache: MambaCache, u: torch.Tensor, cdt) -> torch
     return F.silu(out + wide(conv_b))[:, None].to(cdt)
 
 
+def _gather_split(p, cfg):
+    """``p`` (one mixer's leaves) with ``in_proj``, ``conv_w`` and
+    ``out_proj`` whole: a shard gathered over the model group (tagged
+    ``"mamba"``), a whole leaf as it is."""
+    whole = mamba_shapes(cfg)
+    return {**p, **{k: gather_from_model(p[k], d, tag="mamba") for k, d in SPLIT.items()
+                    if p[k].shape[d] != whole[k][0][d]}}
+
+
 def mamba_layer(p, x: torch.Tensor, cfg, cache: Optional[MambaCache] = None) -> torch.Tensor:
     """x (B, S, D) -> out (B, S, D).  ``cache=None``: the chunked SSD over
     the sequence (train and prefill); otherwise one token per sequence
@@ -198,7 +215,7 @@ def mamba_layer(p, x: torch.Tensor, cfg, cache: Optional[MambaCache] = None) -> 
     sc, d_in, h, hp, n, g = dims(cfg)
     bsz, s, _ = x.shape
     cdt = cfg.compute_dtype
-    p = {**p, **{k: gather_from_model(p[k], d, tag="mamba") for k, d in SPLIT.items()}}
+    p = _gather_split(p, cfg)
 
     proj = x @ p["in_proj"].to(cdt)                               # (B,S,dproj)
     z, xr, braw, craw, dt_raw = torch.split(proj, [d_in, d_in, g * n, g * n, h], dim=-1)

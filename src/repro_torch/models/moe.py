@@ -45,6 +45,21 @@ partial ``y``).  The aux loss's branch is whole in both.  The other splits
 (the JAX package's pure GSPMD fallback, ``:175-193``) have no port: the
 trainer refuses them (``check_model_axis``), and the layer asserts that its
 shards are those of one of the two above.
+
+Served with the batch split over the data ranks
+(:class:`~repro_torch.models.sharding.DataGroup` ``split="batch"``), the
+layer keeps the choices of the JAX serve step, which runs the pure GSPMD
+path over the *global* batch: the capacity is that of the global tokens
+(of each global chunk of ``token_chunk``), and a choice's position in its
+expert follows global token order.  A rank holds the global tokens ``[r T,
+(r+1) T)``; it routes them, all-gathers each rank's per-expert choice
+counts in each global chunk over the data group (one gather of (chunks,
+E) int64, tagged ``"serve_moe"``), and offsets its own positions by the
+earlier ranks' counts, so that it keeps and drops exactly the choices the
+global dispatch keeps and drops.  Each global chunk the rank's tokens meet
+is dispatched apart, with that chunk's capacity.  A rank's own dispatch
+(the training path's, per worker) would keep others: its capacity would
+be that of its own tokens, its positions those of its own order.
 """
 
 from __future__ import annotations
@@ -55,29 +70,45 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import transport
+
 from .layers import wide
-from .sharding import copy_to_model, current, gather_from_model, reduce_from_model
+from .sharding import copy_to_model, current, current_data, gather_from_model, reduce_from_model
 
 __all__ = ["moe_layer", "route", "MOE_TOKEN_CHUNK"]
 
 MOE_TOKEN_CHUNK = 16_384  # dispatch-buffer working set: chunk x d x top_k x cf
 
 
-def route(router: torch.Tensor, xf: torch.Tensor, cfg):
+def capacity(cfg, t: int) -> int:
+    """The slots per expert of a dispatch of ``t`` tokens."""
+    mc = cfg.moe
+    return max(1, int(mc.capacity_factor * t * mc.top_k / mc.n_experts))
+
+
+def _top_k(router, xf, cfg):
+    """``(probs, top_p, top_e)`` of ``xf`` (T, D): the router's f32 softmax
+    and its renormalised top-k probabilities and experts."""
+    k = cfg.moe.top_k
+    probs = torch.softmax(wide(xf) @ wide(router), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    return probs, top_p / torch.sum(top_p, dim=-1, keepdim=True), top_e
+
+
+def route(router: torch.Tensor, xf: torch.Tensor, cfg, cap=None, base=None):
     """Routing and capacity slots of ``xf`` (T, D).  Returns ``(top_p, top_e,
     slot, keep, cap, aux)``: the renormalised (T, k) f32 probabilities and
     experts, each choice's slot ``e * cap + pos`` (``E * cap`` when
-    dropped), whether it is kept, the capacity, and the Switch aux loss."""
+    dropped), whether it is kept, the capacity, and the Switch aux loss.
+    ``cap`` defaults to that of T tokens; ``base`` (E,), the choices that
+    precede ``xf``'s in each expert, offsets the positions (the serving
+    dispatch over the data ranks)."""
     mc = cfg.moe
     t = xf.shape[0]
     e, k = mc.n_experts, mc.top_k
-    cap = max(1, int(mc.capacity_factor * t * k / e))
-
-    logits = wide(xf) @ wide(router)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :k], top_e[:, :k]
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    cap = capacity(cfg, t) if cap is None else cap
+    probs, top_p, top_e = _top_k(router, xf, cfg)
 
     # Switch-style load-balance loss
     me = torch.mean(probs, dim=0)
@@ -87,6 +118,8 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg):
     flat_e = top_e.reshape(-1)                                    # (T*k,)
     eo = F.one_hot(flat_e, e)
     pos = torch.sum(torch.cumsum(eo, dim=0) * eo, dim=-1) - 1     # position within the expert
+    if base is not None:
+        pos = pos + base[flat_e]
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos, torch.full_like(pos, e * cap))
     return top_p, top_e, slot.reshape(t, k), keep.reshape(t, k), cap, aux
@@ -98,14 +131,15 @@ def _swiglu(buf, w_in, w_gate, w_out):
     return torch.einsum("ecf,efd->ecd", F.silu(g) * h, w_out)
 
 
-def _run_chunk(xc, router, w_in, w_gate, w_out, cfg):
+def _run_chunk(xc, router, w_in, w_gate, w_out, cfg, cap=None, base=None):
     """One token chunk (T, D) -> (combined (T, D), aux); under a model group
-    the experts' shards of the nested path (the module's docstring)."""
+    the experts' shards of the nested path (the module's docstring);
+    ``cap`` and ``base`` as :func:`route` takes them."""
     t, d = xc.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     cdt = cfg.compute_dtype
     mp = current()
-    top_p, _, slot, keep, cap, aux = route(router, xc, cfg)
+    top_p, _, slot, keep, cap, aux = route(router, xc, cfg, cap, base)
     if mp is not None:
         xc = copy_to_model(xc, tag="moe")           # the dispatch branch is partial
         if cfg.moe.partition == "ffn":
@@ -136,6 +170,34 @@ def _run_chunk(xc, router, w_in, w_gate, w_out, cfg):
     return out, aux
 
 
+def _chunk_tokens(t: int, cfg) -> int:
+    """The tokens of one dispatch chunk of ``t`` (``_moe_chunked``): all
+    of them unless ``token_chunk`` is exceeded and divides them."""
+    chunk = cfg.moe.token_chunk or MOE_TOKEN_CHUNK
+    return t if t <= chunk or t % chunk else chunk
+
+
+def _serve_rows(xf, ws, cfg, dg):
+    """The serving dispatch of this rank's rows of a batch split over the
+    data group ``dg``: the global dispatch's capacities and positions (the
+    module's docstring).  Returns ``(combined, aux)``, the aux loss the mean
+    of this rank's segments' (serving discards it)."""
+    t, e = xf.shape[0], cfg.moe.n_experts
+    cs = _chunk_tokens(t * dg.size, cfg)
+    lo = dg.index * t
+    segs = [(c, max(c * cs, lo) - lo, min((c + 1) * cs, lo + t) - lo)
+            for c in range(lo // cs, (lo + t - 1) // cs + 1)]
+    counts = xf.new_zeros((t * dg.size // cs, e), dtype=torch.int64)
+    for c, a, b in segs:
+        top_e = _top_k(ws[0], xf[a:b], cfg)[2]
+        counts[c] = F.one_hot(top_e.reshape(-1), e).sum(dim=0)
+    every = transport.all_gather_bytes(counts, dg.size, dg.group, tag="serve_moe")
+    base = every[:dg.index].sum(dim=0)                            # (chunks, E)
+    outs, auxs = zip(*(_run_chunk(xf[a:b], *ws, cfg, capacity(cfg, cs), base[c])
+                       for c, a, b in segs))
+    return torch.cat(outs, dim=0), torch.mean(torch.stack(auxs))
+
+
 def moe_layer(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux loss).  ``p`` holds ``router``
     (D, E) f32 and the stacked expert weights ``w_in`` / ``w_gate`` (E, D,
@@ -144,7 +206,8 @@ def moe_layer(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     that it divides, the tokens run in chunks, each recomputed in the
     backward (when autograd records), and the aux loss is the chunks' mean
     (``_moe_chunked``).  At decode T = B, so the capacity, and the drops,
-    are those of B tokens."""
+    are those of B tokens: of the global batch when the serving data group
+    splits it (:func:`_serve_rows`)."""
     b, s, d = x.shape
     t = b * s
     cdt = cfg.compute_dtype
@@ -154,8 +217,11 @@ def moe_layer(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         assert p["w_in"].shape[dim] * current().size == split, "an undivided MoE split"
     xf = x.reshape(t, d)
     ws = (p["router"], p["w_in"].to(cdt), p["w_gate"].to(cdt), p["w_out"].to(cdt))
-    chunk = cfg.moe.token_chunk or MOE_TOKEN_CHUNK
-    if t <= chunk or t % chunk:
+    chunk = _chunk_tokens(t, cfg)
+    dg = current_data()
+    if dg is not None and dg.split == "batch" and dg.size > 1:
+        combined, aux = _serve_rows(xf, ws, cfg, dg)
+    elif chunk == t:
         combined, aux = _run_chunk(xf, *ws, cfg)
     else:
         outs, auxs = [], []

@@ -30,7 +30,16 @@ leaf's gradient is identical across a worker's model ranks.
 Each function takes a ``tag`` that :mod:`repro_torch.core.transport` counts
 its collectives under besides their own names (the MoE layer's ``"moe"``,
 the frontend projection's ``"frontend"``, the Mamba-2 mixer's
-``"mamba"``), in the backward too.
+``"mamba"``, the serving head's ``"head"``), in the backward too.
+
+Serving over a mesh also runs collectives across the data ranks (the
+ranks holding the same model shard of the other workers): the
+:class:`DataGroup` of :func:`data_parallel`, process-wide like the model
+group and absent outside it.  Its ``split`` says what the data axes divide:
+``"batch"``, each rank's rows of the batch (the MoE dispatch then counts
+the choices of the earlier ranks' tokens, ``moe.py``), or ``"seq"``, each
+rank's rows of the KV caches (the decode's softmax then combines across the
+ranks, ``layers.py``).
 """
 
 from __future__ import annotations
@@ -43,8 +52,9 @@ import torch.distributed as dist
 
 from repro_torch.core import transport
 
-__all__ = ["ModelGroup", "model_parallel", "current", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "vocab_parallel_ce"]
+__all__ = ["ModelGroup", "model_parallel", "current", "DataGroup", "data_parallel",
+           "current_data", "copy_to_model", "reduce_from_model", "gather_from_model",
+           "vocab_parallel_ce"]
 
 
 class ModelGroup(NamedTuple):
@@ -77,6 +87,37 @@ def model_parallel(mp: Optional[ModelGroup]):
         yield
     finally:
         _ACTIVE = prev
+
+
+class DataGroup(NamedTuple):
+    """The serving data ranks: the process ``group``, its ``size`` (the
+    flattened data axes), this rank's ``index`` in it, and what they split
+    (``"batch"`` or ``"seq"``)."""
+
+    group: object
+    size: int
+    index: int
+    split: str
+
+
+_DATA: Optional[DataGroup] = None
+
+
+def current_data() -> Optional[DataGroup]:
+    """The active serving data group, or None."""
+    return _DATA
+
+
+@contextlib.contextmanager
+def data_parallel(dg: Optional[DataGroup]):
+    """Serve with the batch or the caches' sequence split over ``dg``
+    (None: every rank holds the whole batch and caches)."""
+    global _DATA
+    prev, _DATA = _DATA, dg
+    try:
+        yield
+    finally:
+        _DATA = prev
 
 
 class _CopyToModel(torch.autograd.Function):

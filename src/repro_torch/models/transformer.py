@@ -36,7 +36,12 @@ Serving (``repro_torch.launch.serve``) runs :func:`forward` over the
 prompt with ``last_token_only`` (the prefill) and :func:`decode_step` one
 token at a time against :func:`init_caches` (per pattern position an
 ``AttnCache`` or a ``MambaCache``, each leaf stacked over ``n_blocks`` as in
-the JAX package), which the step updates in place.
+the JAX package), which the step updates in place.  Over a serving mesh the
+caches are the rank's shards (``repro_torch.launch.serve``): its rows of
+the batch or of the cache's sequence, its KV heads; the head's logits,
+vocabulary-sharded like ``lm_head``, are all-gathered along the vocabulary
+(tagged ``"head"``), so that every rank returns the whole (B, 1, V_pad)
+logits of its rows.
 
 ``remat="full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), like ``jax.checkpoint`` around the scanned
@@ -301,8 +306,9 @@ def _head(params: Mapping[str, torch.Tensor], cfg) -> torch.Tensor:
 
 def head_logits(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
     """Final hidden states -> logits over the padded vocabulary: ``x @
-    head`` in the compute dtype, widened to f32."""
-    return L.wide(x @ _head(params, cfg))
+    head`` in the compute dtype, widened to f32; under a model group the
+    rank's vocabulary columns, gathered whole."""
+    return L.wide(gather_from_model(x @ _head(params, cfg), -1, tag="head"))
 
 
 def decode_step(params: Mapping[str, torch.Tensor], tokens: torch.Tensor, caches: tuple, cfg,

@@ -3,8 +3,10 @@
     python3 tools/chip_phases.py checkpoint helpers remat
     python3 tools/chip_phases.py serve
     python3 tools/chip_phases.py mesh
+    python3 tools/chip_phases.py serve_mesh
 
-Each name is a ``<name>_phase`` function of ``chip_smoke.py``; they run in
+Each name is a ``<name>_phase`` function of ``chip_smoke.py`` (``serve_mesh``
+runs the ``serve-mesh:`` phase); they run in
 the order given, after the kernels are built (outside every timed span),
 with the script's matmul settings, and print their lines and the launches
 they return.  Exits non-zero on a failed phase, as the script does.
